@@ -1,0 +1,387 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints one JSON line; a failure raises and ends the run):
+  1. device  — the card's name, and its name and power limit from nvidia-smi.
+  2. build   — nvcc builds every kernel of the main path from
+               src/repro_torch/csrc/ into build/, all sources in parallel.
+  3. fc      — the FC kernel against its plain version (core/pipeline.py's
+               serial oracle, run on the card) on one 8192-packet chunk at
+               n_slots=8192, features and state to rtol=1e-4, atol=1e-3, plus
+               chunked carry == one shot; kernel and plain timings.
+  4. main    — the detection service at its defaults (n_slots=8192,
+               epoch=1024, 80 features, max_size=10): observe_stream over
+               262,144 benign packets, fit, process_stream(chunk=8192) over
+               262,144 eval packets of synth_trace("mirai", seed=0); launch
+               counts are zeroed just before and read just after, and every
+               kernel must have launched.
+  trace   — the eval stream again under torch.profiler: the device's busy
+               share (the events that ran on the card, each counted once)
+               and each kernel's device time per launch on the main path.
+  5. ensemble — the KitNET ensemble kernel against its plain version on the
+               k, m and h of the net fitted in phase 4, at B=8192 records
+               (≤1e-5) and chunked == one shot bit for bit; timings at the
+               main path's per-chunk batch and at B=8192.
+A kernel's ``ms`` is its device time per launch from torch.profiler, on the
+inputs its bound is computed for; ``call_ms`` is the CUDA-event time per
+back-to-back call, which includes the wrapper's host overhead.
+  6. reference — the service on a small trace, on the card and on the CPU
+               (plain versions) with the same net and threshold: equal record
+               indices, scores within 1e-3, alarms equal off the threshold.
+Then the kernel table line, the card line, and the result line last.  The
+phases' records also go to chiprun_out/chip_smoke.json.
+
+Without a CUDA device, or without the repository's src/ beside it, the
+script exits non-zero before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+FC_TOL = dict(rtol=1e-4, atol=1e-3)
+MD_TOL = 1e-5
+SCORE_TOL = 1e-3
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
+
+
+def emit(record: dict, log: list) -> None:
+    log.append(record)
+    print(json.dumps(record), flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` on the card, from CUDA events around
+    ``reps`` back-to-back calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_events(prof) -> dict:
+    """Self device time (µs) and count per name, of the events that ran on
+    the card (kernels, copies, memsets) only.  The host-side ops that
+    launched them also carry their device time, so summing every entry of
+    ``key_averages()`` would count most of it twice."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            if us > 0:
+                out[e.key] = (us, e.count)
+    return out
+
+
+def kernel_ms(fn, reps: int, kernel: str):
+    """Mean device time (ms) per launch of the kernel whose name contains
+    ``kernel``, over ``reps`` calls of ``fn``, from torch.profiler; None if
+    the profiler saw no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, calls = 0.0, 0
+    for key, (k_us, count) in device_events(prof).items():
+        if kernel in key:
+            us += k_us
+            calls += count
+    return us / calls * 1e-3 if calls else None
+
+
+def timed(fn, reps: int, kernel: str) -> dict:
+    """``ms``: the kernel's device time per launch (profiler), or the CUDA
+    event time per call where the profiler saw none; ``call_ms``: the CUDA
+    event time per back-to-back call, host overhead included."""
+    call = cuda_ms(fn, reps)
+    dev = kernel_ms(fn, reps, kernel)
+    return {"ms": call if dev is None else dev, "call_ms": call,
+            "ms_from": "events" if dev is None else "profiler"}
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def assert_close(got: torch.Tensor, want: torch.Tensor, what: str, **tol) -> None:
+    torch.testing.assert_close(got, want, msg=lambda m: f"{what}: {m}", **tol)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.pipeline import packet_rows, process_serial
+    from repro_torch.core.state import clone_state, init_state
+    from repro_torch.detection.metrics import auc
+    from repro_torch.interop import kitnet_from_arrays, kitnet_to_arrays
+    from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from repro_torch.kernels.build import build_all
+    from repro_torch.kernels.feature_update import (fc_segments,
+                                                    feature_update_full)
+    from repro_torch.kernels.kitnet_ae import (kitnet_ensemble,
+                                               kitnet_ensemble_ref)
+    from repro_torch.serving import DetectionService
+    from repro_torch.traffic import synth_trace, to_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log: list = []
+    dev = torch.device("cuda")
+
+    # ---- 1. device ----
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda}, log)
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    secs = build_all(KERNELS)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_kernel_s": secs,
+          "ptxas": {k.name: [ln for ln in k.build_log.splitlines()
+                             if "registers" in ln or "spill" in ln]
+                    for k in KERNELS}}, log)
+
+    # ---- 3. FC kernel against its plain version ----
+    n_slots, chunk = 8192, 8192
+    tr = synth_trace("mirai", n_train=64, n_benign_eval=chunk // 2,
+                     n_attack=chunk // 2, seed=1)["eval"]
+    pk = to_torch(tr, dev)
+    st0 = init_state(n_slots, device=dev)
+    st_k, f_k = feature_update_full(clone_state(st0), pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_p, f_p = process_serial(clone_state(st0), pk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert_close(f_k, f_p, "fc features", **FC_TOL)
+    state_err = 0.0
+    for g in ("uni", "bi"):
+        for name in st_p[g]:
+            assert_close(st_k[g][name], st_p[g][name], f"fc state {g}/{name}",
+                         **FC_TOL)
+            state_err = max(state_err, max_abs(st_k[g][name], st_p[g][name]))
+    st_c = clone_state(st0)
+    parts = []
+    for i in range(0, chunk, 1000):
+        st_c, f = feature_update_full(st_c, {k: v[i:i + 1000] for k, v in pk.items()})
+        parts.append(f)
+    f_c = torch.cat(parts)
+    assert_close(f_c, f_k, "fc chunked vs one shot", **FC_TOL)
+
+    st_w = clone_state(st_k)
+    fc_time = timed(lambda: feature_update_full(st_w, pk), 50, "fc_full_kernel")
+    # bound: inputs read once, touched rows read and written once, features
+    # written once; segments counted from this chunk's keys
+    skey, _ = fc_segments(packet_rows(pk, n_slots), n_slots)
+    segs = torch.ones_like(skey, dtype=torch.bool)
+    segs[1:] = skey[1:] != skey[:-1]
+    seg_kt = skey[segs] // n_slots
+    n_uni = int((seg_kt < 2).sum())
+    n_bi = int((seg_kt >= 2).sum())
+    seg_len = torch.diff(torch.cat([torch.nonzero(segs).flatten(),
+                                    torch.tensor([skey.numel()], device=dev)]))
+    fc_bytes = (chunk * (4 * 8 + 4 * 4 + 4 + 4 + 4)         # perm, skey, dir, ts, len
+                + n_uni * 4 * 16 * 2 + n_bi * (10 + 2) * 16 * 2
+                + chunk * 80 * 4)
+    fc_flops = chunk * (2 * 4 * 16 + 2 * 4 * 45)
+    fc = {"name": "fc_full", "route": "cuda",
+          "source": "src/repro_torch/csrc/fc_full.cu",
+          "replaces": "src/repro/kernels/feature_update.py:339",
+          "max_abs_err": max(max_abs(f_k, f_p), state_err), **fc_time,
+          "plain_ms": plain_ms,
+          "bound_ms": max(fc_bytes / HBM_BYTES_PER_S, fc_flops / FP32_FLOPS) * 1e3,
+          "bound_by": "bytes" if fc_bytes / HBM_BYTES_PER_S >= fc_flops / FP32_FLOPS
+          else "operations", "library_ms": None,
+          "shape": {"packets": chunk, "n_slots": n_slots},
+          "segments": {"uni": n_uni, "bi": n_bi,
+                       "longest": int(seg_len.max())},
+          "chunked_max_abs_err": max_abs(f_c, f_k)}
+    emit({"phase": "fc", **fc}, log)
+
+    # ---- 4. main path ----
+    n_pkts = 262_144
+    t0 = time.perf_counter()
+    data = synth_trace("mirai", n_train=n_pkts, n_benign_eval=n_pkts // 2,
+                       n_attack=n_pkts // 2, seed=0)
+    gen_s = time.perf_counter() - t0
+    svc = DetectionService()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.observe_stream(data["train"], chunk=8192)
+    svc.fit(seed=0, fpr=0.01)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    eval_start = svc.pkt_count
+    t0 = time.perf_counter()
+    idx, scores, alarms = svc.process_stream(data["eval"], chunk=8192)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = launch_counts()
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the main path: {missing}")
+    n_eval = len(data["eval"]["ts"])
+    want_idx = np.arange(svc.epoch - 1 - eval_start % svc.epoch, n_eval,
+                         svc.epoch) + eval_start
+    if not np.array_equal(idx, want_idx):
+        raise RuntimeError("main path record indices are not the epoch closers")
+    if not (np.isfinite(scores).all() and scores.shape == idx.shape
+            and alarms.shape == idx.shape):
+        raise RuntimeError("main path scores are not finite or misshapen")
+    labels = data["eval"]["label"][idx - eval_start]
+    net = svc.net
+    k, m = net.idx.shape
+    h = net.params["W1"].shape[-1]
+    main = {"phase": "main", "n_slots": 8192, "epoch": svc.epoch,
+            "train_pkts": n_pkts, "eval_pkts": n_eval, "trace_gen_s": gen_s,
+            "observe_fit_s": fit_s, "eval_s": eval_s, "eval_pps": n_eval / eval_s,
+            "records": int(len(scores)), "alarms": int(alarms.sum()),
+            "auc": auc(scores, labels), "threshold": svc.threshold,
+            "ae": {"k": int(k), "m": int(m), "h": int(h)}, "launches": launches}
+    emit(main, log)
+
+    # ---- 4b. the same eval stream again, traced: device busy share and
+    # kernel time by name (profiler overhead inflates the traced wall time,
+    # so the busy share is also given against the untraced eval_s) ----
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.process_stream(data["eval"], chunk=8192)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    events = device_events(prof)
+    dev_us = {key: us for key, (us, _) in events.items()}
+    kern_us, kern_calls = {}, {}
+    for key, (us, count) in events.items():
+        for kern in KERNELS:
+            if f"{kern.name}_kernel" in key:
+                kern_us[kern.name] = kern_us.get(kern.name, 0.0) + us
+                kern_calls[kern.name] = kern_calls.get(kern.name, 0) + count
+    busy_s = sum(dev_us.values()) * 1e-6
+    # each kernel's device time per launch on the main path, at its shapes
+    traced_ms = {name: kern_us[name] / kern_calls[name] * 1e-3 for name in kern_us}
+    emit({"phase": "trace", "traced_s": traced_s, "device_busy_s": busy_s,
+          "busy_share_traced": busy_s / traced_s,
+          "busy_share_untraced": busy_s / eval_s,
+          "kernel_device_ms_per_launch": traced_ms,
+          "kernel_share_of_busy": {name: kern_us[name] * 1e-6 / busy_s
+                                   for name in kern_us},
+          "kernel_launches_traced": kern_calls,
+          "top_device_us": dict(sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]),
+          "top_host_self_us": dict(sorted(
+              ((e.key, e.self_cpu_time_total) for e in prof.key_averages()),
+              key=lambda kv: -kv[1])[:12])},
+         log)
+
+    # ---- 5. ensemble kernel against its plain version ----
+    B = 8192
+    rng = np.random.default_rng(2)
+    x_sub = torch.from_numpy(rng.uniform(0.0, 1.2, (B, k, m)).astype(np.float32)).to(dev)
+    p = net.params
+    args = (p["W1"], p["b1"], p["W2"], p["b2"], net.mask)
+    r_k = kitnet_ensemble(x_sub, *args)
+    r_p = kitnet_ensemble_ref(x_sub, *args)
+    torch.cuda.synchronize()
+    md_err = max_abs(r_k, r_p)
+    if not md_err <= MD_TOL:
+        raise RuntimeError(f"ensemble kernel vs plain: max abs err {md_err}")
+    r_c = torch.cat([kitnet_ensemble(x_sub[i:i + 37], *args) for i in range(0, 1110, 37)]
+                    + [kitnet_ensemble(x_sub[1110:], *args)])
+    if not torch.equal(r_c, r_k):
+        raise RuntimeError("ensemble kernel: chunked scores differ from one shot")
+    b_main = -(-8192 // svc.epoch)          # records per 8192-packet chunk
+
+    def ens_cost(b):
+        byts = (b * k * m + k * (2 * m * h + h + 2 * m) + b * k) * 4
+        flops = b * k * (4 * m * h + 10 * m + 4 * h)
+        return byts, flops, max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+
+    xs = x_sub[:b_main].contiguous()
+    e_bytes, e_flops, e_bound = ens_cost(b_main)
+    big_bytes, big_flops, big_bound = ens_cost(B)
+    ens = {"name": "kitnet_ae", "route": "cuda",
+           "source": "src/repro_torch/csrc/kitnet_ae.cu",
+           "replaces": "src/repro/kernels/kitnet_ae.py:38",
+           "max_abs_err": md_err,
+           **timed(lambda: kitnet_ensemble(xs, *args), 200, "kitnet_ae_kernel"),
+           "plain_ms": cuda_ms(lambda: kitnet_ensemble_ref(xs, *args), reps=200),
+           "bound_ms": e_bound,
+           "bound_by": "bytes" if e_bytes / HBM_BYTES_PER_S >= e_flops / FP32_FLOPS
+           else "operations", "library_ms": None,
+           "shape": {"B": b_main, "k": int(k), "m": int(m), "h": int(h)},
+           "B8192": timed(lambda: kitnet_ensemble(x_sub, *args), 200, "kitnet_ae_kernel"),
+           "B8192_plain_ms": cuda_ms(lambda: kitnet_ensemble_ref(x_sub, *args), reps=200),
+           "B8192_bound_ms": big_bound,
+           "B8192_bound_by": "bytes" if big_bytes / HBM_BYTES_PER_S >= big_flops / FP32_FLOPS
+           else "operations"}
+    emit({"phase": "ensemble", **ens}, log)
+
+    # ---- 6. the service on the card against the plain versions on the CPU ----
+    small = synth_trace("syn_dos", n_train=64, n_benign_eval=1024,
+                        n_attack=1024, seed=3)["eval"]
+    arrays = kitnet_to_arrays(net)
+    outs = {}
+    for where in ("cuda", "cpu"):
+        s = DetectionService(epoch=64, n_slots=1024, device=where,
+                             threshold=svc.threshold)
+        s.net = kitnet_from_arrays(arrays, device=where)
+        outs[where] = s.process_stream(small, chunk=512)
+    (i_g, s_g, a_g), (i_c, s_c, a_c) = outs["cuda"], outs["cpu"]
+    if not np.array_equal(i_g, i_c):
+        raise RuntimeError("card and CPU record indices differ")
+    score_err = float(np.abs(s_g - s_c).max())
+    if not score_err <= SCORE_TOL:
+        raise RuntimeError(f"card vs CPU scores differ by {score_err}")
+    near = np.abs(s_c - svc.threshold) <= SCORE_TOL
+    if not np.array_equal(a_g[~near], a_c[~near]):
+        raise RuntimeError("card and CPU alarms differ away from the threshold")
+    emit({"phase": "reference", "records": int(len(i_g)),
+          "max_score_err": score_err, "alarms": int(a_g.sum())}, log)
+
+    # ---- report ----
+    fc["launches"] = launches["fc_full"]
+    ens["launches"] = launches["kitnet_ae"]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    table = {"kernels": [{key: kern[key] for key in keys} for kern in (fc, ens)]}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"phases": log, **table, "card": smi}, indent=1))
+    print(json.dumps(table))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,169 @@
+"""Flow-state tables and flow-key hashing (port of ``repro.core.state``).
+
+Slots are direct-indexed by ``hash(flow_key) % n_slots`` with no collision
+resolution, exactly like the switch's register arrays (DESIGN.md §1).  Four
+decay instances per atom (lambda = 10, 1, 1/10, 1/60).
+
+The state is a dict of device tensors with the JAX package's shapes.  The
+feature step updates these tensors in place; that takes the place of the
+JAX package's buffer donation (DESIGN.md §8): a caller that needs a restore
+point clones the tensors (``clone_state``) before the step.
+
+Only the dense layout is ported; the Count-Min sketch state waits for a
+later slice (ROADMAP queue 1 item 8).
+
+Hashing runs on int64 tensors that hold uint32 values: every product is
+split so that it stays below 2^63, and masked back to 32 bits, which keeps
+the slot mapping bit-identical to the JAX package's uint32 arithmetic.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+LAMBDAS = (10.0, 1.0, 0.1, 1.0 / 60.0)
+N_DECAY = len(LAMBDAS)
+
+# key types
+UNI_KEYS = ("src_mac_ip", "src_ip")            # unidirectional stats
+BI_KEYS = ("channel", "socket")                # bidirectional stats
+N_UNI, N_BI = len(UNI_KEYS), len(BI_KEYS)
+
+UNI_STATS = ("w", "mean", "std")
+BI_STATS = ("w", "mean", "std", "magnitude", "radius", "cov", "pcc")
+N_FEATURES = N_UNI * N_DECAY * len(UNI_STATS) + N_BI * N_DECAY * len(BI_STATS)
+
+FEATURE_NAMES = tuple(
+    f"{k}:{lam}:{s}"
+    for k in UNI_KEYS for lam in LAMBDAS for s in UNI_STATS
+) + tuple(
+    f"{k}:{lam}:{s}"
+    for k in BI_KEYS for lam in LAMBDAS for s in BI_STATS
+)
+
+# per-key-type base hash salts
+KEY_SALTS = {"src_mac_ip": 1, "src_ip": 2, "channel": 3, "socket": 4}
+
+_MASK32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B1
+_FNV = 0x811C9DC5
+
+
+def init_state(n_slots: int, state_backend: str = "dense",
+               device: DeviceLike = None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Fresh dense flow tables on ``device`` (default ``cuda``).
+
+    Uni tables are (N_UNI, n_slots, N_DECAY); bi tables carry a direction
+    axis (N_BI, n_slots, 2, N_DECAY) plus channel-level SR state.  The
+    ``rr`` round-robin counters belong to switch mode and are only carried.
+    """
+    if state_backend != "dense":
+        raise NotImplementedError(
+            f"state_backend={state_backend!r} is not ported yet; only the "
+            "dense state is (ROADMAP queue 1 item 8: sketch state backend)")
+    dev = resolve_device(device)
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def neg(*shape):
+        return torch.full(shape, -1.0, dtype=torch.float32, device=dev)
+
+    return {
+        "uni": {
+            "last_t": neg(N_UNI, n_slots, N_DECAY),
+            "w": z(N_UNI, n_slots, N_DECAY),
+            "ls": z(N_UNI, n_slots, N_DECAY),
+            "ss": z(N_UNI, n_slots, N_DECAY),
+            "rr": z(N_UNI, n_slots, dtype=torch.int32),
+        },
+        "bi": {
+            "last_t": neg(N_BI, n_slots, 2, N_DECAY),
+            "w": z(N_BI, n_slots, 2, N_DECAY),
+            "ls": z(N_BI, n_slots, 2, N_DECAY),
+            "ss": z(N_BI, n_slots, 2, N_DECAY),
+            "sr": z(N_BI, n_slots, N_DECAY),
+            "sr_last_t": neg(N_BI, n_slots, N_DECAY),
+            "res_last": z(N_BI, n_slots, 2, N_DECAY),
+            "rr": z(N_BI, n_slots, dtype=torch.int32),
+        },
+    }
+
+
+def state_slots(state: Dict) -> int:
+    """Slot count of a dense state, read from its table shapes."""
+    return state["uni"]["w"].shape[1]
+
+
+def state_device(state: Dict) -> torch.device:
+    return state["uni"]["w"].device
+
+
+def clone_state(state: Dict) -> Dict:
+    """A copy of every table: the restore point for an in-place step."""
+    return {g: {k: v.clone() for k, v in tabs.items()}
+            for g, tabs in state.items()}
+
+
+# ---------------------------------------------------------------------------
+# Flow-key hashing (CRC-like mix, vectorised)
+# ---------------------------------------------------------------------------
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``(h * c) mod 2^32`` for int64 tensors holding uint32 values.  The
+    product is split at bit 16 of ``c`` so no partial product reaches 2^49."""
+    hi = (h * (c >> 16)) & 0xFFFF
+    return ((hi << 16) + h * (c & 0xFFFF)) & _MASK32
+
+
+def _mix(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    h = _mul32(h ^ v, _GOLDEN)
+    return h ^ (h >> 15)
+
+
+def hash_fields(fields, salt: int) -> torch.Tensor:
+    """uint32 multiply-xorshift hash of a tuple of uint32 fields (held in
+    int64 tensors); returns int64 values in [0, 2^32)."""
+    h = torch.full_like(fields[0], (salt ^ _FNV) & _MASK32, dtype=torch.int64)
+    for f in fields:
+        h = _mix(h, f.to(torch.int64) & _MASK32)
+    return h
+
+
+def key_fields(pkts) -> Tuple[Dict[str, Tuple], torch.Tensor]:
+    """Canonicalised per-key-type hash-field tuples + channel dir bit.
+
+    Addresses and ports are uint32 values held in int64 tensors, so the
+    ``src < dst`` canonicalisation compares them unsigned.
+    """
+    src, dst = pkts["src"], pkts["dst"]
+    sport, dport = pkts["sport"], pkts["dport"]
+    lo_is_src = (src < dst) | ((src == dst) & (sport <= dport))
+    ip_lo = torch.where(lo_is_src, src, dst)
+    ip_hi = torch.where(lo_is_src, dst, src)
+    p_lo = torch.where(lo_is_src, sport, dport)
+    p_hi = torch.where(lo_is_src, dport, sport)
+    fields = {
+        "src_mac_ip": (src,),
+        "src_ip": (src,),
+        "channel": (ip_lo, ip_hi),
+        "socket": (ip_lo, ip_hi, p_lo, p_hi, pkts["proto"]),
+    }
+    return fields, (~lo_is_src).to(torch.int64)
+
+
+def packet_slots(pkts: Dict[str, torch.Tensor],
+                 n_slots: int) -> Dict[str, torch.Tensor]:
+    """Per-packet slot indices (int64) + channel direction bit.
+
+    Channel/socket keys are canonicalised (min/max endpoint) so both
+    directions land in the same slot; ``dir`` = 0 if src is the canonical
+    low endpoint else 1.  Equal IPs break the tie on ports.
+    """
+    fields, dirb = key_fields(pkts)
+    out = {k: hash_fields(f, KEY_SALTS[k]) % n_slots
+           for k, f in fields.items()}
+    out["dir"] = dirb
+    return out

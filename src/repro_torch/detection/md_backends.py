@@ -1,0 +1,105 @@
+"""MD (scoring) backend registry (port of ``repro.detection.md_backends``).
+
+    scores = score_records(net, feats, backend="cuda")
+
+Backends (per-record anomaly scores agree to ≤1e-5):
+
+  * ``einsum`` — plain PyTorch: the ensemble as two batched einsums
+    (detection/kitnet.py).  The training-time reference.
+  * ``cuda``   — the hand-written ensemble kernel (kernels/kitnet_ae.py,
+    ``csrc/kitnet_ae.cu``); aliases ``pallas`` and ``kernel``.
+    The gather + normalisation in front of it and the output AE after it
+    stay plain torch ops, as the JAX package leaves them to XLA.  For CPU
+    tensors it runs the plain version.
+
+Each backend supplies the ensemble stage ``fn(params, idx, mask, xn) ->
+(B, k)`` plus the full scoring function built around it; ``train_kitnet``
+runs its training-set RMSE pass through the same backend it scores with
+(DESIGN.md §3).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.detection.kitnet import _normalize, ensemble_rmse, output_rmse
+
+
+class _MDBackend(NamedTuple):
+    score: Callable      # fn(net, X (B,F) tensor) -> (B,) scores
+    ensemble: Callable   # fn(params, idx, mask, xn (B,F)) -> (B,k) RMSE
+
+
+_REGISTRY: Dict[str, _MDBackend] = {}
+
+_ALIASES = {"pallas": "cuda", "kernel": "cuda"}
+
+
+def _scorer(ensemble: Callable) -> Callable:
+    """The full scoring path around one ensemble stage: normalise, the
+    ensemble RMSEs, normalise those, then the output AE."""
+    def score(net, X):
+        xn = _normalize(X, net.norm_min, net.norm_max)
+        r = ensemble(net.params, net.idx, net.mask, xn)
+        return output_rmse(net.params, _normalize(r, net.out_min, net.out_max))
+    return score
+
+
+def register_md_backend(name: str, *, ensemble: Callable):
+    """Register an MD backend by its ensemble stage."""
+    _REGISTRY[name] = _MDBackend(score=_scorer(ensemble), ensemble=ensemble)
+
+
+def available_md_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def resolve_md_backend(name: str) -> str:
+    """Canonical MD backend name (alias-aware); raises on unknown names."""
+    name = _ALIASES.get(name, name)
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown MD backend {name!r}; "
+                         f"available: {available_md_backends()}")
+    return name
+
+
+def default_md_backend() -> str:
+    return "cuda"
+
+
+def _ensemble_einsum(params, idx, mask, xn):
+    return ensemble_rmse(params, idx, mask, xn)
+
+
+def _ensemble_cuda(params, idx, mask, xn):
+    from repro_torch.kernels.kitnet_ae import kitnet_ensemble
+    return kitnet_ensemble(xn[:, idx], params["W1"], params["b1"],
+                           params["W2"], params["b2"], mask)
+
+
+register_md_backend("einsum", ensemble=_ensemble_einsum)
+register_md_backend("cuda", ensemble=_ensemble_cuda)
+
+
+def md_score_fn(backend: str = "cuda") -> Callable:
+    """The selected backend's scoring callable ``fn(net, X) -> (B,)``, with
+    ``X`` a (B, F) tensor on the net's device; the result stays there."""
+    return _REGISTRY[resolve_md_backend(backend)].score
+
+
+def score_records(net, feats, backend: str = "cuda") -> np.ndarray:
+    """Anomaly RMSE per feature record through the selected MD backend, as
+    a host array.  Per-record scores do not depend on the batch."""
+    X = torch.as_tensor(feats, dtype=torch.float32).to(net.device)
+    with torch.no_grad():
+        return md_score_fn(backend)(net, X).cpu().numpy()
+
+
+def ensemble_rmse_records(params, idx, mask, xn,
+                          backend: str = "cuda") -> torch.Tensor:
+    """The ensemble stage alone: normalised records (B, F) -> (B, k) RMSE."""
+    with torch.no_grad():
+        return _REGISTRY[resolve_md_backend(backend)].ensemble(params, idx,
+                                                               mask, xn)

@@ -1,0 +1,58 @@
+"""Weights and flow state carried into the port as numpy arrays.
+
+A KitNET fitted elsewhere (for example by the JAX package) and a dense flow
+state cross as plain dicts of numpy arrays, so the port never sees another
+framework's objects:
+
+    net = kitnet_from_arrays({"idx": ..., "W1": ..., ...}, device="cuda")
+    state = state_from_arrays({"uni": {...}, "bi": {...}}, device="cuda")
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.detection.kitnet import KitNet
+from repro_torch.device import DeviceLike, resolve_device
+
+PARAM_FIELDS = ("W1", "b1", "W2", "b2", "V1", "c1", "V2", "c2")
+KITNET_FIELDS = ("idx", "mask") + PARAM_FIELDS + (
+    "norm_min", "norm_max", "out_min", "out_max")
+
+
+def kitnet_from_arrays(d: Dict[str, np.ndarray],
+                       device: DeviceLike = None) -> KitNet:
+    """A :class:`KitNet` from the arrays named in ``KITNET_FIELDS``."""
+    missing = set(KITNET_FIELDS) - set(d)
+    if missing:
+        raise KeyError(f"KitNET arrays missing {sorted(missing)}")
+    dev = resolve_device(device)
+
+    def f32(name):
+        return torch.from_numpy(np.array(d[name], np.float32)).to(dev)
+
+    return KitNet(
+        idx=torch.from_numpy(np.array(d["idx"], np.int64)).to(dev),
+        mask=f32("mask"), params={n: f32(n) for n in PARAM_FIELDS},
+        norm_min=f32("norm_min"), norm_max=f32("norm_max"),
+        out_min=f32("out_min"), out_max=f32("out_max"))
+
+
+def kitnet_to_arrays(net: KitNet) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`kitnet_from_arrays`."""
+    out = {"idx": net.idx, "mask": net.mask, **net.params,
+           "norm_min": net.norm_min, "norm_max": net.norm_max,
+           "out_min": net.out_min, "out_max": net.out_max}
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def state_from_arrays(nested: Dict[str, Dict[str, np.ndarray]],
+                      device: DeviceLike = None) -> Dict:
+    """A dense flow state from ``{"uni": {...}, "bi": {...}}`` numpy arrays
+    (``rr`` counters as int32, every other table as float32)."""
+    dev = resolve_device(device)
+    return {g: {k: torch.from_numpy(np.array(
+        v, np.int32 if k == "rr" else np.float32)).to(dev)
+        for k, v in tabs.items()} for g, tabs in nested.items()}

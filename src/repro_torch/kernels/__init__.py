@@ -1,0 +1,19 @@
+"""Hand-written CUDA kernels of the port and their wrappers.
+
+Each wrapper runs its plain PyTorch version for CPU tensors and launches its
+kernel for CUDA tensors; ``KERNELS`` lists every kernel with its launch
+count.  Nothing is compiled at import.
+"""
+from repro_torch.kernels.feature_update import FC_FULL, feature_update_full  # noqa: F401
+from repro_torch.kernels.kitnet_ae import KITNET_AE, kitnet_ensemble  # noqa: F401
+
+KERNELS = (FC_FULL, KITNET_AE)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}

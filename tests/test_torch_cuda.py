@@ -1,0 +1,96 @@
+"""PyTorch port, the CUDA kernels on the card: each kernel against its plain
+PyTorch version at small sizes, launch counting, and the wrappers' checks.
+
+Marked ``cuda``; each test skips without a CUDA device.  Run on the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.core import clone_state, init_state, process_serial
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.feature_update import feature_update_full
+from repro_torch.kernels.kitnet_ae import kitnet_ensemble, kitnet_ensemble_ref
+from repro_torch.traffic import synth_trace, to_torch
+
+pytestmark = pytest.mark.cuda
+
+FC_TOL = dict(rtol=1e-4, atol=1e-3)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("attack", ["mirai", "arp_mitm", "active_wiretap",
+                                    "ssh_bruteforce", "video_injection"])
+def test_fc_kernel_matches_plain(dev, attack):
+    tr = synth_trace(attack, n_train=64, n_benign_eval=512, n_attack=512,
+                     seed=0)["eval"]
+    pk = to_torch(tr, dev)
+    st0 = init_state(512, device=dev)
+    reset_launch_counts()
+    st_k, f_k = feature_update_full(clone_state(st0), pk)
+    assert launch_counts()["fc_full"] == 1
+    st_p, f_p = process_serial(clone_state(st0), pk)
+    torch.testing.assert_close(f_k, f_p, **FC_TOL)
+    for g in st_p:
+        for k in st_p[g]:
+            torch.testing.assert_close(st_k[g][k], st_p[g][k], **FC_TOL)
+
+
+def test_fc_kernel_chunked_carry(dev):
+    pk = to_torch(synth_trace("mirai", n_train=64, n_benign_eval=600,
+                              n_attack=600, seed=1)["eval"], dev)
+    st_a, f_once = feature_update_full(init_state(1024, device=dev), pk)
+    st_b = init_state(1024, device=dev)
+    parts = []
+    for i in range(0, 1200, 250):
+        st_b, f = feature_update_full(st_b, {k: v[i:i + 250] for k, v in pk.items()})
+        parts.append(f)
+    torch.testing.assert_close(torch.cat(parts), f_once, **FC_TOL)
+
+
+@pytest.mark.parametrize("m,h", [(10, 8), (3, 3), (16, 12), (32, 24)])
+def test_ensemble_kernel_matches_plain_and_is_batch_independent(dev, m, h):
+    g = torch.Generator().manual_seed(m)
+    k, B = 7, 1000
+    x = torch.rand(B, k, m, generator=g).to(dev)
+    w1 = (torch.randn(k, m, h, generator=g) * 0.3).to(dev)
+    b1 = (torch.randn(k, h, generator=g) * 0.1).to(dev)
+    w2 = (torch.randn(k, h, m, generator=g) * 0.3).to(dev)
+    b2 = (torch.randn(k, m, generator=g) * 0.1).to(dev)
+    mask = (torch.rand(k, m, generator=g) > 0.2).float().to(dev)
+    args = (w1, b1, w2, b2, mask)
+    got = kitnet_ensemble(x, *args)
+    torch.testing.assert_close(got, kitnet_ensemble_ref(x, *args),
+                               rtol=1e-5, atol=1e-5)
+    chunked = torch.cat([kitnet_ensemble(x[i:i + 37], *args)
+                         for i in range(0, B, 37)])
+    assert torch.equal(chunked, got)
+
+
+def test_wrappers_reject_bad_inputs(dev):
+    x = torch.rand(8, 2, 4, device=dev)
+    w1 = torch.rand(2, 4, 3, device=dev)
+    args = (w1, torch.rand(2, 3, device=dev), torch.rand(2, 3, 4, device=dev),
+            torch.rand(2, 4, device=dev), torch.ones(2, 4, device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        kitnet_ensemble(x.double(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        kitnet_ensemble(x.transpose(0, 1).contiguous().transpose(0, 1), *args)
+    big = torch.rand(8, 2, 33, device=dev)
+    with pytest.raises(ValueError, match="compiled maximum"):
+        kitnet_ensemble(big, torch.rand(2, 33, 25, device=dev),
+                        torch.rand(2, 25, device=dev),
+                        torch.rand(2, 25, 33, device=dev),
+                        torch.rand(2, 33, device=dev), torch.ones(2, 33, device=dev))
+    st = init_state(64, device=dev)
+    pk = to_torch(synth_trace("mirai", n_train=16, n_benign_eval=16,
+                              n_attack=16, seed=0)["eval"], "cpu")
+    with pytest.raises(ValueError, match="device"):
+        feature_update_full(st, pk)
