@@ -4,21 +4,38 @@
 
 Phases (each prints one JSON line; a failure raises and ends the run):
   1. device  — the card's name, and its name and power limit from nvidia-smi.
-  2. build   — nvcc builds every kernel of the main path from
+  2. build   — nvcc builds every kernel of the port from
                src/repro_torch/csrc/ into build/, all sources in parallel.
   3. fc      — the FC kernel against its plain version (core/pipeline.py's
                serial oracle, run on the card) on one 8192-packet chunk at
                n_slots=8192, features and state to rtol=1e-4, atol=1e-3, plus
                chunked carry == one shot; kernel and plain timings.
+  sketch  — the sketch kernel against its plain version (core/sketch.py's
+               process_sketch, run on the card) at the sketch main path's
+               W=4096, R=2 on the second 8192-packet chunk of a mirai
+               stream (from the state the first chunk left), and on a
+               4096-packet chunk at W=64, R=4 with evict_age=0.5 (rows
+               collide, cells age out), features and state to rtol=1e-4,
+               atol=1e-3; chunked carry == one shot; at R=1, W=8192 its
+               state equals phase fc's dense kernel state bit for bit;
+               timings on the compared W=4096, R=2 chunk.
+  fc_single — the single-key kernel's entry point driven once with the
+               launch counts zeroed (its path), then against its plain
+               version at n=8192, n_slots=8192 (rtol=1e-4, atol=1e-3) and
+               chunked == one shot.
   4. main    — the detection service at its defaults (n_slots=8192,
                epoch=1024, 80 features, max_size=10): observe_stream over
                262,144 benign packets, fit, process_stream(chunk=8192) over
                262,144 eval packets of synth_trace("mirai", seed=0); launch
-               counts are zeroed just before and read just after, and every
-               kernel must have launched.
+               counts are zeroed just before and read just after, and both
+               of its kernels (fc_full, kitnet_ae) must have launched.
   trace   — the eval stream again under torch.profiler: the device's busy
                share (the events that ran on the card, each counted once)
                and each kernel's device time per launch on the main path.
+  sketch_main — the service with sketch state (n_slots=4096, rows=2) over
+               the same traffic as phase 4, counts zeroed just before and
+               read just after: the sketch and ensemble kernels must have
+               launched; then sketch_trace, its eval stream traced.
   5. ensemble — the KitNET ensemble kernel against its plain version on the
                k, m and h of the net fitted in phase 4, at B=8192 records
                (≤1e-5) and chunked == one shot bit for bit; timings at the
@@ -29,6 +46,8 @@ back-to-back call, which includes the wrapper's host overhead.
   6. reference — the service on a small trace, on the card and on the CPU
                (plain versions) with the same net and threshold: equal record
                indices, scores within 1e-3, alarms equal off the threshold.
+  sketch_reference — the same for the sketch service (rows=2, width 256,
+               evict_age=1), with phase sketch_main's net.
 Then the kernel table line, the card line, and the result line last.  The
 phases' records also go to chiprun_out/chip_smoke.json.
 
@@ -42,6 +61,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -127,6 +147,300 @@ def assert_close(got: torch.Tensor, want: torch.Tensor, what: str, **tol) -> Non
     torch.testing.assert_close(got, want, msg=lambda m: f"{what}: {m}", **tol)
 
 
+def trace_eval(svc, pkts, eval_s: float, kernels) -> dict:
+    """The eval stream once more under torch.profiler: the device's busy
+    share and each kernel's device time by name (profiler overhead inflates
+    the traced wall time, so the busy share is also given against the
+    untraced ``eval_s``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.process_stream(pkts, chunk=8192)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    events = device_events(prof)
+    dev_us = {key: us for key, (us, _) in events.items()}
+    kern_us, kern_calls = {}, {}
+    for key, (us, count) in events.items():
+        for kern in kernels:
+            if f"{kern.name}_kernel" in key:
+                kern_us[kern.name] = kern_us.get(kern.name, 0.0) + us
+                kern_calls[kern.name] = kern_calls.get(kern.name, 0) + count
+    busy_s = sum(dev_us.values()) * 1e-6
+    # each kernel's device time per launch on the path, at its shapes
+    traced_ms = {name: kern_us[name] / kern_calls[name] * 1e-3 for name in kern_us}
+    return {"traced_s": traced_s, "device_busy_s": busy_s,
+            "busy_share_traced": busy_s / traced_s,
+            "busy_share_untraced": busy_s / eval_s,
+            "kernel_device_ms_per_launch": traced_ms,
+            "kernel_share_of_busy": {name: kern_us[name] * 1e-6 / busy_s
+                                     for name in kern_us},
+            "kernel_launches_traced": kern_calls,
+            "top_device_us": dict(sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]),
+            "top_host_self_us": dict(sorted(
+                ((e.key, e.self_cpu_time_total) for e in prof.key_averages()),
+                key=lambda kv: -kv[1])[:12])}
+
+
+def bound(byts: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or float
+    operations over the float32 rate, whichever is larger."""
+    by_bytes = byts / HBM_BYTES_PER_S >= ops / FP32_FLOPS
+    return {"bound_ms": max(byts / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3,
+            "bound_by": "bytes" if by_bytes else "operations"}
+
+
+def sketch_cost(pk, rows: int, width: int) -> Tuple[float, float]:
+    """Bytes and float operations one sketch call needs on this chunk: the
+    function's inputs read once (the R hashed rows of each of the 4 key
+    types, hashed outside the kernel as in the TPU kernel, dir, ts, length,
+    evict_age), every touched cell read once and written once, 320 B of
+    features a packet; about 20 operations a (row, decay) cell and 30 a
+    decay for the statistics."""
+    from repro_torch.kernels.sketch_update import kernel_rows
+    idx, dirb = kernel_rows(pk, rows, width)
+    n = idx.shape[1]
+    uni = torch.unique(idx[:2]).numel()                 # uni rows, 4 tables
+    d = dirb[None, :, None].expand_as(idx[2:])
+    own = torch.unique(idx[2:] * 2 + d)
+    opp = torch.unique(idx[2:] * 2 + 1 - d)
+    either = torch.unique(torch.cat([own, opp])).numel()
+    sr = torch.unique(idx[2:]).numel()                  # SR rows, 3 tables
+    byts = (n * (4 * rows * 4 + 4 + 4 + 4) + 4 + n * 80 * 4
+            + uni * 4 * 16 * 2
+            + (either - opp.numel()) * 4 * 16 + opp.numel() * 5 * 16
+            + own.numel() * 5 * 16 + sr * 3 * 16 * 2)
+    ops = n * 4 * 4 * (rows * 20 + 30)
+    return byts, ops
+
+
+def phase_sketch(dev, pk8192, st_dense, log) -> dict:
+    """The sketch kernel against its plain version, run on the card: at the
+    sketch main path's W=4096, R=2 on the second 8192-packet chunk of a
+    mirai stream, from the state the first chunk left (as every chunk but
+    the first meets it on the main path), and on one 4096-packet chunk at
+    W=64, R=4 with eviction (rows collide, cells age out) from a fresh
+    state; chunked carry against one shot; and at R=1, W=8192 its state
+    against the dense FC kernel's."""
+    from repro_torch.core.sketch import process_sketch
+    from repro_torch.core.state import clone_state, init_state
+    from repro_torch.kernels.sketch_update import sketch_update_full
+    from repro_torch.traffic import synth_trace, to_torch
+
+    stream = to_torch(synth_trace("mirai", n_train=64, n_benign_eval=8192,
+                                  n_attack=8192, seed=0)["eval"], dev)
+    chunk2 = {k: v[8192:16384] for k, v in stream.items()}
+    st_main = init_state(4096, "sketch", device=dev, rows=2)
+    sketch_update_full(st_main, {k: v[:8192] for k, v in stream.items()})
+    tr = synth_trace("mirai", n_train=64, n_benign_eval=2048, n_attack=2048,
+                     seed=0)["eval"]
+    pk = to_torch(tr, dev)
+    n = len(tr["ts"])
+    cases, plain_ms = {}, {}
+    for name, st0, p in (("W4096_R2_age0.0", st_main, chunk2),
+                         ("W64_R4_age0.5", init_state(64, "sketch", device=dev,
+                                                      rows=4, evict_age=0.5), pk)):
+        st_k, f_k = sketch_update_full(clone_state(st0), p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_p, f_p = process_sketch(clone_state(st0), p)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+        assert_close(f_k, f_p, f"sketch {name} features", **FC_TOL)
+        err, same = max_abs(f_k, f_p), torch.equal(f_k, f_p)
+        for g in ("uni", "bi"):
+            for key in st_p[g]:
+                assert_close(st_k[g][key], st_p[g][key], f"sketch {name} state "
+                             f"{g}/{key}", **FC_TOL)
+                err = max(err, max_abs(st_k[g][key], st_p[g][key]))
+                same = same and torch.equal(st_k[g][key], st_p[g][key])
+        cases[name] = {"packets": int(p["ts"].shape[0]), "max_abs_err": err,
+                       "bitwise": same, "plain_ms": plain_ms[name]}
+    f_age, st_age = f_k, st_k
+    # eviction had an effect: the same chunk without aging differs
+    _, f_noage = sketch_update_full(
+        init_state(64, "sketch", device=dev, rows=4), pk)
+    changed = float((f_noage != f_age).float().mean())
+    if changed == 0.0:
+        raise RuntimeError("sketch: no cell aged out in the eviction case")
+    cases["W64_R4_age0.5"]["features_changed_by_eviction"] = changed
+    # chunked carry against one shot, at the colliding, aging case
+    st_c = init_state(64, "sketch", device=dev, rows=4, evict_age=0.5)
+    f_c = torch.cat([sketch_update_full(st_c, {k: v[i:i + 1000] for k, v in pk.items()})[1]
+                     for i in range(0, n, 1000)])
+    assert_close(f_c, f_age, "sketch chunked vs one shot", **FC_TOL)
+    for g in ("uni", "bi"):
+        for key in st_c[g]:
+            assert_close(st_c[g][key], st_age[g][key],
+                         f"sketch chunked state {g}/{key}", **FC_TOL)
+    # R=1, W=8192: the sketch kernel's state is the dense FC kernel's
+    st_1, _ = sketch_update_full(init_state(8192, "sketch", device=dev, rows=1), pk8192)
+    for g in ("uni", "bi"):
+        for key in st_dense[g]:
+            if key != "rr" and not torch.equal(st_1[g][key][:, 0], st_dense[g][key]):
+                raise RuntimeError(f"sketch R=1 state {g}/{key} differs from fc_full's")
+    # times: the compared main-path case, each call on a fresh copy of the
+    # state the first chunk left (call_ms includes the 4.25 MiB copy); and
+    # the same chunk replayed onto the state it left itself, where every
+    # cell's last time is at or past the packet's, so dt = 0
+    t_main = timed(lambda: sketch_update_full(clone_state(st_main), chunk2), 20,
+                   "sketch_update_kernel")
+    st_r = clone_state(st_main)
+    sketch_update_full(st_r, chunk2)
+    t_replay = timed(lambda: sketch_update_full(st_r, chunk2), 20, "sketch_update_kernel")
+    return {"name": "sketch_update", "route": "cuda",
+            "source": "src/repro_torch/csrc/sketch_update.cu",
+            "replaces": "src/repro/kernels/sketch_update.py:243",
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            **t_main, "plain_ms": plain_ms["W4096_R2_age0.0"],
+            **bound(*sketch_cost(chunk2, 2, 4096)), "library_ms": None,
+            "shape": {"packets": 8192, "width": 4096, "rows": 2, "chunk": 2},
+            "cases": cases, "chunked_max_abs_err": max_abs(f_c, f_age),
+            "r1_state_equals_fc_full": True, "replayed_chunk": t_replay}
+
+
+def phase_fc_single(dev, pk8192) -> Tuple[dict, int]:
+    """The single-key kernel: its public entry point driven once with the
+    launch counts zeroed just before (its path), then held against its plain
+    version on the card at n=8192, n_slots=8192; chunked == one shot."""
+    from repro_torch.core.state import packet_slots
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.feature_update import (TABLE_KEYS, feature_update,
+                                                    feature_update_ref)
+    n_slots = 8192
+    slots = packet_slots(pk8192, n_slots)["src_ip"]
+    ts, lens = pk8192["ts"], pk8192["length"]
+    n = ts.shape[0]
+
+    def fresh():
+        return {f: torch.full((n_slots, 4), -1.0 if f == "last_t" else 0.0,
+                              device=dev) for f in TABLE_KEYS}
+
+    reset_launch_counts()
+    tab_k, s_k = feature_update(fresh(), slots, ts, lens)
+    torch.cuda.synchronize()
+    launches = launch_counts()["feature_update"]
+    if launches == 0:
+        raise RuntimeError("feature_update did not launch its kernel")
+    t0 = time.perf_counter()
+    tab_p, s_p = feature_update_ref(fresh(), slots, ts, lens)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert_close(s_k, s_p, "fc_single stats", **FC_TOL)
+    err = max_abs(s_k, s_p)
+    for key in TABLE_KEYS:
+        assert_close(tab_k[key], tab_p[key], f"fc_single table {key}", **FC_TOL)
+        err = max(err, max_abs(tab_k[key], tab_p[key]))
+    tab_c = fresh()
+    s_c = torch.cat([feature_update(tab_c, slots[i:i + 1000], ts[i:i + 1000],
+                                    lens[i:i + 1000])[1] for i in range(0, n, 1000)])
+    assert_close(s_c, s_k, "fc_single chunked vs one shot", **FC_TOL)
+    tab_w = {k: v.clone() for k, v in tab_k.items()}
+    t = timed(lambda: feature_update(tab_w, slots, ts, lens), 50, "feature_update_kernel")
+    # the same packets on uniformly drawn slots (runs of a few packets)
+    uniform = torch.from_numpy(np.random.default_rng(4).integers(
+        0, n_slots, n)).to(dev)
+    t_uniform = timed(lambda: feature_update(tab_w, uniform, ts, lens), 50,
+                      "feature_update_kernel")
+    t_uniform["longest_run"] = int(torch.unique(uniform, return_counts=True)[1].max())
+    _, counts = torch.unique(slots, return_counts=True)
+    # the function's inputs (slot int32, ts, length) read once, touched rows
+    # (4 tables) read and written once, 48 B of stats a packet; about 14
+    # float operations a packet and decay
+    byts = n * (4 + 4 + 4 + 48) + counts.numel() * 4 * 16 * 2
+    return ({"name": "feature_update", "route": "cuda",
+             "source": "src/repro_torch/csrc/feature_update.cu",
+             "replaces": "src/repro/kernels/feature_update.py:105",
+             "max_abs_err": err, **t, "plain_ms": plain_ms,
+             **bound(byts, n * 4 * 14), "library_ms": None,
+             "shape": {"packets": n, "n_slots": n_slots, "slots": "src_ip",
+                       "touched_rows": int(counts.numel()),
+                       "longest_run": int(counts.max())},
+             "chunked_max_abs_err": max_abs(s_c, s_k),
+             "uniform_slots": t_uniform}, launches)
+
+
+def phase_sketch_main(data, log) -> Tuple[dict, object]:
+    """The detection service with Count-Min sketch state: n_slots=4096 wide,
+    rows=2 (the top rung of benchmarks/approx_ablation.py's FULL_BUDGETS),
+    over the main path's traffic; launch counts zeroed just before and read
+    just after; then the eval stream traced."""
+    from repro_torch.detection.metrics import auc
+    from repro_torch.kernels import (KERNELS, KITNET_AE, SKETCH_UPDATE,
+                                     launch_counts, reset_launch_counts)
+    from repro_torch.serving import DetectionService
+
+    svc = DetectionService(state_backend="sketch", n_slots=4096,
+                           state_kw={"rows": 2})
+    table_mib = sum(t.numel() * t.element_size()
+                    for g in ("uni", "bi") for t in svc.state[g].values()) / 2 ** 20
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.observe_stream(data["train"], chunk=8192)
+    svc.fit(seed=0, fpr=0.01)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    eval_start = svc.pkt_count
+    t0 = time.perf_counter()
+    idx, scores, alarms = svc.process_stream(data["eval"], chunk=8192)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = launch_counts()
+    missing = [k.name for k in (SKETCH_UPDATE, KITNET_AE) if launches[k.name] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the sketch path: {missing}")
+    n_eval = len(data["eval"]["ts"])
+    want_idx = np.arange(svc.epoch - 1 - eval_start % svc.epoch, n_eval,
+                         svc.epoch) + eval_start
+    if not np.array_equal(idx, want_idx):
+        raise RuntimeError("sketch path record indices are not the epoch closers")
+    if not (np.isfinite(scores).all() and scores.shape == idx.shape
+            and alarms.shape == idx.shape):
+        raise RuntimeError("sketch path scores are not finite or misshapen")
+    labels = data["eval"]["label"][idx - eval_start]
+    emit({"phase": "sketch_main", "n_slots": 4096, "rows": 2,
+          "table_mib": table_mib, "epoch": svc.epoch,
+          "train_pkts": len(data["train"]["ts"]), "eval_pkts": n_eval,
+          "observe_fit_s": fit_s, "eval_s": eval_s, "eval_pps": n_eval / eval_s,
+          "records": int(len(scores)), "alarms": int(alarms.sum()),
+          "auc": auc(scores, labels), "threshold": svc.threshold,
+          "launches": launches}, log)
+    emit({"phase": "sketch_trace", **trace_eval(svc, data["eval"], eval_s, KERNELS)},
+         log)
+    return launches, svc
+
+
+def phase_sketch_reference(net_arrays, threshold: float, log) -> None:
+    """The sketch service on a small trace, on the card (sketch kernel) and
+    on the CPU (plain version), with the same net and threshold."""
+    from repro_torch.interop import kitnet_from_arrays
+    from repro_torch.serving import DetectionService
+    from repro_torch.traffic import synth_trace
+
+    small = synth_trace("syn_dos", n_train=64, n_benign_eval=1024,
+                        n_attack=1024, seed=3)["eval"]
+    outs = {}
+    for where in ("cuda", "cpu"):
+        s = DetectionService(epoch=64, n_slots=256, device=where,
+                             threshold=threshold, state_backend="sketch",
+                             state_kw={"rows": 2, "evict_age": 1.0})
+        s.net = kitnet_from_arrays(net_arrays, device=where)
+        outs[where] = s.process_stream(small, chunk=512)
+    (i_g, s_g, a_g), (i_c, s_c, a_c) = outs["cuda"], outs["cpu"]
+    if not np.array_equal(i_g, i_c):
+        raise RuntimeError("sketch service: card and CPU record indices differ")
+    score_err = float(np.abs(s_g - s_c).max())
+    if not score_err <= SCORE_TOL:
+        raise RuntimeError(f"sketch service: card vs CPU scores differ by {score_err}")
+    near = np.abs(s_c - threshold) <= SCORE_TOL
+    if not np.array_equal(a_g[~near], a_c[~near]):
+        raise RuntimeError("sketch service: card and CPU alarms differ away "
+                           "from the threshold")
+    emit({"phase": "sketch_reference", "records": int(len(i_g)),
+          "max_score_err": score_err, "alarms": int(a_g.sum())}, log)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -136,7 +450,8 @@ def main() -> int:
     from repro_torch.core.state import clone_state, init_state
     from repro_torch.detection.metrics import auc
     from repro_torch.interop import kitnet_from_arrays, kitnet_to_arrays
-    from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from repro_torch.kernels import (FC_FULL, KERNELS, KITNET_AE,
+                                     launch_counts, reset_launch_counts)
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.feature_update import (fc_segments,
                                                     feature_update_full)
@@ -196,8 +511,9 @@ def main() -> int:
 
     st_w = clone_state(st_k)
     fc_time = timed(lambda: feature_update_full(st_w, pk), 50, "fc_full_kernel")
-    # bound: inputs read once, touched rows read and written once, features
-    # written once; segments counted from this chunk's keys
+    # bound: the function's inputs (4 key rows int32, dir, ts, length) read
+    # once, touched rows read and written once, features written once;
+    # segments counted from this chunk's keys
     skey, _ = fc_segments(packet_rows(pk, n_slots), n_slots)
     segs = torch.ones_like(skey, dtype=torch.bool)
     segs[1:] = skey[1:] != skey[:-1]
@@ -206,7 +522,7 @@ def main() -> int:
     n_bi = int((seg_kt >= 2).sum())
     seg_len = torch.diff(torch.cat([torch.nonzero(segs).flatten(),
                                     torch.tensor([skey.numel()], device=dev)]))
-    fc_bytes = (chunk * (4 * 8 + 4 * 4 + 4 + 4 + 4)         # perm, skey, dir, ts, len
+    fc_bytes = (chunk * (4 * 4 + 4 + 4 + 4)                 # rows, dir, ts, len
                 + n_uni * 4 * 16 * 2 + n_bi * (10 + 2) * 16 * 2
                 + chunk * 80 * 4)
     fc_flops = chunk * (2 * 4 * 16 + 2 * 4 * 45)
@@ -223,6 +539,14 @@ def main() -> int:
                        "longest": int(seg_len.max())},
           "chunked_max_abs_err": max_abs(f_c, f_k)}
     emit({"phase": "fc", **fc}, log)
+
+    # ---- 3b. sketch kernel against its plain version ----
+    sk = phase_sketch(dev, pk, st_k, log)
+    emit({"phase": "sketch", **sk}, log)
+
+    # ---- 3c. single-key kernel: its path, then against its plain version ----
+    single, single_launches = phase_fc_single(dev, pk)
+    emit({"phase": "fc_single", **single, "path_launches": single_launches}, log)
 
     # ---- 4. main path ----
     n_pkts = 262_144
@@ -244,7 +568,7 @@ def main() -> int:
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     launches = launch_counts()
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k.name for k in (FC_FULL, KITNET_AE) if launches[k.name] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: {missing}")
     n_eval = len(data["eval"]["ts"])
@@ -267,38 +591,11 @@ def main() -> int:
             "ae": {"k": int(k), "m": int(m), "h": int(h)}, "launches": launches}
     emit(main, log)
 
-    # ---- 4b. the same eval stream again, traced: device busy share and
-    # kernel time by name (profiler overhead inflates the traced wall time,
-    # so the busy share is also given against the untraced eval_s) ----
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        svc.process_stream(data["eval"], chunk=8192)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
-    events = device_events(prof)
-    dev_us = {key: us for key, (us, _) in events.items()}
-    kern_us, kern_calls = {}, {}
-    for key, (us, count) in events.items():
-        for kern in KERNELS:
-            if f"{kern.name}_kernel" in key:
-                kern_us[kern.name] = kern_us.get(kern.name, 0.0) + us
-                kern_calls[kern.name] = kern_calls.get(kern.name, 0) + count
-    busy_s = sum(dev_us.values()) * 1e-6
-    # each kernel's device time per launch on the main path, at its shapes
-    traced_ms = {name: kern_us[name] / kern_calls[name] * 1e-3 for name in kern_us}
-    emit({"phase": "trace", "traced_s": traced_s, "device_busy_s": busy_s,
-          "busy_share_traced": busy_s / traced_s,
-          "busy_share_untraced": busy_s / eval_s,
-          "kernel_device_ms_per_launch": traced_ms,
-          "kernel_share_of_busy": {name: kern_us[name] * 1e-6 / busy_s
-                                   for name in kern_us},
-          "kernel_launches_traced": kern_calls,
-          "top_device_us": dict(sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]),
-          "top_host_self_us": dict(sorted(
-              ((e.key, e.self_cpu_time_total) for e in prof.key_averages()),
-              key=lambda kv: -kv[1])[:12])},
-         log)
+    # ---- 4b. the same eval stream again, traced ----
+    emit({"phase": "trace", **trace_eval(svc, data["eval"], eval_s, KERNELS)}, log)
+
+    # ---- 4c. the sketch service over the same traffic, then traced ----
+    sketch_launches, sketch_svc = phase_sketch_main(data, log)
 
     # ---- 5. ensemble kernel against its plain version ----
     B = 8192
@@ -365,12 +662,17 @@ def main() -> int:
     emit({"phase": "reference", "records": int(len(i_g)),
           "max_score_err": score_err, "alarms": int(a_g.sum())}, log)
 
+    # ---- 6b. the sketch service on the card against the CPU ----
+    phase_sketch_reference(kitnet_to_arrays(sketch_svc.net), sketch_svc.threshold, log)
+
     # ---- report ----
     fc["launches"] = launches["fc_full"]
     ens["launches"] = launches["kitnet_ae"]
+    sk["launches"] = sketch_launches["sketch_update"]
+    single["launches"] = single_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    table = {"kernels": [{key: kern[key] for key in keys} for kern in (fc, ens)]}
+    table = {"kernels": [{key: kern[key] for key in keys} for kern in (fc, ens, sk, single)]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

@@ -1,5 +1,6 @@
-"""Peregrine core in PyTorch: flow state, hashing, serial feature
-computation, the FC backend registry and record sampling."""
+"""Peregrine core in PyTorch: flow state (dense and Count-Min sketch layouts),
+hashing, serial feature computation, the FC backend registry and record
+sampling."""
 from repro_torch.core.state import (  # noqa: F401
     FEATURE_NAMES, LAMBDAS, N_DECAY, N_FEATURES, clone_state, init_state,
     packet_slots, state_slots,

@@ -11,6 +11,12 @@ state dict in place):
     the JAX package port unchanged.  For CPU tensors it runs the plain
     version.
 
+A state whose layout carries its own update (the Count-Min ``sketch``,
+``core/sketch.py``) is routed to it before the registry is consulted; the
+backend name then only picks the implementation (``cuda`` → the sketch
+kernel, ``serial`` → its plain version).  Naming ``sketch`` with a dense
+state raises ``ValueError``.
+
 Exact mode only.  The JAX package's ``scan``, ``bucketed`` and ``sharded``
 backends are not ported yet (ROADMAP queue 1 items 7 and 10); naming one
 raises ``NotImplementedError``.
@@ -22,6 +28,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from repro_torch.core.arith import check_mode
+from repro_torch.core.state import state_spec_of
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -33,7 +40,6 @@ _NOT_PORTED = {
     "parallel": "queue 1 item 7 (scan FC backend)",
     "bucketed": "queue 1 item 10 (partitioned FC)",
     "sharded": "queue 1 item 10 (partitioned FC)",
-    "sketch": "queue 1 item 8 (sketch state backend)",
 }
 
 
@@ -88,8 +94,17 @@ def compute_features(state: Dict, pkts: Dict[str, torch.Tensor],
     a restore point is needed).  ``pkts``: ``to_torch`` packet tensors on
     the state's device.  Returns ``(state, feats (n, N_FEATURES))``.
     """
+    spec = state_spec_of(state)
+    if backend == "sketch" and spec.compute is None:
+        raise ValueError(
+            "backend='sketch' needs sketch-backed state; build it with "
+            "init_state(n_slots, state_backend='sketch', rows=R); the state "
+            f"passed here is {spec.name!r}")
+    name = resolve_backend(backend)
+    if spec.compute is not None:
+        return spec.compute(state, pkts, mode=mode, fc_backend=name)
     check_mode(mode)
-    return _REGISTRY[resolve_backend(backend)](state, pkts)
+    return _REGISTRY[name](state, pkts)
 
 
 def compute_features_sampled(state: Dict, pkts: Dict[str, torch.Tensor],
@@ -98,8 +113,9 @@ def compute_features_sampled(state: Dict, pkts: Dict[str, torch.Tensor],
                              ) -> Tuple[Dict, torch.Tensor]:
     """One batch through the FC backend, returning only the sampled rows.
 
-    Neither ported backend has a record-sampled path, so this computes the
-    full (n, N_FEATURES) matrix and gathers ``sample_idx`` on the device.
+    No ported backend or layout has a record-sampled path, so this computes
+    the full (n, N_FEATURES) matrix and gathers ``sample_idx`` on the
+    device.
     """
     state, feats = compute_features(state, pkts, backend=backend, mode=mode)
     return state, feats[sample_idx]

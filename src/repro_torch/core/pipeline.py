@@ -37,10 +37,10 @@ TABLES = {
 }
 
 
-def flat_tables(state: Dict) -> Dict[str, torch.Tensor]:
+def flat_tables(state: Dict, tables: Dict = TABLES) -> Dict[str, torch.Tensor]:
     """``(rows, N_DECAY)`` views of the state's float tables (same storage)."""
     return {name: state[g][k].view(-1, N_DECAY)
-            for name, (g, k) in TABLES.items()}
+            for name, (g, k) in tables.items()}
 
 
 def packet_rows(pkts: Dict[str, torch.Tensor],

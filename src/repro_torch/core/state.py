@@ -9,8 +9,12 @@ feature step updates these tensors in place; that takes the place of the
 JAX package's buffer donation (DESIGN.md §8): a caller that needs a restore
 point clones the tensors (``clone_state``) before the step.
 
-Only the dense layout is ported; the Count-Min sketch state waits for a
-later slice (ROADMAP queue 1 item 8).
+The layout is pluggable (DESIGN.md §11): ``init_state(n, state_backend=...)``
+selects a registered :class:`StateBackend`, ``dense`` (the direct-indexed
+slot tables below, the default) or ``sketch`` (Count-Min rows with
+conservative update, ``core/sketch.py``).  ``compute_features`` and the
+fused step identify a state's layout structurally (``state_spec_of``) and
+route accordingly.
 
 Hashing runs on int64 tensors that hold uint32 values: every product is
 split so that it stays below 2^63, and masked back to 32 bits, which keeps
@@ -18,7 +22,8 @@ the slot mapping bit-identical to the JAX package's uint32 arithmetic.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import importlib
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -52,25 +57,95 @@ _GOLDEN = 0x9E3779B1
 _FNV = 0x811C9DC5
 
 
-def init_state(n_slots: int, state_backend: str = "dense",
-               device: DeviceLike = None) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Fresh dense flow tables on ``device`` (default ``cuda``).
+# ---------------------------------------------------------------------------
+# State-backend registry
+# ---------------------------------------------------------------------------
+class StateBackend(NamedTuple):
+    """One pluggable flow-state layout."""
+    name: str
+    #: (n_slots, device=..., **cfg) -> fresh state dict
+    init: Callable[..., Dict]
+    #: state -> slot count (dense) / table width (sketch), from shapes
+    slots: Callable[[Dict], int]
+    #: state -> does this dict belong to this layout?  Key presence only.
+    matches: Callable[[Dict], bool]
+    #: state -> everything ``init`` needs besides ``n_slots`` and the device
+    config: Callable[[Dict], Dict]
+    #: (state, pkts, mode=..., fc_backend=...) -> (state, feats) for layouts
+    #: whose update does not go through the FC registry; None for dense
+    compute: Optional[Callable] = None
 
-    Uni tables are (N_UNI, n_slots, N_DECAY); bi tables carry a direction
+
+_STATE_BACKENDS: Dict[str, StateBackend] = {}
+
+# layouts that register themselves when their module is first imported
+_LAZY_STATE_MODULES = {"sketch": "repro_torch.core.sketch"}
+
+
+def register_state_backend(backend: StateBackend) -> StateBackend:
+    _STATE_BACKENDS[backend.name] = backend
+    return backend
+
+
+def available_state_backends() -> Tuple[str, ...]:
+    return tuple(sorted(set(_STATE_BACKENDS) | set(_LAZY_STATE_MODULES)))
+
+
+def resolve_state_backend(name: str) -> StateBackend:
+    """The registered :class:`StateBackend` for ``name`` (importing a lazy
+    layout's module first); raises on unknown names."""
+    if name not in _STATE_BACKENDS and name in _LAZY_STATE_MODULES:
+        importlib.import_module(_LAZY_STATE_MODULES[name])
+    if name not in _STATE_BACKENDS:
+        raise ValueError(f"unknown state backend {name!r}; "
+                         f"available: {available_state_backends()}")
+    return _STATE_BACKENDS[name]
+
+
+def state_spec_of(state: Dict) -> StateBackend:
+    """The :class:`StateBackend` a state dict belongs to, by its keys."""
+    for name in available_state_backends():
+        spec = resolve_state_backend(name)
+        if spec.matches(state):
+            return spec
+    raise ValueError("state dict matches no registered state backend "
+                     f"(available: {available_state_backends()})")
+
+
+def state_backend_of(state: Dict) -> str:
+    return state_spec_of(state).name
+
+
+def state_config(state: Dict) -> Dict:
+    """Keyword arguments that rebuild a fresh state of the same layout with
+    ``init_state(n_slots, state_backend=..., **cfg)``."""
+    return dict(state_spec_of(state).config(state))
+
+
+def init_state(n_slots: int, state_backend: str = "dense",
+               device: DeviceLike = None, **state_kw) -> Dict:
+    """Fresh flow tables of the selected layout on ``device`` (default
+    ``cuda``).
+
+    ``dense`` (default): direct-indexed slot tables, see ``_dense_init``.
+    ``sketch``: Count-Min tables of width ``n_slots`` (``core/sketch.py``);
+    pass ``rows=R`` and ``evict_age=seconds``.
+    """
+    return resolve_state_backend(state_backend).init(
+        n_slots, device=resolve_device(device), **state_kw)
+
+
+def _dense_init(n_slots: int, device: torch.device
+                ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Uni tables are (N_UNI, n_slots, N_DECAY); bi tables carry a direction
     axis (N_BI, n_slots, 2, N_DECAY) plus channel-level SR state.  The
     ``rr`` round-robin counters belong to switch mode and are only carried.
     """
-    if state_backend != "dense":
-        raise NotImplementedError(
-            f"state_backend={state_backend!r} is not ported yet; only the "
-            "dense state is (ROADMAP queue 1 item 8: sketch state backend)")
-    dev = resolve_device(device)
-
     def z(*shape, dtype=torch.float32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     def neg(*shape):
-        return torch.full(shape, -1.0, dtype=torch.float32, device=dev)
+        return torch.full(shape, -1.0, dtype=torch.float32, device=device)
 
     return {
         "uni": {
@@ -93,19 +168,31 @@ def init_state(n_slots: int, state_backend: str = "dense",
     }
 
 
+register_state_backend(StateBackend(
+    name="dense",
+    init=_dense_init,
+    slots=lambda s: s["uni"]["w"].shape[1],
+    # rr counters exist only in the dense layout (round-robin switch mode)
+    matches=lambda s: isinstance(s, dict) and "rr" in s.get("uni", {}),
+    config=lambda s: {},
+))
+
+
 def state_slots(state: Dict) -> int:
-    """Slot count of a dense state, read from its table shapes."""
-    return state["uni"]["w"].shape[1]
+    """Slot count (dense) or table width (sketch), read from the shapes."""
+    return state_spec_of(state).slots(state)
 
 
 def state_device(state: Dict) -> torch.device:
+    # every layout keeps its uni atoms under uni/w
     return state["uni"]["w"].device
 
 
 def clone_state(state: Dict) -> Dict:
-    """A copy of every table: the restore point for an in-place step."""
-    return {g: {k: v.clone() for k, v in tabs.items()}
-            for g, tabs in state.items()}
+    """A copy of every table (and of the sketch's ``evict_age``): the
+    restore point for an in-place step."""
+    return {g: ({k: t.clone() for k, t in v.items()} if isinstance(v, dict)
+                else v.clone()) for g, v in state.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Weights and flow state carried into the port as numpy arrays.
 
-A KitNET fitted elsewhere (for example by the JAX package) and a dense flow
-state cross as plain dicts of numpy arrays, so the port never sees another
-framework's objects:
+A KitNET fitted elsewhere (for example by the JAX package) and a flow
+state (dense, or a sketch with its scalar ``evict_age``) cross as plain
+dicts of numpy arrays, so the port never sees another framework's objects:
 
     net = kitnet_from_arrays({"idx": ..., "W1": ..., ...}, device="cuda")
     state = state_from_arrays({"uni": {...}, "bi": {...}}, device="cuda")
@@ -48,11 +48,24 @@ def kitnet_to_arrays(net: KitNet) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in out.items()}
 
 
-def state_from_arrays(nested: Dict[str, Dict[str, np.ndarray]],
-                      device: DeviceLike = None) -> Dict:
-    """A dense flow state from ``{"uni": {...}, "bi": {...}}`` numpy arrays
-    (``rr`` counters as int32, every other table as float32)."""
+def state_from_arrays(nested: Dict, device: DeviceLike = None) -> Dict:
+    """A flow state from ``{"uni": {...}, "bi": {...}}`` numpy arrays, plus
+    a sketch's scalar ``"evict_age"`` (``rr`` counters as int32, every
+    other table and scalar as float32)."""
     dev = resolve_device(device)
-    return {g: {k: torch.from_numpy(np.array(
-        v, np.int32 if k == "rr" else np.float32)).to(dev)
-        for k, v in tabs.items()} for g, tabs in nested.items()}
+
+    def leaf(k, v):
+        return torch.from_numpy(np.array(
+            v, np.int32 if k == "rr" else np.float32)).to(dev)
+
+    return {g: ({k: leaf(k, t) for k, t in v.items()} if isinstance(v, dict)
+                else leaf(g, v)) for g, v in nested.items()}
+
+
+def state_to_arrays(state: Dict) -> Dict:
+    """The inverse of :func:`state_from_arrays`."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    return {g: ({k: arr(t) for k, t in v.items()} if isinstance(v, dict)
+                else arr(v)) for g, v in state.items()}

@@ -4,10 +4,15 @@ Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors; ``KERNELS`` lists every kernel with its launch
 count.  Nothing is compiled at import.
 """
-from repro_torch.kernels.feature_update import FC_FULL, feature_update_full  # noqa: F401
+from repro_torch.kernels.feature_update import (  # noqa: F401
+    FC_FULL, FEATURE_UPDATE, feature_update, feature_update_full,
+)
 from repro_torch.kernels.kitnet_ae import KITNET_AE, kitnet_ensemble  # noqa: F401
+from repro_torch.kernels.sketch_update import (  # noqa: F401
+    SKETCH_UPDATE, sketch_update_full,
+)
 
-KERNELS = (FC_FULL, KITNET_AE)
+KERNELS = (FC_FULL, KITNET_AE, SKETCH_UPDATE, FEATURE_UPDATE)
 
 
 def reset_launch_counts() -> None:

@@ -1,6 +1,8 @@
-"""Exact 80-feature FC: the CUDA kernel ``csrc/fc_full.cu`` and its wrapper.
+"""Exact FC kernels and their wrappers: the 80-feature ``csrc/fc_full.cu``
+(``feature_update_full``) and the single-key-type ``csrc/feature_update.cu``
+(``feature_update``).
 
-Replaces the JAX package's Pallas TPU kernel
+``feature_update_full`` replaces the JAX package's Pallas TPU kernel
 ``repro/kernels/feature_update.py::feature_update_full`` (``_fc_full_kernel``).
 
 On the TPU one sequential grid walks every packet with the flow tables in
@@ -15,9 +17,17 @@ What bounds it on the card: bytes, about 1.1 KB per packet (touched rows
 read and written once, 320 B of features); in practice the sort and the
 longest segment, which one thread walks alone, set its time.
 
-For a CPU tensor the wrapper runs the plain PyTorch version,
-``core.pipeline.process_serial``; for a CUDA tensor it launches the kernel
-or raises.
+``feature_update`` replaces ``repro/kernels/feature_update.py::
+feature_update`` (``_fc_kernel``), the JAX package's public single-key entry
+point ``kernels/ops.feature_update``: one key type's atom update over an
+``(n_slots, N_DECAY)`` table.  It is the uni half of ``fc_full.cu``: the
+packets are stable-sorted by slot and one thread walks each slot's run.
+Bound: bytes, about 128 B of touched rows and 64 B of stats, packet data,
+index and key a packet; in practice the longest run.
+
+For a CPU tensor each wrapper runs its plain PyTorch version
+(``core.pipeline.process_serial``, :func:`feature_update_ref`); for a CUDA
+tensor it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -26,12 +36,16 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core.pipeline import flat_tables, packet_rows, process_serial
-from repro_torch.core.state import N_FEATURES, N_UNI, state_device, state_slots
+from repro_torch.core.state import (LAMBDAS, N_DECAY, N_FEATURES, N_UNI,
+                                    state_device, state_slots)
 from repro_torch.kernels.build import INT, VOIDP, CudaKernel
 
 FC_FULL = CudaKernel("fc_full.cu", "fc_full_launch",
                      argtypes=[VOIDP] * 17 + [INT, INT, INT, VOIDP],
                      flags=("--fmad=false",))
+FEATURE_UPDATE = CudaKernel("feature_update.cu", "feature_update_launch",
+                            argtypes=[VOIDP] * 9 + [INT, INT, VOIDP],
+                            flags=("--fmad=false",))
 
 _BLOCK = 256
 # the flat tables in the order fc_full_launch takes them
@@ -39,7 +53,7 @@ _TABLE_ORDER = ("ult", "uw", "uls", "uss", "blt", "bw", "bls", "bss", "brl",
                "bsr", "bslt")
 
 
-def _check_tables(tab: Dict[str, torch.Tensor], device) -> None:
+def check_tables(tab: Dict[str, torch.Tensor], device) -> None:
     for name, t in tab.items():
         if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"state table {name!r} must be a contiguous "
@@ -75,7 +89,7 @@ def feature_update_full(state: Dict, pkts: Dict[str, torch.Tensor]
     if 4 * n_slots >= 2 ** 31:
         raise ValueError(f"n_slots={n_slots} overflows the int32 row keys")
     tab = flat_tables(state)
-    _check_tables(tab, device)
+    check_tables(tab, device)
     if any(v.device != device for v in pkts.values()):
         raise ValueError(f"packet tensors must lie on the state's device {device}")
     ts = pkts["ts"].to(torch.float32).contiguous()
@@ -96,3 +110,86 @@ def feature_update_full(state: Dict, pkts: Dict[str, torch.Tensor]
                    *(tab[k].data_ptr() for k in _TABLE_ORDER),
                    feats.data_ptr(), n, n_slots, _BLOCK, stream)
     return state, feats
+
+
+# ---------------------------------------------------------------------------
+# Single-key-type atom update
+# ---------------------------------------------------------------------------
+TABLE_KEYS = ("last_t", "w", "ls", "ss")
+
+
+def feature_update_ref(table: Dict[str, torch.Tensor], slots: torch.Tensor,
+                       ts: torch.Tensor, lens: torch.Tensor
+                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Plain single-key streaming atom update, packets in array order (port
+    of ``repro.kernels.ref.feature_update_ref``).
+
+    ``table``: ``{"last_t", "w", "ls", "ss"}`` each (n_slots, N_DECAY)
+    float32, updated in place; ``slots`` (n,) integer; ``ts``/``lens`` (n,).
+    Returns ``(table, stats (n, 3*N_DECAY))``, stats ``[w | mu | sigma]``
+    per decay.
+    """
+    ts, lens = ts.to(torch.float32), lens.to(torch.float32)
+    lam = torch.tensor(LAMBDAS, dtype=torch.float32, device=ts.device)
+    stats = torch.empty((ts.shape[0], 3 * N_DECAY), dtype=torch.float32,
+                        device=ts.device)
+    for i in range(ts.shape[0]):
+        s, t, x = slots[i], ts[i], lens[i]
+        lt = table["last_t"][s]
+        delta = torch.where(lt < 0, torch.zeros_like(lt),
+                            torch.exp2(-lam * (t - lt).clamp_min(0.0)))
+        w2 = table["w"][s] * delta + 1.0
+        ls2 = table["ls"][s] * delta + x
+        ss2 = table["ss"][s] * delta + x * x
+        mu = ls2 / w2
+        sig = torch.sqrt(torch.abs(ss2 / w2 - mu * mu))
+        table["last_t"][s] = t
+        table["w"][s] = w2
+        table["ls"][s] = ls2
+        table["ss"][s] = ss2
+        stats[i] = torch.cat([w2, mu, sig])
+    return table, stats
+
+
+def feature_update(table: Dict[str, torch.Tensor], slots: torch.Tensor,
+                   ts: torch.Tensor, lens: torch.Tensor
+                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Single-key-type streaming atom update (the port of the JAX package's
+    ``kernels.ops.feature_update``), table updated in place.
+
+    ``table``: ``{"last_t", "w", "ls", "ss"}`` each (n_slots, N_DECAY)
+    float32; ``slots`` (n,) integers in [0, n_slots); ``ts``/``lens`` (n,).
+    Returns ``(table, stats (n, 3*N_DECAY))`` matching
+    :func:`feature_update_ref`.
+    """
+    device = table["w"].device
+    if device.type == "cpu":
+        return feature_update_ref(table, slots, ts, lens)
+    if device.type != "cuda":
+        raise ValueError(f"feature_update runs on cpu or cuda, not {device}")
+    if set(table) != set(TABLE_KEYS):
+        raise ValueError(f"table must hold exactly {TABLE_KEYS}, got {sorted(table)}")
+    check_tables(table, device)
+    n_slots = table["w"].shape[0]
+    if any(t.shape != (n_slots, N_DECAY) for t in table.values()):
+        raise ValueError(f"every table must be ({n_slots}, {N_DECAY})")
+    if any(v.device != device for v in (slots, ts, lens)):
+        raise ValueError(f"slots/ts/lens must lie on the table's device {device}")
+    ts = ts.to(torch.float32).contiguous()
+    lens = lens.to(torch.float32).contiguous()
+    n = ts.shape[0]
+    if slots.shape != (n,) or lens.shape != (n,) or n_slots * N_DECAY >= 2 ** 31:
+        raise ValueError(f"slots/ts/lens must be (n,), got {tuple(slots.shape)}, "
+                         f"{tuple(ts.shape)} and {tuple(lens.shape)}")
+    stats = torch.empty((n, 3 * N_DECAY), dtype=torch.float32, device=device)
+    if n == 0:
+        return table, stats
+    if int(slots.min()) < 0 or int(slots.max()) >= n_slots:
+        raise ValueError(f"slots must lie in [0, {n_slots})")
+    skey, perm = torch.sort(slots.to(torch.int32), stable=True)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    FEATURE_UPDATE.launch(perm.data_ptr(), skey.data_ptr(), ts.data_ptr(),
+                          lens.data_ptr(),
+                          *(table[k].data_ptr() for k in TABLE_KEYS),
+                          stats.data_ptr(), n, _BLOCK, stream)
+    return table, stats

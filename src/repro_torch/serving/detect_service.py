@@ -19,8 +19,11 @@ the sampled ``(indices, scores, alarms)`` leave the device), and
 state is updated in place (DESIGN.md §8 donation, as PyTorch does it):
 ``clone_state(svc.state)`` is the snapshot.
 
-Exact mode and the dense state only: ``mode="switch"`` and
-``state_backend="sketch"`` raise ``NotImplementedError``.
+``state_backend=`` picks the flow-table layout: ``dense`` slots (the
+default) or the Count-Min ``sketch``, with ``state_kw`` such as
+``{"rows": 2, "evict_age": 60.0}`` (``core/sketch.py``); with a sketch
+state the ``cuda`` FC name runs the sketch kernel.  Exact mode only:
+``mode="switch"`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ class DetectionService:
                  md_backend: Optional[str] = None,
                  fused: Optional[bool] = None,
                  state_backend: str = "dense",
+                 state_kw: Optional[Dict] = None,
                  device: DeviceLike = None):
         check_mode(mode)
         self.device = resolve_device(device)
@@ -62,7 +66,7 @@ class DetectionService:
             md_backend if md_backend is not None else default_md_backend())
         self.fused = True if fused is None else bool(fused)
         self.state = init_state(n_slots, state_backend=state_backend,
-                                device=self.device)
+                                device=self.device, **(state_kw or {}))
         self.net: Optional[KitNet] = None
         # thresholds are kept f32-representable so the device (f32) and
         # host comparisons agree bit for bit

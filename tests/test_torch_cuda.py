@@ -1,5 +1,6 @@
-"""PyTorch port, the CUDA kernels on the card: each kernel against its plain
-PyTorch version at small sizes, launch counting, and the wrappers' checks.
+"""PyTorch port, the CUDA kernels on the card: each kernel (dense FC, KitNET
+ensemble, Count-Min sketch, single-key update) against its plain PyTorch
+version at small sizes, launch counting, and the wrappers' checks.
 
 Marked ``cuda``; each test skips without a CUDA device.  Run on the card:
 
@@ -9,8 +10,12 @@ import pytest
 import torch
 
 from repro_torch.core import clone_state, init_state, process_serial
+from repro_torch.core.sketch import process_sketch
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.feature_update import feature_update_full
+from repro_torch.kernels.feature_update import (TABLE_KEYS, feature_update,
+                                                feature_update_full,
+                                                feature_update_ref)
+from repro_torch.kernels.sketch_update import sketch_update_full
 from repro_torch.kernels.kitnet_ae import kitnet_ensemble, kitnet_ensemble_ref
 from repro_torch.traffic import synth_trace, to_torch
 
@@ -94,3 +99,87 @@ def test_wrappers_reject_bad_inputs(dev):
                               n_attack=16, seed=0)["eval"], "cpu")
     with pytest.raises(ValueError, match="device"):
         feature_update_full(st, pk)
+
+
+def _assert_states_close(got, want, **tol):
+    for g in ("uni", "bi"):
+        for k in want[g]:
+            torch.testing.assert_close(got[g][k], want[g][k], **tol)
+
+
+@pytest.mark.parametrize("rows,width,evict_age", [(1, 512, 0.0), (2, 512, 0.0),
+                                                  (3, 64, 0.5), (8, 64, 0.5)])
+def test_sketch_kernel_matches_plain(dev, rows, width, evict_age):
+    pk = to_torch(synth_trace("mirai", n_train=64, n_benign_eval=300,
+                              n_attack=300, seed=2)["eval"], dev)
+    st0 = init_state(width, state_backend="sketch", device=dev, rows=rows,
+                     evict_age=evict_age)
+    reset_launch_counts()
+    st_k, f_k = sketch_update_full(clone_state(st0), pk)
+    assert launch_counts()["sketch_update"] == 1
+    st_p, f_p = process_sketch(clone_state(st0), pk)
+    torch.testing.assert_close(f_k, f_p, **FC_TOL)
+    _assert_states_close(st_k, st_p, **FC_TOL)
+
+
+def test_sketch_rows1_state_equals_dense_kernel(dev):
+    pk = to_torch(synth_trace("arp_mitm", n_train=64, n_benign_eval=400,
+                              n_attack=400, seed=0)["eval"], dev)
+    st_d, _ = feature_update_full(init_state(1024, device=dev), pk)
+    st_s, _ = sketch_update_full(init_state(1024, state_backend="sketch",
+                                            device=dev, rows=1), pk)
+    for g in ("uni", "bi"):
+        for k in st_d[g]:
+            if k != "rr":
+                assert torch.equal(st_s[g][k][:, 0], st_d[g][k]), (g, k)
+
+
+def test_sketch_service_runs_the_kernel(dev):
+    from repro_torch.serving import DetectionService
+    data = synth_trace("syn_dos", n_train=2048, n_benign_eval=512,
+                       n_attack=512, seed=0)
+    svc = DetectionService(epoch=64, n_slots=256, state_backend="sketch",
+                           state_kw={"rows": 2}, device=dev)
+    reset_launch_counts()
+    svc.observe_stream(data["train"], chunk=512)
+    svc.fit(fpr=0.05)
+    idx, scores, _ = svc.process_stream(data["eval"], chunk=512)
+    assert launch_counts()["sketch_update"] == 6 and launch_counts()["fc_full"] == 0
+    assert len(idx) == 1024 // 64
+
+
+@pytest.mark.parametrize("n,n_slots", [(100, 64), (257, 128), (8192, 8192)])
+def test_single_key_kernel_matches_plain(dev, n, n_slots):
+    g = torch.Generator().manual_seed(n)
+    slots = torch.randint(0, n_slots, (n,), generator=g).to(dev)
+    ts = torch.sort(torch.rand(n, generator=g) * 5)[0].to(dev)
+    lens = torch.randint(60, 1500, (n,), generator=g).float().to(dev)
+
+    def fresh():
+        return {f: torch.full((n_slots, 4), -1.0 if f == "last_t" else 0.0,
+                              device=dev) for f in TABLE_KEYS}
+
+    reset_launch_counts()
+    t_k, s_k = feature_update(fresh(), slots, ts, lens)
+    assert launch_counts()["feature_update"] == 1
+    t_p, s_p = feature_update_ref(fresh(), slots, ts, lens)
+    torch.testing.assert_close(s_k, s_p, **FC_TOL)
+    for k in TABLE_KEYS:
+        torch.testing.assert_close(t_k[k], t_p[k], **FC_TOL)
+
+
+def test_new_wrappers_reject_bad_inputs(dev):
+    pk = to_torch(synth_trace("mirai", n_train=16, n_benign_eval=16,
+                              n_attack=16, seed=0)["eval"], "cpu")
+    with pytest.raises(ValueError, match="device"):
+        sketch_update_full(init_state(64, state_backend="sketch", device=dev,
+                                      rows=2), pk)
+    with pytest.raises(ValueError, match="at most 8 rows"):
+        sketch_update_full(init_state(64, state_backend="sketch", device=dev,
+                                      rows=9), to_torch(synth_trace(
+                                          "mirai", n_train=16, n_benign_eval=16,
+                                          n_attack=16, seed=0)["eval"], dev))
+    tab = {f: torch.zeros(16, 4, device=dev) for f in TABLE_KEYS}
+    x = torch.ones(4, device=dev)
+    with pytest.raises(ValueError, match="slots must lie"):
+        feature_update(tab, torch.tensor([0, 1, 2, 16], device=dev), x, x)

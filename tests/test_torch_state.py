@@ -92,8 +92,8 @@ def test_init_state_matches_jax():
 
 
 def test_unported_layouts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_state(64, state_backend="sketch", device="cpu")
+    with pytest.raises(ValueError, match="unknown state backend"):
+        init_state(64, state_backend="bloom", device="cpu")
 
 
 def test_default_device_needs_a_card():
