@@ -6,6 +6,13 @@ Phases (each prints one JSON line; a failure raises and ends the run):
   1. device  — the card's name, and its name and power limit from nvidia-smi.
   2. build   — nvcc builds every kernel of the port from
                src/repro_torch/csrc/ into build/, all sources in parallel.
+  flash   — the flash-attention kernel against its plain version on the
+               card: the JAX package's test shapes (tests/test_kernels.py,
+               f32 to 2e-6, bf16 to 2e-2, the window/softcap cases), and
+               gemma2-2b's prefill attention at B=1, H=8, K=4, S=8192,
+               D=256, softcap 50, window 4096 and global, in f32 (2e-5) and
+               bf16 (1e-5 + 2**-7 * |want|, one bf16 ulp); kernel, plain and scaled_dot_product_attention
+               times (the library yardstick: no softcap, no window).
   3. fc      — the FC kernel against its plain version (core/pipeline.py's
                serial oracle, run on the card) on one 8192-packet chunk at
                n_slots=8192, features and state to rtol=1e-4, atol=1e-3, plus
@@ -48,6 +55,20 @@ back-to-back call, which includes the wrapper's host overhead.
                indices, scores within 1e-3, alarms equal off the threshold.
   sketch_reference — the same for the sketch service (rows=2, width 256,
                evict_age=1), with phase sketch_main's net.
+  lm_main — LM serving of gemma2-2b at full width (26 layers, d_model
+               2304, vocab 256,000, float32 parameters from seed 0, bf16
+               cache) through launch.serve.serve_lm: the JAX launcher's
+               traffic (4 slots, 8 requests of 16-token prompts, max_new 16,
+               max_seq 256), then 4 requests of 8192-token prompts (max_new
+               16, max_seq 8208); launch counts zeroed just before and read
+               just after each; flash launches must be 26 per prefill.
+  lm_trace — the long-prompt traffic again under torch.profiler: device
+               busy share, and the top device and host ops of the prefills
+               and of the decode steps.
+  lm_reference — one 8192-token prefill and 16 teacher-forced decode steps
+               with the same weights through the kernel and through the
+               plain route (blockwise attention): logits within 1e-3,
+               greedy tokens equal wherever the top-2 margin exceeds it.
 Then the kernel table line, the card line, and the result line last.  The
 phases' records also go to chiprun_out/chip_smoke.json.
 
@@ -72,6 +93,13 @@ MD_TOL = 1e-5
 SCORE_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS = 989e12             # H100 SXM, bf16 tensor cores, dense
+FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}   # tests/test_kernels.py
+FLASH_MODEL_TOL = 2e-5          # tests/test_kernels.py:115-116, model path
+# bf16 at the model shape: both sides compute in f32 and differ only in the
+# output's rounding, so at most one bf16 ulp, which is <= 2**-7 * |want|
+FLASH_MODEL_BF16_RTOL, FLASH_MODEL_BF16_ATOL = 2.0 ** -7, 1e-5
+LM_REF_TOL = 1e-3               # logits, kernel route against plain route
 
 
 def emit(record: dict, log: list) -> None:
@@ -182,11 +210,12 @@ def trace_eval(svc, pkts, eval_s: float, kernels) -> dict:
                 key=lambda kv: -kv[1])[:12])}
 
 
-def bound(byts: float, ops: float) -> dict:
+def bound(byts: float, ops: float, peak: float = FP32_FLOPS) -> dict:
     """The least time the card could take: bytes over the HBM rate or float
-    operations over the float32 rate, whichever is larger."""
-    by_bytes = byts / HBM_BYTES_PER_S >= ops / FP32_FLOPS
-    return {"bound_ms": max(byts / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3,
+    operations over ``peak`` (the float32 rate unless given), whichever is
+    larger."""
+    by_bytes = byts / HBM_BYTES_PER_S >= ops / peak
+    return {"bound_ms": max(byts / HBM_BYTES_PER_S, ops / peak) * 1e3,
             "bound_by": "bytes" if by_bytes else "operations"}
 
 
@@ -441,6 +470,270 @@ def phase_sketch_reference(net_arrays, threshold: float, log) -> None:
           "max_score_err": score_err, "alarms": int(a_g.sum())}, log)
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave visible, positions from 0."""
+    q = np.arange(sq)[:, None]
+    lo = q - window + 1 if window > 0 else np.zeros_like(q)
+    hi = np.minimum(q, sk - 1) if causal else np.full_like(q, sk - 1)
+    return int(np.clip(hi - np.maximum(lo, 0) + 1, 0, None).sum())
+
+
+def flash_cost(B, H, K, Sq, Sk, D, causal, window, dtype) -> dict:
+    """Bytes (q, k, v read once, the output written once) and operations
+    (4*D a visible pair and head: two products of 2*D) of one call, and the
+    bound against the float32 rate (float32 inputs) or the bf16 tensor rate
+    (bf16 inputs)."""
+    esize = 4 if dtype == torch.float32 else 2
+    byts = (2 * B * H * Sq * D + 2 * B * K * Sk * D) * esize
+    ops = 4 * B * H * D * visible_pairs(Sq, Sk, causal, window)
+    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    return {**bound(byts, ops, peak), "bytes": byts, "flops": ops,
+            "peak": "fp32" if dtype == torch.float32 else "bf16 tensor"}
+
+
+def phase_flash(dev, log) -> dict:
+    """The flash-attention kernel against its plain version on the card, at
+    the JAX package's test shapes and at gemma2-2b's prefill shape; times
+    of the kernel, its plain version and SDPA at that shape."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    rng = np.random.default_rng(5)
+
+    def inputs(B, H, K, Sq, Sk, D, dtype):
+        return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+                for s in ((B, H, Sq, D), (B, K, Sk, D), (B, K, Sk, D))]
+
+    def check(qkv, tol, what, rtol=0.0, **kw):
+        """Max abs error, and the largest share of the bound used; fails
+        unless |got - want| <= tol + rtol * |want| everywhere."""
+        got = flash_attention(*qkv, **kw)
+        want = flash_attention_ref(*qkv, **kw)
+        torch.cuda.synchronize()
+        if got.dtype != qkv[0].dtype or not torch.isfinite(got).all():
+            raise RuntimeError(f"flash {what}: wrong dtype or not finite")
+        got, want = got.float(), want.float()
+        err = max_abs(got, want)
+        used = float(((got - want).abs() / (tol + rtol * want.abs())).max())
+        if not used <= 1.0:
+            raise RuntimeError(f"flash {what}: |got - want| exceeds {tol} + "
+                               f"{rtol} * |want| ({used} of it; max abs err {err})")
+        return {"max_abs_err": err, "share_of_tol": used}
+
+    cases = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for shape in ((1, 4, 4, 64, 64, 32), (2, 4, 2, 64, 64, 64),
+                      (1, 8, 1, 96, 96, 32), (2, 4, 4, 1, 128, 32),
+                      (1, 2, 2, 200, 72, 64)):
+            cases[f"{name}_{shape}"] = check(inputs(*shape, dt), FLASH_TOL[name],
+                                             f"{name} {shape}",
+                                             causal=shape[3] == shape[4])
+    for window, cap in ((16, 0.0), (0, 30.0), (24, 50.0)):
+        cases[f"float32_window{window}_softcap{cap}"] = check(
+            inputs(1, 4, 2, 80, 80, 32, torch.float32), FLASH_TOL["float32"],
+            f"window {window} softcap {cap}", causal=True, window=window,
+            softcap=cap)
+    shape = (1, 8, 4, 8192, 8192, 256)
+    model = {}
+    for dt, tol, rtol in ((torch.float32, FLASH_MODEL_TOL, 0.0),
+                          (torch.bfloat16, FLASH_MODEL_BF16_ATOL, FLASH_MODEL_BF16_RTOL)):
+        qkv = inputs(*shape, dt)
+        name = str(dt).split(".")[1]
+        for window in (4096, 0):
+            kw = dict(causal=True, window=window, softcap=50.0)
+            rec = {**check(qkv, tol, f"{name} S=8192 window {window}", rtol, **kw),
+                   "tol": f"{tol} + {rtol} * |want|",
+                   **timed(lambda: flash_attention(*qkv, **kw), 10,
+                           "flash_attention_kernel"),
+                   "plain_ms": cuda_ms(lambda: flash_attention_ref(*qkv, **kw), 3),
+                   **flash_cost(*shape, True, window, dt)}
+            model[f"{name}_window{window}"] = rec
+        q, k, v = qkv
+        model[f"{name}_sdpa_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 10)
+        # the same call on kv heads repeated to H beforehand (not timed)
+        k8, v8 = k.repeat_interleave(2, 1), v.repeat_interleave(2, 1)
+        model[f"{name}_sdpa_repeated_kv_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k8, v8, is_causal=True), 10)
+        del qkv, q, k, v, k8, v8
+    row = model["float32_window0"]
+    emit({"phase": "flash", "test_shapes_max_abs_err": cases, "model_shape": model}, log)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:76",
+            "max_abs_err": max([r["max_abs_err"] for c, r in cases.items()
+                                if c.startswith("float32")]
+                               + [r["max_abs_err"] for c, r in model.items()
+                                  if c.startswith("float32_window")]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": model["float32_sdpa_ms"],
+            "shape": {"B": 1, "H": 8, "K": 4, "S": 8192, "D": 256,
+                      "dtype": "float32", "causal": True, "window": 0,
+                      "softcap": 50.0,
+                      "library": "scaled_dot_product_attention, causal, no softcap"}}
+
+
+def lm_args(**kw):
+    """The launcher's arguments for full-width gemma2-2b on the card."""
+    import argparse
+    base = dict(arch="gemma2-2b", reduced=False, device="cuda", seed=0,
+                slots=4, requests=8, prompt_len=16, max_new=16, max_seq=256)
+    return argparse.Namespace(**{**base, **kw})
+
+
+def phase_lm_main(log) -> Tuple[int, float]:
+    """LM serving of full-width gemma2-2b through launch.serve.serve_lm, for
+    the JAX launcher's traffic and for 8192-token prompts; each with the
+    launch counts zeroed just before and read just after.  Returns the flash
+    launches of both and the long-prompt run's wall seconds."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.serve import serve_lm
+
+    cfg = get_arch("gemma2-2b")
+    launches = 0
+    for name, args in (("launcher", lm_args()),
+                       ("long_prompt", lm_args(requests=4, prompt_len=8192,
+                                               max_seq=8192 + 16))):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        rec = serve_lm(args)
+        n_flash = rec["launches"]["flash_attention"]
+        if n_flash == 0 or n_flash != cfg.n_layers * rec["prefills"]:
+            raise RuntimeError(f"lm {name}: {n_flash} flash launches for "
+                               f"{rec['prefills']} prefills of {cfg.n_layers} layers")
+        outs = rec.pop("outputs")
+        if (len(outs) != args.requests
+                or any(len(v) != args.max_new or min(v) < 0 or max(v) >= cfg.vocab
+                       for v in outs.values())):
+            raise RuntimeError(f"lm {name}: outputs misshapen or out of the vocabulary")
+        launches += n_flash
+        emit({"phase": "lm_main", "traffic": name, **rec,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "first_output": outs[0]}, log)
+    return launches, rec["wall_s"]
+
+
+def traced_window(fn) -> dict:
+    """``fn`` once under torch.profiler: wall seconds, the device's busy
+    seconds (events that ran on the card, each counted once), the flash
+    kernel's device time, and the top device and host ops."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    busy_us = sum(us for us, _ in events.values())
+    flash = [(us, n) for key, (us, n) in events.items() if "flash_attention_kernel" in key]
+    top = sorted(events.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"traced_s": wall, "device_busy_s": busy_us * 1e-6,
+            "busy_share_traced": busy_us * 1e-6 / wall,
+            "flash_launches": sum(n for _, n in flash),
+            "flash_device_s": sum(u for u, _ in flash) * 1e-6,
+            "top_device": {key: {"ms": us * 1e-3, "count": n, "share": us / busy_us}
+                           for key, (us, n) in top},
+            "top_host_self_ms": dict(sorted(
+                ((e.key, e.self_cpu_time_total * 1e-3) for e in prof.key_averages()),
+                key=lambda kv: -kv[1])[:10])}
+
+
+def phase_lm_trace(untraced_s: float, log) -> None:
+    """The long-prompt traffic again under torch.profiler, in two windows:
+    the engine's first tick (the four 8192-token prefills and one decode
+    step), then the rest of the run (14 decode steps).  The device's busy
+    share over the whole run, against the traced wall and the untraced one
+    of phase lm_main, and for each window the top device and host ops."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.lm_engine import Request, ServeEngine
+
+    args = lm_args(requests=4, prompt_len=8192, max_seq=8192 + 16)
+    model = build_model(get_arch("gemma2-2b"), device="cuda")
+    eng = ServeEngine(model, model.init_params(0), batch_slots=4,
+                      max_seq=args.max_seq, device="cuda")
+    rng = np.random.default_rng(0)
+    for rid in range(args.requests):
+        eng.submit(Request(rid, torch.from_numpy(rng.integers(1, model.cfg.vocab, 8192)),
+                           max_new=args.max_new))
+    torch.cuda.synchronize()
+    first = traced_window(eng.step)
+    rest = traced_window(eng.run)
+    busy = first["device_busy_s"] + rest["device_busy_s"]
+    traced = first["traced_s"] + rest["traced_s"]
+    flash_s = first["flash_device_s"] + rest["flash_device_s"]
+    flash_n = first["flash_launches"] + rest["flash_launches"]
+    emit({"phase": "lm_trace", "traced_s": traced, "device_busy_s": busy,
+          "busy_share_traced": busy / traced, "busy_share_untraced": busy / untraced_s,
+          "prefill_s": eng.stats["prefill_s"], "decode_s": eng.stats["decode_s"],
+          "decode_steps": eng.stats["decode_steps"],
+          "flash_device_ms_per_launch": flash_s / flash_n * 1e3 if flash_n else None,
+          "flash_share_of_busy": flash_s / busy,
+          "prefills_window": first, "decode_window": rest}, log)
+
+
+def phase_lm_reference(log) -> None:
+    """One 8192-token prefill of full-width gemma2-2b with the same weights
+    through the kernel and through the plain route (blockwise attention, as
+    the JAX package routes it), then 16 decode steps fed the same tokens:
+    logits within LM_REF_TOL, greedy tokens equal where the top-2 margin
+    exceeds it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    model = build_model(get_arch("gemma2-2b"), device="cuda")
+    params = model.init_params(0)
+    S, n_dec = 8192, 16
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(1, model.cfg.vocab, (1, S))).cuda()
+    sample = torch.from_numpy(np.sort(rng.choice(S - 1, 64, replace=False))).cuda()
+    out = {}
+    for route in (None, "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, cache = model.forward(params, {"tokens": toks}, build_cache=True,
+                                         max_seq=S + n_dec, attn_impl=route)
+        last = logits[0, -1].clone()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out[route] = {"last": last, "sample": logits[0, sample].clone(),
+                      "cache": cache, "prefill_s": prefill_s}
+        del logits
+    teacher = [int(out[None]["last"].argmax())]
+    steps = {None: [], "plain": []}
+    for i in range(n_dec):
+        tok = torch.tensor([[teacher[-1]]], device="cuda")
+        for route in (None, "plain"):
+            lg, out[route]["cache"] = model.decode_step(params, tok, out[route]["cache"])
+            steps[route].append(lg[0, 0])
+        teacher.append(int(steps[None][-1].argmax()))
+    k_rows = torch.stack([out[None]["last"]] + steps[None])
+    p_rows = torch.stack([out["plain"]["last"]] + steps["plain"])
+    errs = {"last": max_abs(out[None]["last"], out["plain"]["last"]),
+            "sample64": max_abs(out[None]["sample"], out["plain"]["sample"]),
+            "decode16": max_abs(k_rows[1:], p_rows[1:])}
+    top2 = p_rows.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > LM_REF_TOL
+    same = (k_rows.argmax(-1) == p_rows.argmax(-1))
+    finite = all(torch.isfinite(t).all() for t in (k_rows, p_rows, out[None]["sample"]))
+    emit({"phase": "lm_reference", "tokens": S, "decode_steps": n_dec,
+          "tol": LM_REF_TOL, "max_abs_err": errs,
+          "logit_absmax": float(k_rows.abs().max()),
+          "greedy_equal": int(same.sum()), "rows": int(same.numel()),
+          "decided_rows": int(decided.sum()),
+          "prefill_s": {"kernel": out[None]["prefill_s"],
+                        "plain": out["plain"]["prefill_s"]}}, log)
+    if not finite or max(errs.values()) > LM_REF_TOL:
+        raise RuntimeError(f"lm_reference: kernel vs plain route logits differ: {errs}")
+    if not bool(same[decided].all()):
+        raise RuntimeError("lm_reference: greedy tokens differ where the top-2 "
+                           "margin exceeds the tolerance")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -481,6 +774,9 @@ def main() -> int:
           "ptxas": {k.name: [ln for ln in k.build_log.splitlines()
                              if "registers" in ln or "spill" in ln]
                     for k in KERNELS}}, log)
+
+    # ---- 2b. flash-attention kernel against its plain version ----
+    flash = phase_flash(dev, log)
 
     # ---- 3. FC kernel against its plain version ----
     n_slots, chunk = 8192, 8192
@@ -665,6 +961,11 @@ def main() -> int:
     # ---- 6b. the sketch service on the card against the CPU ----
     phase_sketch_reference(kitnet_to_arrays(sketch_svc.net), sketch_svc.threshold, log)
 
+    # ---- 7. LM serving of gemma2-2b at full width, traced, against plain ----
+    flash["launches"], long_prompt_s = phase_lm_main(log)
+    phase_lm_trace(long_prompt_s, log)
+    phase_lm_reference(log)
+
     # ---- report ----
     fc["launches"] = launches["fc_full"]
     ens["launches"] = launches["kitnet_ae"]
@@ -672,7 +973,8 @@ def main() -> int:
     single["launches"] = single_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    table = {"kernels": [{key: kern[key] for key in keys} for kern in (fc, ens, sk, single)]}
+    table = {"kernels": [{key: kern[key] for key in keys}
+                         for kern in (fc, ens, sk, single, flash)]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

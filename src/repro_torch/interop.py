@@ -1,11 +1,13 @@
 """Weights and flow state carried into the port as numpy arrays.
 
-A KitNET fitted elsewhere (for example by the JAX package) and a flow
-state (dense, or a sketch with its scalar ``evict_age``) cross as plain
-dicts of numpy arrays, so the port never sees another framework's objects:
+A KitNET fitted elsewhere (for example by the JAX package), a flow state
+(dense, or a sketch with its scalar ``evict_age``) and an LM's parameters
+cross as plain dicts of numpy arrays, so the port never sees another
+framework's objects:
 
     net = kitnet_from_arrays({"idx": ..., "W1": ..., ...}, device="cuda")
     state = state_from_arrays({"uni": {...}, "bi": {...}}, device="cuda")
+    params = lm_params_from_arrays(cfg, {"embed": ..., "layers": {...}})
 """
 from __future__ import annotations
 
@@ -14,8 +16,12 @@ from typing import Dict
 import numpy as np
 import torch
 
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
 from repro_torch.detection.kitnet import KitNet
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.transformer import Block, Transformer
 
 PARAM_FIELDS = ("W1", "b1", "W2", "b2", "V1", "c1", "V2", "c2")
 KITNET_FIELDS = ("idx", "mask") + PARAM_FIELDS + (
@@ -69,3 +75,29 @@ def state_to_arrays(state: Dict) -> Dict:
 
     return {g: ({k: arr(t) for k, t in v.items()} if isinstance(v, dict)
                 else arr(v)) for g, v in state.items()}
+
+
+def lm_params_from_arrays(cfg: ArchConfig, arrays: Dict,
+                          device: DeviceLike = None) -> Transformer:
+    """A dense LM's parameters from the JAX package's parameter tree as
+    numpy arrays: ``embed`` (V, d), ``final_norm`` (d,), ``lm_head`` (d, V)
+    unless ``cfg.tie_embeddings``, and ``layers`` stacked on a leading L axis
+    (``ln1``, ``ln2``, ``attn/{wq,wk,wv,wo}``, ``mlp/{wi,wg?,wo}``), every
+    weight stored (d_in, d_out)."""
+    dev = resolve_device(device)
+
+    def param(a) -> nn.Parameter:
+        return nn.Parameter(torch.from_numpy(np.array(a)).to(dev),
+                            requires_grad=False)
+
+    lay = arrays["layers"]
+    if len(lay["ln1"]) != cfg.n_layers:
+        raise ValueError(f"{len(lay['ln1'])} stacked layers for a "
+                         f"{cfg.n_layers}-layer config")
+    blocks = [Block(param(lay["ln1"][i]), param(lay["ln2"][i]),
+                    nn.ParameterDict({n: param(w[i]) for n, w in lay["attn"].items()}),
+                    nn.ParameterDict({n: param(w[i]) for n, w in lay["mlp"].items()}))
+              for i in range(cfg.n_layers)]
+    head = None if cfg.tie_embeddings else param(arrays["lm_head"])
+    return Transformer(param(arrays["embed"]), param(arrays["final_norm"]),
+                       blocks, head)

@@ -4,6 +4,9 @@ Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors; ``KERNELS`` lists every kernel with its launch
 count.  Nothing is compiled at import.
 """
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    FLASH_ATTENTION, flash_attention,
+)
 from repro_torch.kernels.feature_update import (  # noqa: F401
     FC_FULL, FEATURE_UPDATE, feature_update, feature_update_full,
 )
@@ -12,7 +15,7 @@ from repro_torch.kernels.sketch_update import (  # noqa: F401
     SKETCH_UPDATE, sketch_update_full,
 )
 
-KERNELS = (FC_FULL, KITNET_AE, SKETCH_UPDATE, FEATURE_UPDATE)
+KERNELS = (FC_FULL, KITNET_AE, SKETCH_UPDATE, FEATURE_UPDATE, FLASH_ATTENTION)
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,124 @@
+"""Flash attention (forward): the CUDA kernel ``csrc/flash_attention.cu``,
+its wrapper and its plain PyTorch version.
+
+Replaces the JAX package's Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention`` (``_attn_kernel``):
+softmax attention with scale 1/sqrt(D), an optional tanh logit softcap, a
+causal and a sliding-window mask on absolute positions from 0 (top-left
+aligned when Sq != Sk), and GQA (query head h reads kv head h // (H / K)).
+Softmax and both products run in float32; the output is in q's dtype.
+
+The TPU kernel walks the kv blocks of one (head, q block) in a sequential
+grid axis, carrying max, denominator and accumulator in VMEM.  On the H100 a
+block of 256 threads takes one (batch, head, 64-row q tile), stages the q
+tile and one 64-key K and V tile at a time in shared memory (float32;
+212 KiB at head_dim 256), and keeps each query row's running max,
+denominator and its share of the float32 accumulator in registers.  Key
+tiles that the causal or window mask hides from every row of the q tile are
+skipped.  What bounds it is operations: 4*D float operations per unmasked
+(query, key) pair and head, against the inputs read once; the products are
+scalar float32 FMAs, since tensor cores would round float32 inputs to TF32.
+
+The kernel reads q, k, v and writes the output through their strides (the
+last dimension contiguous), so the model's (B, S, H, D) projections go in
+as transposed views without a copy.
+
+For CPU tensors the wrapper runs :func:`flash_attention_ref`; for CUDA
+tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.build import INT, VOIDP, CudaKernel
+
+I64 = ctypes.c_int64
+FLASH_ATTENTION = CudaKernel(
+    "flash_attention.cu", "flash_attention_launch",
+    argtypes=[VOIDP] * 4 + [INT] * 6 + [I64] * 12
+    + [INT, INT, ctypes.c_float, INT, VOIDP])
+
+HEAD_DIMS = (32, 64, 128, 256)      # head_dim values the kernel is built for
+NEG_INF = -1e30                     # masked score: finite, as in the TPU kernel
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, H, Sq, D); k/v: (B, K, Sk, D).  Full-score float32 softmax
+    attention (the JAX package's ``kernels/ref.flash_attention_ref``)."""
+    B, H, Sq, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, Sq, D).float()
+    s = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float()) / math.sqrt(D)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qpos >= kpos
+    if window > 0:
+        ok &= (qpos - kpos) < window
+    s = torch.where(ok, s, torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
+    return o.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention takes q (B, H, Sq, D) and k, v "
+                         f"(B, K, Sk, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, _, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[1]:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)} "
+                         "(same B and D, H a multiple of K)")
+    if k.shape[2] == 0:
+        raise ValueError("flash_attention needs at least one key")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, H, Sq, D); k/v: (B, K, Sk, D) with H a multiple of K.
+
+    Returns (B, H, Sq, D) in q.dtype, laid out in memory as q is.
+    """
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    B, H, Sq, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} is not one the kernel is built for "
+                         f"{HEAD_DIMS}")
+    out = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if (t.device != q.device or t.dtype != q.dtype
+                or t.dtype not in (torch.float32, torch.bfloat16)):
+            raise ValueError(f"{name} must be float32 or bfloat16 on {q.device} "
+                             f"like q, got {t.dtype} on {t.device}")
+        if (t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must have a contiguous last dimension, "
+                             f"strides that are multiples of 4 and 16-byte "
+                             f"alignment, got strides {t.stride()}")
+    if B * H > 65535:
+        raise ValueError(f"B*H={B * H} exceeds the grid's 65535")
+    if Sq == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    FLASH_ATTENTION.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, H, K, Sq, Sk, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        int(causal), int(window), float(softcap),
+        int(q.dtype == torch.bfloat16), stream)
+    return out

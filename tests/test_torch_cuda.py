@@ -1,6 +1,7 @@
 """PyTorch port, the CUDA kernels on the card: each kernel (dense FC, KitNET
-ensemble, Count-Min sketch, single-key update) against its plain PyTorch
-version at small sizes, launch counting, and the wrappers' checks.
+ensemble, Count-Min sketch, single-key update, flash attention) against its
+plain PyTorch version at small sizes, launch counting, and the wrappers'
+checks.
 
 Marked ``cuda``; each test skips without a CUDA device.  Run on the card:
 
@@ -12,6 +13,8 @@ import torch
 from repro_torch.core import clone_state, init_state, process_serial
 from repro_torch.core.sketch import process_sketch
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
 from repro_torch.kernels.feature_update import (TABLE_KEYS, feature_update,
                                                 feature_update_full,
                                                 feature_update_ref)
@@ -183,3 +186,77 @@ def test_new_wrappers_reject_bad_inputs(dev):
     x = torch.ones(4, device=dev)
     with pytest.raises(ValueError, match="slots must lie"):
         feature_update(tab, torch.tensor([0, 1, 2, 16], device=dev), x, x)
+
+
+FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(dev, B, H, K, Sq, Sk, D, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dev, dtype)
+            for shape in ((B, H, Sq, D), (B, K, Sk, D), (B, K, Sk, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,Sq,Sk,D,causal,window,softcap", [
+    (1, 8, 4, 200, 200, 256, True, 64, 50.0),    # gemma2's head: GQA, window, softcap
+    (1, 8, 4, 130, 130, 256, True, 0, 50.0),     # global layer
+    (2, 4, 2, 64, 64, 64, True, 0, 0.0),
+    (1, 8, 1, 96, 96, 32, True, 16, 0.0),        # MQA
+    (1, 2, 2, 200, 72, 64, False, 0, 0.0),       # ragged Sq > Sk
+    (1, 2, 2, 200, 72, 128, True, 0, 30.0),      # ragged, causal top-left
+    (2, 4, 4, 1, 128, 32, False, 0, 0.0),        # Sq = 1
+    (1, 2, 1, 150, 40, 64, False, 20, 0.0),      # rows that see no key
+])
+def test_flash_kernel_matches_plain(dev, B, H, K, Sq, Sk, D, causal, window,
+                                    softcap, dtype):
+    q, k, v = _flash_inputs(dev, B, H, K, Sq, Sk, D, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, **kw)
+    assert launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, **kw)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_reads_strided_views(dev):
+    """The model's (B, S, H, D) projections go in as transposed views, and
+    the output comes back laid out as q is."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(2, 130, n, 256, generator=g).to(dev).transpose(1, 2)
+               for n in (8, 4, 4))
+    got = flash_attention(q, k, v, causal=True, window=32, softcap=50.0)
+    assert got.stride() == q.stride()
+    want = flash_attention_ref(q, k, v, causal=True, window=32, softcap=50.0)
+    torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
+
+
+def test_flash_wrapper_rejects_bad_inputs(dev):
+    q, k, v = _flash_inputs(dev, 1, 2, 1, 8, 8, 48, torch.float32)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_attention(q, k, v)
+    q, k, v = _flash_inputs(dev, 1, 2, 1, 8, 8, 32, torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q, k.half(), v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
+
+
+def test_model_prefill_runs_the_kernel(dev):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import build_model
+    cfg = reduced(get_arch("gemma2-2b"), head_dim=256)
+    model = build_model(cfg, device=dev)
+    params = model.init_params(0)
+    toks = torch.randint(0, cfg.vocab, (1, 96), device=dev)
+    reset_launch_counts()
+    logits, _, _ = model.forward(params, {"tokens": toks})
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    plain, _, _ = model.forward(params, {"tokens": toks}, attn_impl="plain")
+    torch.testing.assert_close(logits, plain, rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="arange"):
+        model.forward(params, {"tokens": toks, "positions": toks * 0})

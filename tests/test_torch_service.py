@@ -70,7 +70,7 @@ def test_process_stream_matches_jax(fitted):
     reset_launch_counts()
     idx, scores, alarms = svc.process_stream(data["eval"], chunk=256)
     assert launch_counts() == {"fc_full": 0, "kitnet_ae": 0, "sketch_update": 0,
-                               "feature_update": 0}
+                               "feature_update": 0, "flash_attention": 0}
     assert len(idx) == len(data["eval"]["ts"]) // 64
     np.testing.assert_array_equal(idx, j_idx)
     np.testing.assert_allclose(scores, j_scores, **SCORE_TOL)
@@ -150,4 +150,4 @@ def test_serve_launcher_on_cpu(capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["device"] == "cpu" and out["records"] == 2500 // 64 - 1500 // 64
     assert out["launches"] == {"fc_full": 0, "kitnet_ae": 0, "sketch_update": 0,
-                               "feature_update": 0}
+                               "feature_update": 0, "flash_attention": 0}
