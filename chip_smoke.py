@@ -5,14 +5,19 @@
 Phases (each prints one JSON line; a failure raises and ends the run):
   1. device  — the card's name, and its name and power limit from nvidia-smi.
   2. build   — nvcc builds every kernel of the port from
-               src/repro_torch/csrc/ into build/, all sources in parallel.
+               src/repro_torch/csrc/ into build/, all sources in parallel;
+               for each flash instantiation, ptxas's registers and spills,
+               its shared memory, and its HGMMA/HMMA/FFMA counts (cuobjdump).
   flash   — the flash-attention kernel against its plain version on the
                card: the JAX package's test shapes (tests/test_kernels.py,
                f32 to 2e-6, bf16 to 2e-2, the window/softcap cases), and
                gemma2-2b's prefill attention at B=1, H=8, K=4, S=8192,
                D=256, softcap 50, window 4096 and global, in f32 (2e-5) and
-               bf16 (1e-5 + 2**-7 * |want|, one bf16 ulp); kernel, plain and scaled_dot_product_attention
-               times (the library yardstick: no softcap, no window).
+               bf16 (1e-5 + 2**-7 * |want|, one bf16 ulp); kernel, plain
+               and scaled_dot_product_attention times in both dtypes (the
+               library yardstick: no softcap, no window; the faster of the
+               GQA call and the call on kv heads repeated beforehand).  The
+               f32 bound is at the split-TF32 rate the kernel computes at.
   3. fc      — the FC kernel against its plain version (core/pipeline.py's
                serial oracle, run on the card) on one 8192-packet chunk at
                n_slots=8192, features and state to rtol=1e-4, atol=1e-3, plus
@@ -94,6 +99,9 @@ SCORE_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS = 989e12             # H100 SXM, bf16 tensor cores, dense
+# the float32 flash kernel's products as split TF32: three TF32 tensor-core
+# products (495 TFLOP/s dense) for each float32 one
+TF32X3_FLOPS = 495e12 / 3
 FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}   # tests/test_kernels.py
 FLASH_MODEL_TOL = 2e-5          # tests/test_kernels.py:115-116, model path
 # bf16 at the model shape: both sides compute in f32 and differ only in the
@@ -208,6 +216,25 @@ def trace_eval(svc, pkts, eval_s: float, kernels) -> dict:
             "top_host_self_us": dict(sorted(
                 ((e.key, e.self_cpu_time_total) for e in prof.key_averages()),
                 key=lambda kv: -kv[1])[:12])}
+
+
+def sass_counts(lib: Path, opcodes=("HGMMA", "HMMA", "FFMA")) -> dict:
+    """Instructions of each opcode in each kernel of a built library, from
+    ``cuobjdump -sass`` (the toolkit's, beside nvcc)."""
+    from repro_torch.kernels.build import nvcc_path
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = dict.fromkeys(opcodes, 0)
+        elif name is not None:
+            for op in opcodes:
+                if f" {op}." in line or f" {op} " in line:
+                    counts[name][op] += 1
+    return counts
 
 
 def bound(byts: float, ops: float, peak: float = FP32_FLOPS) -> dict:
@@ -481,14 +508,44 @@ def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
 def flash_cost(B, H, K, Sq, Sk, D, causal, window, dtype) -> dict:
     """Bytes (q, k, v read once, the output written once) and operations
     (4*D a visible pair and head: two products of 2*D) of one call, and the
-    bound against the float32 rate (float32 inputs) or the bf16 tensor rate
-    (bf16 inputs)."""
+    bound against the rate of the arithmetic the kernel uses: split TF32 on
+    the tensor cores (float32 inputs) or the bf16 tensor rate (bf16)."""
     esize = 4 if dtype == torch.float32 else 2
     byts = (2 * B * H * Sq * D + 2 * B * K * Sk * D) * esize
     ops = 4 * B * H * D * visible_pairs(Sq, Sk, causal, window)
-    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    peak = TF32X3_FLOPS if dtype == torch.float32 else BF16_FLOPS
     return {**bound(byts, ops, peak), "bytes": byts, "flops": ops,
-            "peak": "fp32" if dtype == torch.float32 else "bf16 tensor"}
+            "peak": "tf32x3 tensor" if dtype == torch.float32 else "bf16 tensor"}
+
+
+def flash_build_record(kern) -> dict:
+    """Per instantiation of the flash kernel: ptxas's registers, stack and
+    spills, the dynamic shared memory it launches with, and its tensor-core
+    (HGMMA: wgmma, HMMA: mma.sync) and FFMA instruction counts."""
+    import ctypes
+    import re
+    smem_of = ctypes.CDLL(str(kern.lib_path())).flash_attention_smem
+    smem_of.argtypes, smem_of.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+
+    def key(mangled):
+        m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+        return (("float32" if m.group(1) == "f" else "bfloat16"), int(m.group(2))) if m else None
+
+    out, cur = {}, None
+    for line in kern.build_log.splitlines():
+        if "Compiling entry function" in line:
+            cur = key(line)
+            if cur:
+                out[cur] = {"smem_bytes": smem_of(cur[1], int(cur[0] == "bfloat16"))}
+        elif cur and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[cur].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif cur and "Used" in line and "registers" in line:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    for mangled, counts in sass_counts(kern.lib_path()).items():
+        if key(mangled) in out:
+            out[key(mangled)]["sass"] = counts
+    return {f"{dt}_D{d}": rec for (dt, d), rec in sorted(out.items())}
 
 
 def phase_flash(dev, log) -> dict:
@@ -559,6 +616,13 @@ def phase_flash(dev, log) -> dict:
                 q, k8, v8, is_causal=True), 10)
         del qkv, q, k, v, k8, v8
     row = model["float32_window0"]
+    library = {}
+    for name in ("float32", "bfloat16"):
+        calls = {"scaled_dot_product_attention(enable_gqa=True)": model[f"{name}_sdpa_ms"],
+                 "scaled_dot_product_attention, kv heads repeated to H beforehand":
+                 model[f"{name}_sdpa_repeated_kv_ms"]}
+        library[name] = min(calls.items(), key=lambda kv: kv[1])
+    b16 = model["bfloat16_window0"]
     emit({"phase": "flash", "test_shapes_max_abs_err": cases, "model_shape": model}, log)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -569,11 +633,15 @@ def phase_flash(dev, log) -> dict:
                                   if c.startswith("float32_window")]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": model["float32_sdpa_ms"],
+            "library_ms": library["float32"][1],
+            "bf16": {"ms": b16["ms"], "plain_ms": b16["plain_ms"],
+                     "bound_ms": b16["bound_ms"], "bound_by": b16["bound_by"],
+                     "library_ms": library["bfloat16"][1],
+                     "library": library["bfloat16"][0]},
             "shape": {"B": 1, "H": 8, "K": 4, "S": 8192, "D": 256,
                       "dtype": "float32", "causal": True, "window": 0,
-                      "softcap": 50.0,
-                      "library": "scaled_dot_product_attention, causal, no softcap"}}
+                      "softcap": 50.0, "peak": row["peak"],
+                      "library": library["float32"][0] + ", causal, no softcap"}}
 
 
 def lm_args(**kw):
@@ -743,7 +811,7 @@ def main() -> int:
     from repro_torch.core.state import clone_state, init_state
     from repro_torch.detection.metrics import auc
     from repro_torch.interop import kitnet_from_arrays, kitnet_to_arrays
-    from repro_torch.kernels import (FC_FULL, KERNELS, KITNET_AE,
+    from repro_torch.kernels import (FC_FULL, FLASH_ATTENTION, KERNELS, KITNET_AE,
                                      launch_counts, reset_launch_counts)
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.feature_update import (fc_segments,
@@ -773,7 +841,8 @@ def main() -> int:
           "per_kernel_s": secs,
           "ptxas": {k.name: [ln for ln in k.build_log.splitlines()
                              if "registers" in ln or "spill" in ln]
-                    for k in KERNELS}}, log)
+                    for k in KERNELS},
+          "flash_instantiations": flash_build_record(FLASH_ATTENTION)}, log)
 
     # ---- 2b. flash-attention kernel against its plain version ----
     flash = phase_flash(dev, log)
@@ -973,7 +1042,8 @@ def main() -> int:
     single["launches"] = single_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    table = {"kernels": [{key: kern[key] for key in keys}
+    table = {"kernels": [{**{key: kern[key] for key in keys},
+                          **({"bf16": kern["bf16"]} if "bf16" in kern else {})}
                          for kern in (fc, ens, sk, single, flash)]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

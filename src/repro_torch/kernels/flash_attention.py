@@ -2,26 +2,37 @@
 its wrapper and its plain PyTorch version.
 
 Replaces the JAX package's Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention`` (``_attn_kernel``):
+``src/repro/kernels/flash_attention.py::flash_attention`` (``_attn_kernel``):
 softmax attention with scale 1/sqrt(D), an optional tanh logit softcap, a
 causal and a sliding-window mask on absolute positions from 0 (top-left
 aligned when Sq != Sk), and GQA (query head h reads kv head h // (H / K)).
-Softmax and both products run in float32; the output is in q's dtype.
+The softmax runs in float32; the output is in q's dtype (float32 or
+bfloat16), D in {32, 64, 128, 256}.
+
+What bounds it on the H100 is operations, 4*D a visible (query, key) pair
+and head: at the bf16 tensor rate for bf16 inputs, and for float32 inputs
+at the rate of the arithmetic the kernel uses, split TF32 (three TF32
+tensor-core products per float32 product, 495/3 TFLOP/s).
 
 The TPU kernel walks the kv blocks of one (head, q block) in a sequential
-grid axis, carrying max, denominator and accumulator in VMEM.  On the H100 a
-block of 256 threads takes one (batch, head, 64-row q tile), stages the q
-tile and one 64-key K and V tile at a time in shared memory (float32;
-212 KiB at head_dim 256), and keeps each query row's running max,
-denominator and its share of the float32 accumulator in registers.  Key
-tiles that the causal or window mask hides from every row of the q tile are
-skipped.  What bounds it is operations: 4*D float operations per unmasked
-(query, key) pair and head, against the inputs read once; the products are
-scalar float32 FMAs, since tensor cores would round float32 inputs to TF32.
+grid axis, carrying max, denominator and accumulator in VMEM.  On the H100
+a block of two warpgroups takes a (batch, head, 128-row q tile), 16 rows a
+warp; TMA loads the q tile once and K/V tiles into a ring of shared memory
+that the block refills as it frees each stage, so loads overlap the
+products of the tiles before them.  bf16: both products on ``wgmma``
+(S = Q K^T with Q and K from shared memory; O += P V with P from
+registers), P split into bf16 P_hi + P_lo so that P V keeps float32
+accuracy.  float32: split TF32, each operand as hi + lo parts and three
+tensor-core products for one: S on ``wgmma`` (Q split in registers, K's lo
+part staged in shared memory), P V on ``mma.sync``.  The tensor cores take bf16
+or TF32 operands while the tolerances are those of float32 arithmetic:
+hence the split.  Shared memory per (dtype, D) is 24-224 KiB and registers
+at most 255 a thread; the source's header gives each budget.
 
 The kernel reads q, k, v and writes the output through their strides (the
-last dimension contiguous), so the model's (B, S, H, D) projections go in
-as transposed views without a copy.
+last dimension contiguous, strides of whole 16-byte units, 16-byte aligned
+pointers, as TMA takes them), so the model's (B, S, H, D) projections go
+in as transposed views without a copy.
 
 For CPU tensors the wrapper runs :func:`flash_attention_ref`; for CUDA
 tensors it launches the kernel or raises.
@@ -105,11 +116,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                 or t.dtype not in (torch.float32, torch.bfloat16)):
             raise ValueError(f"{name} must be float32 or bfloat16 on {q.device} "
                              f"like q, got {t.dtype} on {t.device}")
-        if (t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3])
+        step = 16 // t.element_size()        # TMA: 16-byte strides
+        if (t.stride(3) != 1 or any(s % step or s <= 0 for s in t.stride()[:3])
                 or t.data_ptr() % 16):
             raise ValueError(f"{name} must have a contiguous last dimension, "
-                             f"strides that are multiples of 4 and 16-byte "
-                             f"alignment, got strides {t.stride()}")
+                             f"positive strides that are multiples of {step} "
+                             f"elements (16 bytes) and 16-byte alignment, got "
+                             f"strides {t.stride()}")
     if B * H > 65535:
         raise ValueError(f"B*H={B * H} exceeds the grid's 65535")
     if Sq == 0:

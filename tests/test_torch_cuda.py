@@ -221,16 +221,42 @@ def test_flash_kernel_matches_plain(dev, B, H, K, Sq, Sk, D, causal, window,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_flash_kernel_reads_strided_views(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views(dev, dtype):
     """The model's (B, S, H, D) projections go in as transposed views, and
     the output comes back laid out as q is."""
     g = torch.Generator().manual_seed(1)
-    q, k, v = (torch.randn(2, 130, n, 256, generator=g).to(dev).transpose(1, 2)
+    q, k, v = (torch.randn(2, 130, n, 256, generator=g).to(dev, dtype).transpose(1, 2)
                for n in (8, 4, 4))
     got = flash_attention(q, k, v, causal=True, window=32, softcap=50.0)
-    assert got.stride() == q.stride()
+    assert got.stride() == q.stride() and got.dtype == dtype
     want = flash_attention_ref(q, k, v, causal=True, window=32, softcap=50.0)
-    torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("window", [512, 0])
+def test_flash_kernel_bf16_gemma_shape_within_one_ulp(dev, window):
+    """bf16 at gemma2's heads: the kernel and its plain version compute in
+    float32 and differ only in the output's rounding, one bf16 ulp."""
+    q, k, v = _flash_inputs(dev, 1, 8, 4, 1024, 1024, 256, torch.bfloat16, seed=2)
+    kw = dict(causal=True, window=window, softcap=50.0)
+    got = flash_attention(q, k, v, **kw).float()
+    want = flash_attention_ref(q, k, v, **kw).float()
+    assert bool(((got - want).abs() <= 1e-5 + 2.0 ** -7 * want.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_flash_kernel_ragged_keys_and_single_query(dev, D, dtype):
+    """Sk not a multiple of any key tile (the tail loads as zeros and gets
+    no weight), and a single query row."""
+    tol = FLASH_TOL[dtype]
+    for Sq, Sk, causal in ((77, 77, True), (1, 77, False), (1, 1, False)):
+        q, k, v = _flash_inputs(dev, 1, 4, 2, Sq, Sk, D, dtype, seed=Sk)
+        got = flash_attention(q, k, v, causal=causal, softcap=30.0)
+        want = flash_attention_ref(q, k, v, causal=causal, softcap=30.0)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 def test_flash_wrapper_rejects_bad_inputs(dev):
@@ -244,6 +270,20 @@ def test_flash_wrapper_rejects_bad_inputs(dev):
         flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="contiguous last dimension"):
         flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
+    # the tensor maps take 16-byte strides and 16-byte aligned rows
+    wide = torch.zeros(1, 2, 8, 34, device=dev)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        flash_attention(wide[..., :32], k, v)               # 136 bytes a row
+    with pytest.raises(ValueError, match="16-byte alignment"):
+        flash_attention(wide.flatten()[2:2 + 512].view(1, 2, 8, 32), k, v)
+    with pytest.raises(ValueError, match="positive strides"):
+        flash_attention(q, k[:, :, :1].expand(1, 1, 8, 32), v)       # row stride 0
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    wide = torch.zeros(1, 2, 8, 36, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention(wide[..., :32], kb, vb)             # 72 bytes a row
+    with pytest.raises(ValueError, match="16-byte alignment"):
+        flash_attention(torch.zeros(516, device=dev, dtype=torch.bfloat16)[4:].view(1, 2, 8, 32), kb, vb)
 
 
 def test_model_prefill_runs_the_kernel(dev):
