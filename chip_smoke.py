@@ -22,15 +22,22 @@ Phases (each prints one JSON line; a failure raises and ends the run):
                serial oracle, run on the card) on one 8192-packet chunk at
                n_slots=8192, features and state to rtol=1e-4, atol=1e-3, plus
                chunked carry == one shot; kernel and plain timings.
-  sketch  — the sketch kernel against its plain version (core/sketch.py's
-               process_sketch, run on the card) at the sketch main path's
-               W=4096, R=2 on the second 8192-packet chunk of a mirai
-               stream (from the state the first chunk left), and on a
-               4096-packet chunk at W=64, R=4 with evict_age=0.5 (rows
-               collide, cells age out), features and state to rtol=1e-4,
-               atol=1e-3; chunked carry == one shot; at R=1, W=8192 its
-               state equals phase fc's dense kernel state bit for bit;
-               timings on the compared W=4096, R=2 chunk.
+  sketch  — the sketch kernels (schedule, update, features) against their
+               plain version (core/sketch.py's process_sketch, run on the
+               card), features and every table bit for bit, and the card's
+               schedule equal to its twin (sketch_schedule_ref): at the
+               sketch main path's W=4096, R=2 on the second 8192-packet
+               chunk of a mirai stream (from the state the first chunk
+               left), on a 4096-packet chunk at W=64, R=4 with
+               evict_age=0.5 (rows collide, cells age out) and on an
+               8192-packet chunk of one flow; chunked carry == one shot
+               bit for bit; at R=1, W=8192 its state equals phase fc's
+               dense kernel state bit for bit.  Per key type the deepest
+               level and the rounds; schedule, update and features times
+               apart on the W=4096, R=2 chunk, on it replayed and on the
+               single flow; the chain floor (deepest level times one dependent
+               L2 round trip, measured here); ptxas's record of each
+               instantiation.
   fc_single — the single-key kernel's entry point driven once with the
                launch counts zeroed (its path), then against its plain
                version at n=8192, n_slots=8192 (rtol=1e-4, atol=1e-3) and
@@ -108,6 +115,10 @@ FLASH_MODEL_TOL = 2e-5          # tests/test_kernels.py:115-116, model path
 # output's rounding, so at most one bf16 ulp, which is <= 2**-7 * |want|
 FLASH_MODEL_BF16_RTOL, FLASH_MODEL_BF16_ATOL = 2.0 ** -7, 1e-5
 LM_REF_TOL = 1e-3               # logits, kernel route against plain route
+# the device kernels of a wrapper that launches more than one, each once a
+# call (a launch is counted by the first)
+DEVICE_KERNELS = {"sketch_update": ("sketch_update_kernel", "sketch_schedule_kernel",
+                                    "sketch_features_kernel")}
 
 
 def emit(record: dict, log: list) -> None:
@@ -146,10 +157,10 @@ def device_events(prof) -> dict:
     return out
 
 
-def kernel_ms(fn, reps: int, kernel: str):
-    """Mean device time (ms) per launch of the kernel whose name contains
-    ``kernel``, over ``reps`` calls of ``fn``, from torch.profiler; None if
-    the profiler saw no device time for it."""
+def kernels_ms(fn, reps: int, names):
+    """Mean device time (ms) per launch of each kernel whose name contains
+    one of ``names``, over ``reps`` calls of ``fn``, from torch.profiler; None
+    if the profiler saw no device time for one of them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -157,22 +168,31 @@ def kernel_ms(fn, reps: int, kernel: str):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us, calls = 0.0, 0
-    for key, (k_us, count) in device_events(prof).items():
-        if kernel in key:
-            us += k_us
-            calls += count
-    return us / calls * 1e-3 if calls else None
+    events = device_events(prof)
+    out = {}
+    for name in names:
+        hits = [(us, count) for key, (us, count) in events.items() if name in key]
+        calls = sum(c for _, c in hits)
+        if not calls:
+            return None
+        out[name] = sum(us for us, _ in hits) / calls * 1e-3
+    return out
 
 
-def timed(fn, reps: int, kernel: str) -> dict:
-    """``ms``: the kernel's device time per launch (profiler), or the CUDA
-    event time per call where the profiler saw none; ``call_ms``: the CUDA
-    event time per back-to-back call, host overhead included."""
+def timed(fn, reps: int, kernel) -> dict:
+    """``ms``: the device time per call of the kernel ``kernel`` (or of the
+    kernels in a tuple of names, each launched once a call, summed; each
+    apart under ``parts_ms``) from the profiler, or the CUDA event time per
+    call where the profiler saw none; ``call_ms``: the CUDA event time per
+    back-to-back call, host overhead included."""
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     call = cuda_ms(fn, reps)
-    dev = kernel_ms(fn, reps, kernel)
-    return {"ms": call if dev is None else dev, "call_ms": call,
-            "ms_from": "events" if dev is None else "profiler"}
+    dev = kernels_ms(fn, reps, names)
+    out = {"ms": call if dev is None else sum(dev.values()), "call_ms": call,
+           "ms_from": "events" if dev is None else "profiler"}
+    if len(names) > 1:
+        out["parts_ms"] = dev
+    return out
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -199,9 +219,12 @@ def trace_eval(svc, pkts, eval_s: float, kernels) -> dict:
     kern_us, kern_calls = {}, {}
     for key, (us, count) in events.items():
         for kern in kernels:
-            if f"{kern.name}_kernel" in key:
-                kern_us[kern.name] = kern_us.get(kern.name, 0.0) + us
-                kern_calls[kern.name] = kern_calls.get(kern.name, 0) + count
+            names = DEVICE_KERNELS.get(kern.name, (f"{kern.name}_kernel",))
+            for pos, name in enumerate(names):
+                if name in key:
+                    kern_us[kern.name] = kern_us.get(kern.name, 0.0) + us
+                    if pos == 0:
+                        kern_calls[kern.name] = kern_calls.get(kern.name, 0) + count
     busy_s = sum(dev_us.values()) * 1e-6
     # each kernel's device time per launch on the path, at its shapes
     traced_ms = {name: kern_us[name] / kern_calls[name] * 1e-3 for name in kern_us}
@@ -270,18 +293,94 @@ def sketch_cost(pk, rows: int, width: int) -> Tuple[float, float]:
     return byts, ops
 
 
+def sketch_build_record(kern) -> dict:
+    """Per instantiation of the sketch kernels: ptxas's registers, stack,
+    spills and static shared memory, and the schedule's dynamic shared
+    memory with its level counts inside (n <= 8192) and outside it."""
+    import ctypes
+    import re
+    smem_of = ctypes.CDLL(str(kern.lib_path())).sketch_schedule_smem
+    smem_of.argtypes, smem_of.restype = [ctypes.c_int], ctypes.c_int
+
+    def key(mangled):
+        m = re.search(r"sketch_update_kernelILi(\d+)E", mangled)
+        if m:
+            return f"update_RP{m.group(1)}"
+        for name in ("sketch_schedule_kernel", "l2_chase_kernel"):
+            if name in mangled:
+                return name.replace("_kernel", "").replace("sketch_", "")
+        return None
+
+    out, cur = {}, None
+    for line in kern.build_log.splitlines():
+        if "Compiling entry function" in line:
+            cur = key(line)
+            if cur:
+                out[cur] = {}
+        elif cur and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[cur].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif cur and "Used" in line and "registers" in line:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[cur]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    if "schedule" in out:
+        out["schedule"]["dynamic_smem_bytes"] = {"n<=8192": smem_of(8192),
+                                                 "n>8192": smem_of(8193)}
+    return out
+
+
+def l2_round_trip_ms(kern, dev) -> float:
+    """One dependent load through L2, in ms: one thread follows a random
+    cycle over 1 MiB of int32 indices with loads that skip L1
+    (``sketch_l2_chase_launch``), timed with CUDA events after a pass that
+    brings every index into L2."""
+    import ctypes
+    fn = ctypes.CDLL(str(kern.lib_path())).sketch_l2_chase_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    size, steps = 1 << 18, 1 << 16
+    perm = torch.randperm(size, generator=torch.Generator().manual_seed(0))
+    nxt = torch.empty(size, dtype=torch.int32)
+    nxt[perm] = perm.roll(-1).to(torch.int32)
+    nxt = nxt.to(dev)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(k):
+        code = fn(nxt.data_ptr(), k, out.data_ptr(), stream)
+        if code:
+            raise RuntimeError(f"l2 chase: launch failed with CUDA error {code}")
+
+    run(size)
+    return cuda_ms(lambda: run(steps), 3) / steps
+
+
+SKETCH_NAMES = ("sketch_schedule_kernel", "sketch_update_kernel",
+                "sketch_features_kernel")
+
+
 def phase_sketch(dev, pk8192, st_dense, log) -> dict:
-    """The sketch kernel against its plain version, run on the card: at the
-    sketch main path's W=4096, R=2 on the second 8192-packet chunk of a
-    mirai stream, from the state the first chunk left (as every chunk but
-    the first meets it on the main path), and on one 4096-packet chunk at
+    """The sketch kernels against their plain versions, run on the card, bit
+    for bit (features and every table) and the schedule against its twin:
+    at the sketch main path's W=4096, R=2 on the second 8192-packet chunk
+    of a mirai stream, from the state the first chunk left (as every chunk
+    but the first meets it on the main path); on one 4096-packet chunk at
     W=64, R=4 with eviction (rows collide, cells age out) from a fresh
-    state; chunked carry against one shot; and at R=1, W=8192 its state
-    against the dense FC kernel's."""
+    state; and on an 8192-packet chunk of one flow (a level a packet).
+    Chunked carry against one shot; at R=1, W=8192 its state against the
+    dense FC kernel's.  Times of the schedule, update and features apart,
+    and the chain floor: the deepest level times one dependent L2 round
+    trip."""
     from repro_torch.core.sketch import process_sketch
     from repro_torch.core.state import clone_state, init_state
-    from repro_torch.kernels.sketch_update import sketch_update_full
+    from repro_torch.kernels.sketch_update import (SKETCH_UPDATE, kernel_rows,
+                                                   round_size, sketch_schedule_ref,
+                                                   sketch_update_full)
     from repro_torch.traffic import synth_trace, to_torch
+
+    def states_equal(a, b) -> bool:
+        return all(torch.equal(a[g][k], b[g][k]) for g in ("uni", "bi") for k in b[g])
 
     stream = to_torch(synth_trace("mirai", n_train=64, n_benign_eval=8192,
                                   n_attack=8192, seed=0)["eval"], dev)
@@ -292,27 +391,47 @@ def phase_sketch(dev, pk8192, st_dense, log) -> dict:
                      seed=0)["eval"]
     pk = to_torch(tr, dev)
     n = len(tr["ts"])
-    cases, plain_ms = {}, {}
-    for name, st0, p in (("W4096_R2_age0.0", st_main, chunk2),
-                         ("W64_R4_age0.5", init_state(64, "sketch", device=dev,
-                                                      rows=4, evict_age=0.5), pk)):
-        st_k, f_k = sketch_update_full(clone_state(st0), p)
+    one = {k: v[:1].repeat(8192) for k, v in chunk2.items()}
+    one["ts"] = torch.arange(8192, device=dev, dtype=torch.float32) * 1e-3
+    cases, out = {}, {}
+    for name, st0, p, rows, width in (
+            ("W4096_R2_age0.0", st_main, chunk2, 2, 4096),
+            ("W64_R4_age0.5", init_state(64, "sketch", device=dev, rows=4,
+                                         evict_age=0.5), pk, 4, 64),
+            ("single_flow_W4096_R2", init_state(4096, "sketch", device=dev,
+                                                rows=2), one, 2, 4096)):
+        sched = {}
+        st_k, f_k = sketch_update_full(clone_state(st0), p, schedule=sched)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st_p, f_p = process_sketch(clone_state(st0), p)
         torch.cuda.synchronize()
-        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+        plain_ms = (time.perf_counter() - t0) * 1e3
         assert_close(f_k, f_p, f"sketch {name} features", **FC_TOL)
-        err, same = max_abs(f_k, f_p), torch.equal(f_k, f_p)
+        err = max_abs(f_k, f_p)
         for g in ("uni", "bi"):
             for key in st_p[g]:
                 assert_close(st_k[g][key], st_p[g][key], f"sketch {name} state "
                              f"{g}/{key}", **FC_TOL)
                 err = max(err, max_abs(st_k[g][key], st_p[g][key]))
-                same = same and torch.equal(st_k[g][key], st_p[g][key])
+        if not (torch.equal(f_k, f_p) and states_equal(st_k, st_p)):
+            raise RuntimeError(f"sketch {name}: kernel and process_sketch differ "
+                               f"(max abs err {err})")
+        want = sketch_schedule_ref(kernel_rows(p, rows, width)[0], width)
+        same = (sched["depth"] == want["depth"] and sched["rounds"] == want["rounds"]
+                and all(torch.equal(sched[key].cpu(), want[key])
+                        for key in ("level", "order"))
+                and all(torch.equal(a.cpu(), b) for a, b in
+                        zip(sched["round_starts"], want["round_starts"])))
+        if not same:
+            raise RuntimeError(f"sketch {name}: the card's schedule differs from "
+                               "its twin")
         cases[name] = {"packets": int(p["ts"].shape[0]), "max_abs_err": err,
-                       "bitwise": same, "plain_ms": plain_ms[name]}
-    f_age, st_age = f_k, st_k
+                       "bitwise": True, "schedule_equals_twin": True,
+                       "plain_ms": plain_ms, "depth": want["depth"],
+                       "rounds": want["rounds"], "round_size": round_size(rows)}
+        out[name] = (st_k, f_k)
+    st_age, f_age = out["W64_R4_age0.5"]
     # eviction had an effect: the same chunk without aging differs
     _, f_noage = sketch_update_full(
         init_state(64, "sketch", device=dev, rows=4), pk)
@@ -320,15 +439,12 @@ def phase_sketch(dev, pk8192, st_dense, log) -> dict:
     if changed == 0.0:
         raise RuntimeError("sketch: no cell aged out in the eviction case")
     cases["W64_R4_age0.5"]["features_changed_by_eviction"] = changed
-    # chunked carry against one shot, at the colliding, aging case
+    # chunked carry against one shot (so against process_sketch), bit for bit
     st_c = init_state(64, "sketch", device=dev, rows=4, evict_age=0.5)
     f_c = torch.cat([sketch_update_full(st_c, {k: v[i:i + 1000] for k, v in pk.items()})[1]
                      for i in range(0, n, 1000)])
-    assert_close(f_c, f_age, "sketch chunked vs one shot", **FC_TOL)
-    for g in ("uni", "bi"):
-        for key in st_c[g]:
-            assert_close(st_c[g][key], st_age[g][key],
-                         f"sketch chunked state {g}/{key}", **FC_TOL)
+    if not (torch.equal(f_c, f_age) and states_equal(st_c, st_age)):
+        raise RuntimeError("sketch: chunked carry differs from one shot")
     # R=1, W=8192: the sketch kernel's state is the dense FC kernel's
     st_1, _ = sketch_update_full(init_state(8192, "sketch", device=dev, rows=1), pk8192)
     for g in ("uni", "bi"):
@@ -336,23 +452,39 @@ def phase_sketch(dev, pk8192, st_dense, log) -> dict:
             if key != "rr" and not torch.equal(st_1[g][key][:, 0], st_dense[g][key]):
                 raise RuntimeError(f"sketch R=1 state {g}/{key} differs from fc_full's")
     # times: the compared main-path case, each call on a fresh copy of the
-    # state the first chunk left (call_ms includes the 4.25 MiB copy); and
-    # the same chunk replayed onto the state it left itself, where every
-    # cell's last time is at or past the packet's, so dt = 0
+    # state the first chunk left (call_ms includes the 4.25 MiB copy); the
+    # same chunk replayed onto the state it left itself, where every cell's
+    # last time is at or past the packet's, so dt = 0; the single flow
     t_main = timed(lambda: sketch_update_full(clone_state(st_main), chunk2), 20,
-                   "sketch_update_kernel")
+                   SKETCH_NAMES)
     st_r = clone_state(st_main)
     sketch_update_full(st_r, chunk2)
-    t_replay = timed(lambda: sketch_update_full(st_r, chunk2), 20, "sketch_update_kernel")
+    t_replay = timed(lambda: sketch_update_full(st_r, chunk2), 20, SKETCH_NAMES)
+    st_one = init_state(4096, "sketch", device=dev, rows=2)
+    t_single = timed(lambda: sketch_update_full(st_one, one), 5, SKETCH_NAMES)
+    l2_ms = l2_round_trip_ms(SKETCH_UPDATE, dev)
+    main_case = cases["W4096_R2_age0.0"]
+    for t, case in ((t_main, main_case), (t_single, cases["single_flow_W4096_R2"])):
+        case["chain_floor_ms"] = max(case["depth"]) * l2_ms
+        parts = t.get("parts_ms") or {}
+        t["schedule_ms"] = parts.get("sketch_schedule_kernel")
+        t["update_ms"] = parts.get("sketch_update_kernel")
+        t["features_ms"] = parts.get("sketch_features_kernel")
+        t["us_per_round"] = (t["update_ms"] * 1e3 / max(case["rounds"])
+                             if t["update_ms"] is not None else None)
     return {"name": "sketch_update", "route": "cuda",
             "source": "src/repro_torch/csrc/sketch_update.cu",
             "replaces": "src/repro/kernels/sketch_update.py:243",
             "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-            **t_main, "plain_ms": plain_ms["W4096_R2_age0.0"],
+            **t_main, "plain_ms": main_case["plain_ms"],
             **bound(*sketch_cost(chunk2, 2, 4096)), "library_ms": None,
+            "chain_floor_ms": main_case["chain_floor_ms"],
+            "l2_round_trip_ns": l2_ms * 1e6,
             "shape": {"packets": 8192, "width": 4096, "rows": 2, "chunk": 2},
-            "cases": cases, "chunked_max_abs_err": max_abs(f_c, f_age),
-            "r1_state_equals_fc_full": True, "replayed_chunk": t_replay}
+            "cases": cases, "chunked_bitwise": True,
+            "r1_state_equals_fc_full": True, "replayed_chunk": t_replay,
+            "single_flow_chunk": t_single,
+            "build": sketch_build_record(SKETCH_UPDATE)}
 
 
 def phase_fc_single(dev, pk8192) -> Tuple[dict, int]:
@@ -1042,8 +1174,9 @@ def main() -> int:
     single["launches"] = single_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("bf16", "chain_floor_ms")
     table = {"kernels": [{**{key: kern[key] for key in keys},
-                          **({"bf16": kern["bf16"]} if "bf16" in kern else {})}
+                          **{key: kern[key] for key in extra if key in kern}}
                          for kern in (fc, ens, sk, single, flash)]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

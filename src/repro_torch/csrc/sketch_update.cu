@@ -10,28 +10,48 @@
 // SR is kept per row and the row of least sw (the first, on a tie) is
 // emitted.
 //
-// Design.  The TPU kernel walks every packet in one sequential grid with
-// all tables in VMEM.  The dense FC kernel's per-slot segmentation does not
-// carry over: two flows that collide in one row may not collide in the
-// others, so any two packets of a key type may share a cell.  What is left
-// to run in parallel: the four key types touch disjoint tables, and every
-// operation of the update is elementwise across the four decays.  So the
-// kernel runs one warp per key type (4 blocks of 32 threads), and lane
-// r*4 + j owns row r and decay j.  Each cell (key type, row, column[, dir],
-// decay) is only ever touched by one lane of one warp, in packet order, so
-// no lane ever waits on another's store.  The minimum across rows and the
-// first argmin of sw are __shfl_xor reductions over the row bits of the
-// lane; lanes of rows >= R take part with +inf.  Lanes of row 0 write the
-// features, in FEATURE_NAMES order.  The wrapper hashes the row indices
-// before the launch; the kernel never hashes.
+// Design: a dependency-level schedule, then a level-by-level update.  The
+// four key types touch disjoint tables and the four decays never interact.
+// Within a key type, packet i touches, in row r, only the cells of column
+// col_r(i) (a bi key type's own, opposite and SR cells all hang off the
+// channel's base column).  So each cell sees its packets in array order as
+// long as every packet runs after the earlier packets it shares a column
+// with, and the result is the serial walk's bit for bit.
 //
-// Bound.  Bytes: each touched cell read and written once, 320 B of features
-// and the packet's indices, time and length.  What the kernel meets
-// instead is latency: each warp walks all n packets in turn, and a packet's
-// loads may hit the cell the previous packet stored, so every packet costs
-// at least one L2 round trip per warp.  Four warps on a 132-SM card leave
-// it far from either bound; the packet's read-only inputs are loaded one
-// packet ahead to keep them off that chain.
+//   sketch_schedule_kernel, one block per key type: one warp walks the
+//   packets 32 at a time (a lane a packet) with level(i) = 1 + max_r
+//   last[r, col_r(i)], then last[r, col_r(i)] = level(i).  `last` lives in
+//   shared memory, LAST_TABLE entries (128 KiB): row r owns a power-of-two
+//   stripe of last_row_width(R) entries and a column is taken modulo it, so
+//   columns may alias (an extra dependency: levels only rise) but rows never
+//   do.  Lanes of one step that share a cell are found with
+//   __match_any_sync per row and resolved in lane order.  The block then
+//   sorts the packets stably by level (counting sort: the walk numbers each
+//   packet within its level, a block scan gives level starts) and cuts each
+//   level into rounds of at most P packets.  Level counts stay in shared
+//   memory up to SMEM_LEVELS packets, else in the scratch buffer.
+//
+//   sketch_update_kernel<RP>, one block per (key type, decay): a group of
+//   RP lanes (R rounded up to a power of two, a lane a row) runs one packet,
+//   UPDATE_THREADS / RP packets a round, rounds in order with
+//   __syncthreads() between them.  No two packets of a round share a cell.
+//   The minimum across rows and the first argmin of sw are __shfl_xor
+//   reductions inside the group; lanes of rows >= R take part with +inf.
+//   A warp with no packet in the round only waits.  The chain between
+//   rounds holds only what the tables need: row-0 lanes park the packet's
+//   estimates in its feature slots, and the round starts are read three
+//   rounds ahead, the order array two, the packet's inputs one.
+//
+//   sketch_features_kernel, a thread per (packet, key type, decay): the
+//   features from the parked estimates, in place, at the packet's own row
+//   in FEATURE_NAMES order.  The wrapper hashes the row indices before the
+//   launch.
+//
+// Bound.  Bytes: the inputs read once, each touched cell read and written
+// once, 320 B of features a packet.  What the kernel meets instead is the
+// chain of levels: a round costs a few dependent L2 round trips plus the
+// arithmetic, and a chunk needs at least as many rounds as its deepest
+// key type has levels (a single flow: one round a packet).
 //
 // Arithmetic is the plain version's, operation for operation: exp2f, IEEE
 // division and square root, and the build passes --fmad=false so no
@@ -49,7 +69,11 @@ constexpr int NF = 80;          // features per packet
 constexpr int UNI_F = 12;       // features per uni key type
 constexpr int BI_F = 28;        // features per bi key type
 constexpr int BI_COL0 = 24;     // first bi feature column
-constexpr int MAX_ROWS = 8;     // rows that fit one warp, 4 lanes a row
+constexpr int MAX_ROWS = 8;
+constexpr int LAST_TABLE = 32768;     // entries of the schedule's `last` table
+constexpr int SMEM_LEVELS = 8192;     // level counts in shared memory up to this n
+constexpr int SCHED_THREADS = 1024;
+constexpr int UPDATE_THREADS = 512;
 constexpr unsigned FULL = 0xffffffffu;
 
 __constant__ float kLam[ND] = {10.0f, 1.0f, 0.1f, static_cast<float>(1.0 / 60.0)};
@@ -60,22 +84,185 @@ struct Tables {
   float *bsr, *bslt, *bsw;                  // (N_BI*R*W, 4): row base
 };
 
+// One key type's schedule in the scratch buffer, 5n + 5 int32 a key type:
+// level (n), rank within the level (n; later rounds per level), order (n),
+// level starts (n + 2), round starts (n + 1), and {depth, rounds}.
+struct Sched {
+  int32_t *level, *rank, *order, *cnt, *rstart, *meta;
+};
+
+__host__ __device__ inline Sched sched_of(int32_t* scratch, int n, int kt) {
+  int32_t* b = scratch + static_cast<size_t>(kt) * (5 * static_cast<size_t>(n) + 5);
+  return {b, b + n, b + 2 * static_cast<size_t>(n), b + 3 * static_cast<size_t>(n),
+          b + 4 * static_cast<size_t>(n) + 2, b + 5 * static_cast<size_t>(n) + 3};
+}
+
+// entries of `last` that one row owns: the largest power of two with R of
+// them in LAST_TABLE
+__host__ __device__ inline int last_row_width(int R) {
+  int w = LAST_TABLE;
+  while (w * R > LAST_TABLE) w >>= 1;
+  return w;
+}
+
+// Exclusive prefix sum of a[0, m) in place by the whole block; returns the
+// total.  Every thread of the block must call it.
+__device__ int block_exclusive_scan(int32_t* a, int m, int* warp_sums) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (m + nt - 1) / nt;
+  const int lo = min(tid * per, m), hi = min(lo + per, m);
+  int sum = 0;
+  for (int q = lo; q < hi; ++q) sum += a[q];
+  int x = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nt / 32 ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, w, off);
+      if (lane >= off) w += y;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  int run = x - sum + (warp > 0 ? warp_sums[warp - 1] : 0);
+  const int total = warp_sums[nt / 32 - 1];
+  for (int q = lo; q < hi; ++q) {
+    const int v = a[q];
+    a[q] = run;
+    run += v;
+  }
+  __syncthreads();
+  return total;
+}
+
+// ---------------------------------------------------------------------------
+// schedule: levels, the stable order by level, and the rounds
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(SCHED_THREADS)
+sketch_schedule_kernel(const int32_t* __restrict__ rows, int32_t* __restrict__ scratch,
+                       int n, int R, int W, int P) {
+  extern __shared__ int32_t smem[];
+  __shared__ int warp_sums[32];
+  __shared__ int depth;
+  const int kt = blockIdx.x, tid = threadIdx.x;
+  const Sched s = sched_of(scratch, n, kt);
+  int32_t* last = smem;
+  int32_t* cnt = n <= SMEM_LEVELS ? smem + LAST_TABLE : s.cnt;
+  for (int q = tid; q < LAST_TABLE; q += blockDim.x) last[q] = 0;
+  for (int q = tid; q < n + 2; q += blockDim.x) cnt[q] = 0;
+  __syncthreads();
+
+  if (tid < 32) {
+    const int lane = tid;
+    const unsigned below = (1u << lane) - 1u;
+    const int tw = last_row_width(R);
+    const int kk = kt & 1;                       // key type within uni or bi
+    const int32_t* krows = rows + static_cast<size_t>(kt) * n * R;
+    int nxt[MAX_ROWS];
+#pragma unroll
+    for (int r = 0; r < MAX_ROWS; ++r)
+      nxt[r] = (r < R && lane < n) ? krows[static_cast<size_t>(lane) * R + r] : 0;
+    int deepest = 0;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      const bool act = i < n;
+      int slot[MAX_ROWS];
+      unsigned same[MAX_ROWS];
+      unsigned deps = 0;
+      int lvl = 0;
+#pragma unroll
+      for (int r = 0; r < MAX_ROWS; ++r) {
+        if (r < R) {
+          const int col = nxt[r] - (kk * R + r) * W;
+          slot[r] = act ? r * tw + (col & (tw - 1)) : -1 - lane;
+          same[r] = __match_any_sync(FULL, slot[r]);
+          deps |= same[r];
+          if (act) lvl = max(lvl, last[slot[r]]);
+        }
+      }
+      const int ni = i + 32;
+#pragma unroll
+      for (int r = 0; r < MAX_ROWS; ++r)
+        if (r < R && ni < n) nxt[r] = krows[static_cast<size_t>(ni) * R + r];
+      lvl += 1;
+      // earlier lanes of this step that share a cell, resolved in lane order
+      deps &= below;
+      unsigned srcs = __reduce_or_sync(FULL, deps);
+      while (srcs) {
+        const int k = __ffs(srcs) - 1;
+        srcs &= srcs - 1;
+        const int lk = __shfl_sync(FULL, lvl, k);
+        if ((deps >> k) & 1u) lvl = max(lvl, lk + 1);
+      }
+      __syncwarp();
+      // the last lane on a cell holds its highest level
+#pragma unroll
+      for (int r = 0; r < MAX_ROWS; ++r)
+        if (r < R && act && (same[r] >> lane) == 1u) last[slot[r]] = lvl;
+      // number within the level, in packet order
+      const unsigned peers = __match_any_sync(FULL, act ? lvl : -1 - lane);
+      const int rk = act ? cnt[lvl] + __popc(peers & below) : 0;
+      __syncwarp();
+      if (act && (peers >> lane) == 1u) cnt[lvl] = rk + 1;
+      if (act) {
+        s.level[i] = lvl;
+        s.rank[i] = rk;
+        deepest = max(deepest, lvl);
+      }
+      __syncwarp();
+    }
+    deepest = __reduce_max_sync(FULL, deepest);
+    if (lane == 0) depth = deepest;
+  }
+  __syncthreads();
+
+  const int L = depth;
+  block_exclusive_scan(cnt, L + 2, warp_sums);   // cnt[l]: first position of level l
+  for (int i = tid; i < n; i += blockDim.x) s.order[cnt[s.level[i]] + s.rank[i]] = i;
+  __syncthreads();
+  int32_t* nr = s.rank;                          // rounds of level q + 1
+  for (int q = tid; q < L; q += blockDim.x) nr[q] = (cnt[q + 2] - cnt[q + 1] + P - 1) / P;
+  __syncthreads();
+  const int rounds = block_exclusive_scan(nr, L, warp_sums);
+  for (int q = tid; q < L; q += blockDim.x) {
+    const int end = cnt[q + 2];
+    int32_t* out = s.rstart + nr[q];
+    for (int pos = cnt[q + 1]; pos < end; pos += P) *out++ = pos;
+  }
+  if (tid == 0) {
+    s.rstart[rounds] = n;
+    s.meta[0] = L;
+    s.meta[1] = rounds;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// update: the rounds in order
+// ---------------------------------------------------------------------------
 __device__ __forceinline__ float safe_div(float a, float b) {
   return b > 0.0f ? a / fmaxf(b, 1e-12f) : 0.0f;
 }
 
-// minimum over the lanes of one decay (lane bits 2..4 are the row)
+// minimum over the RP lanes of one packet (lane bits below RP are the row)
+template <int RP>
 __device__ __forceinline__ float row_min(float v) {
-  v = fminf(v, __shfl_xor_sync(FULL, v, 4));
-  v = fminf(v, __shfl_xor_sync(FULL, v, 8));
-  v = fminf(v, __shfl_xor_sync(FULL, v, 16));
+#pragma unroll
+  for (int off = 1; off < RP; off <<= 1) v = fminf(v, __shfl_xor_sync(FULL, v, off));
   return v;
 }
 
-// the first row holding the minimum of v, over the lanes of one decay
+// the first row holding the minimum of v, over the RP lanes of one packet
+template <int RP>
 __device__ __forceinline__ int row_argmin(float v, int r) {
 #pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
+  for (int off = 1; off < RP; off <<= 1) {
     const float ov = __shfl_xor_sync(FULL, v, off);
     const int orow = __shfl_xor_sync(FULL, r, off);
     if (ov < v || (ov == v && orow < r)) {
@@ -104,156 +291,264 @@ __device__ __forceinline__ void stats(float w, float ls, float ss, float& mu,
 
 struct Packet {
   float t, x;
-  int row, dir;
+  int i, row, dir;              // i < 0: no packet in this slot
 };
 
 __device__ __forceinline__ Packet load_packet(const int32_t* __restrict__ krows,
                                               const int32_t* __restrict__ dirb,
                                               const float* __restrict__ ts,
                                               const float* __restrict__ lens,
-                                              int i, int R, int r, bool active) {
-  Packet p;
-  p.t = ts[i];
-  p.x = lens[i];
-  p.row = active ? krows[static_cast<size_t>(i) * R + r] : 0;
-  p.dir = dirb[i];
+                                              int i, int R, int r) {
+  Packet p{0.0f, 0.0f, i, 0, 0};
+  if (i >= 0) {
+    p.t = ts[i];
+    p.x = lens[i];
+    p.dir = dirb[i];
+    if (r < R) p.row = krows[static_cast<size_t>(i) * R + r];
+  }
   return p;
 }
 
-__global__ void __launch_bounds__(32)
+// One packet (or none: p.i < 0) through one decay of one key type, on
+// its group of RP lanes; every lane of the warp takes part.  Only what the
+// tables need is computed here; the packet's Count-Min estimates (and a bi
+// key type's opposite estimates and SR) go to its feature slots, and
+// sketch_features_kernel turns them into features after the last round.
+template <int RP>
+__device__ __forceinline__ void update_packet(const Packet& p, int kt, int j, int r,
+                                              int R, float lam, float age,
+                                              const Tables& tab, float* __restrict__ feats) {
+  const float inf = __int_as_float(0x7f800000);
+  const int lane = threadIdx.x & 31;
+  const bool active = p.i >= 0 && r < R;
+  const float t = p.t, x = p.x;
+  float* f = feats + static_cast<size_t>(p.i < 0 ? 0 : p.i) * NF;
+
+  if (kt < 2) {
+    // ---- unidirectional key type ----
+    const size_t e = static_cast<size_t>(p.row) * ND + j;
+    float cw = inf, cls = inf, css = inf;
+    if (active) {
+      const float delta = cu_decay(tab.ult[e], t, lam, age);
+      cw = tab.uw[e] * delta + 1.0f;
+      cls = tab.uls[e] * delta + x;
+      css = tab.uss[e] * delta + x * x;
+    }
+    const float ew = row_min<RP>(cw), els = row_min<RP>(cls), ess = row_min<RP>(css);
+    if (active) {
+      tab.ult[e] = t;
+      tab.uw[e] = fmaxf(cw - 1.0f, ew);
+      tab.uls[e] = fmaxf(cls - x, els);
+      tab.uss[e] = fmaxf(css - x * x, ess);
+    }
+    if (r == 0 && p.i >= 0) {
+      float* g = f + kt * UNI_F + j * 3;
+      g[0] = ew; g[1] = els; g[2] = ess;
+    }
+  } else {
+    // ---- bidirectional key type: own row 2*base+dir, SR row base ----
+    const size_t eo = (static_cast<size_t>(p.row) * 2 + p.dir) * ND + j;
+    const size_t ep = (static_cast<size_t>(p.row) * 2 + 1 - p.dir) * ND + j;
+    const size_t es = static_cast<size_t>(p.row) * ND + j;
+    float cw = inf, cls = inf, css = inf;
+    float wp = inf, lsp = inf, ssp = inf;
+    float sr = 0.0f, sr_lt = 0.0f, sw = 0.0f, rl_p = 0.0f;
+    if (active) {
+      const float delta = cu_decay(tab.blt[eo], t, lam, age);
+      cw = tab.bw[eo] * delta + 1.0f;
+      cls = tab.bls[eo] * delta + x;
+      css = tab.bss[eo] * delta + x * x;
+      // opposite direction as stored (stale); aged-out cells read as 0
+      const bool zap = age > 0.0f && (t - tab.blt[ep]) > age;
+      wp = zap ? 0.0f : tab.bw[ep];
+      lsp = zap ? 0.0f : tab.bls[ep];
+      ssp = zap ? 0.0f : tab.bss[ep];
+      rl_p = tab.brl[ep];
+      sr = tab.bsr[es];
+      sr_lt = tab.bslt[es];
+      sw = tab.bsw[es];
+    }
+    const float ew = row_min<RP>(cw), els = row_min<RP>(cls), ess = row_min<RP>(css);
+    const float w_p = row_min<RP>(wp), ls_p = row_min<RP>(lsp), ss_p = row_min<RP>(ssp);
+
+    // SR per row; the emitted value is the row of least sw
+    const float r_feat = x - safe_div(els, ew);
+    float sr2 = 0.0f, sw_now = inf;
+    if (active) {
+      const float dt_sr = fmaxf(t - sr_lt, 0.0f);
+      const bool evict = age > 0.0f && dt_sr > age;
+      const float dsr = (sr_lt < 0.0f || evict) ? 0.0f : exp2f(-lam * dt_sr);
+      const float r_opp = evict ? 0.0f : rl_p;
+      sr2 = sr * dsr + r_feat * r_opp;
+      sw_now = sw * dsr;
+    }
+    const float m_sw = row_min<RP>(sw_now);
+    const float sw2 = active ? fmaxf(sw_now, m_sw + 1.0f) : inf;
+    const int best = row_argmin<RP>(sw2, r);
+    const float sr_est = __shfl_sync(FULL, sr2, (lane & ~(RP - 1)) + best);
+
+    if (active) {
+      tab.blt[eo] = t;
+      tab.bw[eo] = fmaxf(cw - 1.0f, ew);
+      tab.bls[eo] = fmaxf(cls - x, els);
+      tab.bss[eo] = fmaxf(css - x * x, ess);
+      tab.brl[eo] = r_feat;
+      tab.bsr[es] = sr2;
+      tab.bslt[es] = t;
+      tab.bsw[es] = sw2;
+    }
+    if (r == 0 && p.i >= 0) {
+      float* g = f + BI_COL0 + (kt - 2) * BI_F + j * 7;
+      g[0] = ew; g[1] = els; g[2] = ess; g[3] = w_p;
+      g[4] = ls_p; g[5] = ss_p; g[6] = sr_est;
+    }
+  }
+}
+
+template <int RP>
+__global__ void __launch_bounds__(UPDATE_THREADS)
 sketch_update_kernel(const int32_t* __restrict__ rows,
                      const int32_t* __restrict__ dirb,
                      const float* __restrict__ ts,
                      const float* __restrict__ lens,
                      const float* __restrict__ age_p, Tables tab,
-                     float* __restrict__ feats, int n, int R) {
-  const int kt = blockIdx.x;                        // key type 0..3
-  const int lane = threadIdx.x;
-  const int j = lane & 3, r = lane >> 2;            // decay, row
-  const bool active = r < R;
+                     float* __restrict__ feats, const int32_t* __restrict__ scratch,
+                     int n, int R) {
+  const int kt = blockIdx.x >> 2, j = blockIdx.x & 3;   // key type, decay
+  const int r = threadIdx.x & (RP - 1);                  // row
+  const int slot = threadIdx.x / RP;                     // packet of the round
   const float lam = kLam[j];
   const float age = *age_p;
-  const float inf = __int_as_float(0x7f800000);
   const int32_t* krows = rows + static_cast<size_t>(kt) * n * R;
+  const Sched s = sched_of(const_cast<int32_t*>(scratch), n, kt);
+  const int32_t* __restrict__ rstart = s.rstart;
+  const int32_t* __restrict__ order = s.order;
+  const int rounds = s.meta[1];
 
-  Packet nxt = n > 0 ? load_packet(krows, dirb, ts, lens, 0, R, r, active) : Packet{};
-  for (int i = 0; i < n; ++i) {
-    const Packet p = nxt;
-    if (i + 1 < n) nxt = load_packet(krows, dirb, ts, lens, i + 1, R, r, active);
-    const float t = p.t, x = p.x;
-    float* f = feats + static_cast<size_t>(i) * NF;
+  auto rs_at = [&](int k) { return k <= rounds ? rstart[k] : n; };
+  auto pkt_at = [&](int beg, int end) { return beg + slot < end ? order[beg + slot] : -1; };
+  int rs2 = rs_at(2), rs3 = rs_at(3);
+  int p1 = pkt_at(rs_at(1), rs2);
+  Packet cur = load_packet(krows, dirb, ts, lens, pkt_at(rs_at(0), rs_at(1)), R, r);
 
-    if (kt < 2) {
-      // ---- unidirectional key type ----
-      const size_t e = static_cast<size_t>(p.row) * ND + j;
-      float cw = inf, cls = inf, css = inf;
-      if (active) {
-        const float delta = cu_decay(tab.ult[e], t, lam, age);
-        cw = tab.uw[e] * delta + 1.0f;
-        cls = tab.uls[e] * delta + x;
-        css = tab.uss[e] * delta + x * x;
-      }
-      const float ew = row_min(cw), els = row_min(cls), ess = row_min(css);
-      if (active) {
-        tab.ult[e] = t;
-        tab.uw[e] = fmaxf(cw - 1.0f, ew);
-        tab.uls[e] = fmaxf(cls - x, els);
-        tab.uss[e] = fmaxf(css - x * x, ess);
-      }
-      if (r == 0) {
-        float mu, var, sig;
-        stats(ew, els, ess, mu, var, sig);
-        float* g = f + kt * UNI_F + j * 3;
-        g[0] = ew; g[1] = mu; g[2] = sig;
-      }
-    } else {
-      // ---- bidirectional key type: own row 2*base+dir, SR row base ----
-      const size_t eo = (static_cast<size_t>(p.row) * 2 + p.dir) * ND + j;
-      const size_t ep = (static_cast<size_t>(p.row) * 2 + 1 - p.dir) * ND + j;
-      const size_t es = static_cast<size_t>(p.row) * ND + j;
-      float cw = inf, cls = inf, css = inf;
-      float wp = inf, lsp = inf, ssp = inf;
-      float sr = 0.0f, sr_lt = 0.0f, sw = 0.0f, rl_p = 0.0f;
-      if (active) {
-        const float delta = cu_decay(tab.blt[eo], t, lam, age);
-        cw = tab.bw[eo] * delta + 1.0f;
-        cls = tab.bls[eo] * delta + x;
-        css = tab.bss[eo] * delta + x * x;
-        // opposite direction as stored (stale); aged-out cells read as 0
-        const bool zap = age > 0.0f && (t - tab.blt[ep]) > age;
-        wp = zap ? 0.0f : tab.bw[ep];
-        lsp = zap ? 0.0f : tab.bls[ep];
-        ssp = zap ? 0.0f : tab.bss[ep];
-        rl_p = tab.brl[ep];
-        sr = tab.bsr[es];
-        sr_lt = tab.bslt[es];
-        sw = tab.bsw[es];
-      }
-      const float ew = row_min(cw), els = row_min(cls), ess = row_min(css);
-      const float w_p = row_min(wp), ls_p = row_min(lsp), ss_p = row_min(ssp);
-      float mu_o, var_o, sig_o, mu_p, var_p, sig_p;
-      stats(ew, els, ess, mu_o, var_o, sig_o);
-      stats(w_p, ls_p, ss_p, mu_p, var_p, sig_p);
+  for (int k = 0; k < rounds; ++k) {
+    const Packet nxt = load_packet(krows, dirb, ts, lens, p1, R, r);
+    p1 = pkt_at(rs2, rs3);
+    rs2 = rs3;
+    rs3 = rs_at(k + 4);
 
-      // SR per row; the emitted value is the row of least sw
-      const float r_feat = x - mu_o;
-      float sr2 = 0.0f, sw_now = inf;
-      if (active) {
-        const float dt_sr = fmaxf(t - sr_lt, 0.0f);
-        const bool evict = age > 0.0f && dt_sr > age;
-        const float dsr = (sr_lt < 0.0f || evict) ? 0.0f : exp2f(-lam * dt_sr);
-        const float r_opp = evict ? 0.0f : rl_p;
-        sr2 = sr * dsr + r_feat * r_opp;
-        sw_now = sw * dsr;
-      }
-      const float m_sw = row_min(sw_now);
-      const float sw2 = active ? fmaxf(sw_now, m_sw + 1.0f) : inf;
-      const int best = row_argmin(sw2, r);
-      const float sr_est = __shfl_sync(FULL, sr2, best * 4 + j);
-
-      if (active) {
-        tab.blt[eo] = t;
-        tab.bw[eo] = fmaxf(cw - 1.0f, ew);
-        tab.bls[eo] = fmaxf(cls - x, els);
-        tab.bss[eo] = fmaxf(css - x * x, ess);
-        tab.brl[eo] = r_feat;
-        tab.bsr[es] = sr2;
-        tab.bslt[es] = t;
-        tab.bsw[es] = sw2;
-      }
-      if (r == 0) {
-        const float mag = sqrtf(fmaxf(mu_o * mu_o + mu_p * mu_p, 0.0f));
-        const float rad = sqrtf(fmaxf(var_o * var_o + var_p * var_p, 0.0f));
-        const float cov = safe_div(sr_est, ew + w_p);
-        const float pcc = safe_div(cov, sig_o * sig_p);
-        float* g = f + BI_COL0 + (kt - 2) * BI_F + j * 7;
-        g[0] = ew; g[1] = mu_o; g[2] = sig_o; g[3] = mag;
-        g[4] = rad; g[5] = cov; g[6] = pcc;
-      }
-    }
+    // a warp whose lanes hold no packet this round only waits
+    if (__any_sync(FULL, cur.i >= 0)) update_packet<RP>(cur, kt, j, r, R, lam, age, tab, feats);
+    __syncthreads();
+    cur = nxt;
   }
+}
+
+// The features of each (packet, key type, decay) from the estimates the
+// update left in its feature slots, in place: uni (w, ls, ss) -> (w, mu,
+// sigma); bi (w, ls, ss, w_p, ls_p, ss_p, sr) -> (w, mu, sigma, magnitude,
+// radius, cov, pcc).
+__global__ void sketch_features_kernel(float* __restrict__ feats, int n) {
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (q >= static_cast<int64_t>(n) * 16) return;
+  const int kt = static_cast<int>(q & 15) >> 2, j = static_cast<int>(q & 3);
+  float* f = feats + (q >> 4) * NF;
+  float mu_o, var_o, sig_o;
+  if (kt < 2) {
+    float* g = f + kt * UNI_F + j * 3;
+    stats(g[0], g[1], g[2], mu_o, var_o, sig_o);
+    g[1] = mu_o; g[2] = sig_o;
+    return;
+  }
+  float* g = f + BI_COL0 + (kt - 2) * BI_F + j * 7;
+  const float ew = g[0], w_p = g[3], sr_est = g[6];
+  float mu_p, var_p, sig_p;
+  stats(ew, g[1], g[2], mu_o, var_o, sig_o);
+  stats(w_p, g[4], g[5], mu_p, var_p, sig_p);
+  const float mag = sqrtf(fmaxf(mu_o * mu_o + mu_p * mu_p, 0.0f));
+  const float rad = sqrtf(fmaxf(var_o * var_o + var_p * var_p, 0.0f));
+  const float cov = safe_div(sr_est, ew + w_p);
+  const float pcc = safe_div(cov, sig_o * sig_p);
+  g[1] = mu_o; g[2] = sig_o; g[3] = mag;
+  g[4] = rad; g[5] = cov; g[6] = pcc;
+}
+
+// one thread follows a chain of indices through L2 (loads that skip L1)
+__global__ void l2_chase_kernel(const int32_t* __restrict__ next, int steps,
+                                int32_t* __restrict__ out) {
+  int p = 0;
+  for (int k = 0; k < steps; ++k) p = __ldcg(next + p);
+  *out = p;
+}
+
+int rows_pow2(int R) { return R == 1 ? 1 : R == 2 ? 2 : R <= 4 ? 4 : 8; }
+
+// packets a round of the update for R rows
+int round_size(int R) { return UPDATE_THREADS / rows_pow2(R); }
+
+template <int RP>
+void launch_update(const void* rows, const void* dirb, const void* ts, const void* lens,
+                   const void* age, const Tables& tab, void* feats, const void* scratch,
+                   int n, int R, cudaStream_t st) {
+  sketch_update_kernel<RP><<<16, UPDATE_THREADS, 0, st>>>(
+      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(dirb),
+      static_cast<const float*>(ts), static_cast<const float*>(lens),
+      static_cast<const float*>(age), tab, static_cast<float*>(feats),
+      static_cast<const int32_t*>(scratch), n, R);
 }
 
 }  // namespace
 
+// Dynamic shared memory of the schedule kernel for n packets.
+extern "C" int sketch_schedule_smem(int n) {
+  return (LAST_TABLE + (n <= SMEM_LEVELS ? n + 2 : 0)) * static_cast<int>(sizeof(int32_t));
+}
+
 // rows: (4, n, R) int32 flat table rows per key type (uni: (k*R+r)*W+col,
-// bi: the SR row (k*R+r)*W+col); dirb: (n,) int32; age: 0-dim float32.
+// bi: the SR row (k*R+r)*W+col); dirb: (n,) int32; age: 0-dim float32;
+// scratch: 4 * (5n + 5) int32, left holding each key type's schedule.
 extern "C" int sketch_update_launch(const void* rows, const void* dirb,
                                     const void* ts, const void* lens, const void* age,
                                     void* ult, void* uw, void* uls, void* uss,
                                     void* blt, void* bw, void* bls, void* bss,
                                     void* brl, void* bsr, void* bslt, void* bsw,
-                                    void* feats, int n, int R, void* stream) {
-  if (R < 1 || R > MAX_ROWS) return static_cast<int>(cudaErrorInvalidValue);
+                                    void* feats, void* scratch, int n, int R, int W,
+                                    void* stream) {
+  if (R < 1 || R > MAX_ROWS || n < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int smem = sketch_schedule_smem(n);
+  cudaError_t err = cudaFuncSetAttribute(
+      sketch_schedule_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sketch_schedule_kernel<<<4, SCHED_THREADS, smem, st>>>(
+      static_cast<const int32_t*>(rows), static_cast<int32_t*>(scratch), n, R, W,
+      round_size(R));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   Tables tab{static_cast<float*>(ult), static_cast<float*>(uw),
              static_cast<float*>(uls), static_cast<float*>(uss),
              static_cast<float*>(blt), static_cast<float*>(bw),
              static_cast<float*>(bls), static_cast<float*>(bss),
              static_cast<float*>(brl), static_cast<float*>(bsr),
              static_cast<float*>(bslt), static_cast<float*>(bsw)};
-  sketch_update_kernel<<<4, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(dirb),
-      static_cast<const float*>(ts), static_cast<const float*>(lens),
-      static_cast<const float*>(age), tab, static_cast<float*>(feats), n, R);
+  switch (rows_pow2(R)) {
+    case 1: launch_update<1>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st); break;
+    case 2: launch_update<2>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st); break;
+    case 4: launch_update<4>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st); break;
+    default: launch_update<8>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st); break;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t items = static_cast<int64_t>(n) * 16;
+  sketch_features_kernel<<<static_cast<unsigned>((items + 255) / 256), 256, 0, st>>>(
+      static_cast<float*>(feats), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Measurement probe, not on any path: `steps` dependent loads through L2
+// along the index chain `next` (one thread), for the chain floor.
+extern "C" int sketch_l2_chase_launch(const void* next, int steps, void* out, void* stream) {
+  l2_chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(next), steps, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

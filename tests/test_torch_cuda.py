@@ -7,6 +7,7 @@ Marked ``cuda``; each test skips without a CUDA device.  Run on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -18,7 +19,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.feature_update import (TABLE_KEYS, feature_update,
                                                 feature_update_full,
                                                 feature_update_ref)
-from repro_torch.kernels.sketch_update import sketch_update_full
+from repro_torch.kernels.sketch_update import (kernel_rows, sketch_schedule_ref,
+                                               sketch_update_full)
 from repro_torch.kernels.kitnet_ae import kitnet_ensemble, kitnet_ensemble_ref
 from repro_torch.traffic import synth_trace, to_torch
 
@@ -104,25 +106,57 @@ def test_wrappers_reject_bad_inputs(dev):
         feature_update_full(st, pk)
 
 
-def _assert_states_close(got, want, **tol):
+def _sketch_bitwise(dev, pk, rows, width, evict_age=0.0):
+    """The kernel against the plain version bit for bit, features and every
+    table, and the kernel's schedule against its plain twin."""
+    st0 = init_state(width, state_backend="sketch", device=dev, rows=rows,
+                     evict_age=evict_age)
+    sched = {}
+    reset_launch_counts()
+    st_k, f_k = sketch_update_full(clone_state(st0), pk, schedule=sched)
+    assert launch_counts()["sketch_update"] == 1
+    st_p, f_p = process_sketch(clone_state(st0), pk)
+    assert torch.equal(f_k, f_p)
     for g in ("uni", "bi"):
-        for k in want[g]:
-            torch.testing.assert_close(got[g][k], want[g][k], **tol)
+        for k in st_p[g]:
+            assert torch.equal(st_k[g][k], st_p[g][k]), (g, k)
+    want = sketch_schedule_ref(kernel_rows(pk, rows, width)[0], width)
+    assert sched["depth"] == want["depth"] and sched["rounds"] == want["rounds"]
+    for key in ("level", "order"):
+        assert torch.equal(sched[key].cpu(), want[key]), key
+    for got, ref in zip(sched["round_starts"], want["round_starts"]):
+        assert torch.equal(got.cpu(), ref)
+    return want
 
 
 @pytest.mark.parametrize("rows,width,evict_age", [(1, 512, 0.0), (2, 512, 0.0),
-                                                  (3, 64, 0.5), (8, 64, 0.5)])
+                                                  (2, 4096, 0.0), (2, 64, 0.5),
+                                                  (3, 64, 0.5), (4, 64, 0.5),
+                                                  (8, 64, 0.5)])
 def test_sketch_kernel_matches_plain(dev, rows, width, evict_age):
+    """600 packets: not a multiple of any round size (512, 256, 128, 64)."""
     pk = to_torch(synth_trace("mirai", n_train=64, n_benign_eval=300,
                               n_attack=300, seed=2)["eval"], dev)
-    st0 = init_state(width, state_backend="sketch", device=dev, rows=rows,
-                     evict_age=evict_age)
-    reset_launch_counts()
-    st_k, f_k = sketch_update_full(clone_state(st0), pk)
-    assert launch_counts()["sketch_update"] == 1
-    st_p, f_p = process_sketch(clone_state(st0), pk)
-    torch.testing.assert_close(f_k, f_p, **FC_TOL)
-    _assert_states_close(st_k, st_p, **FC_TOL)
+    _sketch_bitwise(dev, pk, rows, width, evict_age)
+
+
+def test_sketch_kernel_bitwise_past_shared_counts(dev):
+    """n > 8192: the level counts live in the scratch buffer."""
+    pk = to_torch(synth_trace("mirai", n_train=64, n_benign_eval=4150,
+                              n_attack=4150, seed=3)["eval"], dev)
+    assert pk["ts"].shape[0] > 8192
+    _sketch_bitwise(dev, pk, 2, 4096)
+
+
+def test_sketch_kernel_bitwise_single_flow(dev):
+    """One flow: every packet its own level, a round a packet."""
+    tr = synth_trace("mirai", n_train=64, n_benign_eval=300, n_attack=300,
+                     seed=2)["eval"]
+    n = 700
+    one = {k: np.repeat(v[:1], n) for k, v in tr.items()}
+    one["ts"] = np.arange(n, dtype=np.float32) * 0.01
+    want = _sketch_bitwise(dev, to_torch(one, dev), 2, 4096)
+    assert want["depth"] == want["rounds"] == [n] * 4
 
 
 def test_sketch_rows1_state_equals_dense_kernel(dev):

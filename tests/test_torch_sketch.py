@@ -51,9 +51,12 @@ from repro.traffic.generator import ATTACKS
 from repro_torch.core import (FEATURE_NAMES, N_FEATURES, clone_state,
                               compute_features, init_state, packet_slots,
                               process_serial)
-from repro_torch.core.sketch import (process_sketch, row_salt,
-                                     sketch_packet_rows)
-from repro_torch.core.state import (KEY_SALTS, available_state_backends,
+from repro_torch.core.pipeline import flat_tables
+from repro_torch.core.sketch import (SKETCH_TABLES, _sketch_packet_step,
+                                     process_sketch, row_salt,
+                                     sketch_flat_rows, sketch_packet_rows)
+from repro_torch.core.state import (KEY_SALTS, LAMBDAS,
+                                    available_state_backends,
                                     state_backend_of, state_config,
                                     state_slots)
 from repro_torch.interop import (kitnet_from_arrays, state_from_arrays,
@@ -61,6 +64,8 @@ from repro_torch.interop import (kitnet_from_arrays, state_from_arrays,
 from repro_torch.kernels import (feature_update, launch_counts,
                                  reset_launch_counts, sketch_update_full)
 from repro_torch.kernels.feature_update import feature_update_ref
+from repro_torch.kernels.sketch_update import (kernel_rows, last_row_width,
+                                               round_size, sketch_schedule_ref)
 from repro_torch.serving import DetectionService
 from repro_torch.traffic import to_torch
 
@@ -388,6 +393,134 @@ def test_sketch_service_fits_on_its_own():
     idx, scores, alarms = svc.process_stream(data["eval"], chunk=256)
     assert len(idx) == 512 // 32 and np.isfinite(scores).all()
     assert state_backend_of(svc.state) == "sketch"
+
+
+# ---------------------------------------------------------------------------
+# the sketch kernel's schedule (its plain twin) and replays in its order
+# ---------------------------------------------------------------------------
+def _cells(idx, width, table=None):
+    """Per key type, the (n, R) columns each packet touches in each row
+    (the bi base column covers the own, opposite and SR cells), taken
+    modulo ``last_row_width`` when ``table`` is given."""
+    _, n, R = idx.shape
+    r = torch.arange(R)
+    cols = [idx[kt].long() - ((kt % 2) * R + r) * width for kt in range(4)]
+    if table is not None:
+        cols = [c & (last_row_width(R, table) - 1) for c in cols]
+    return cols
+
+
+def _assert_levels_follow_cells(level, cols):
+    """Packets that share a column in some row have strictly increasing
+    levels in packet order (consecutive sharers suffice)."""
+    for r in range(cols.shape[1]):
+        key = cols[:, r]
+        order = torch.sort(key, stable=True).indices
+        same = key[order][1:] == key[order][:-1]
+        lv = level[order]
+        assert bool((lv[1:][same] > lv[:-1][same]).all()), r
+
+
+def _assert_schedule_shape(s, n, R):
+    """Order is the stable sort by level; rounds stay within one level and
+    hold at most round_size(R) packets."""
+    P = round_size(R)
+    for kt in range(4):
+        level = s["level"][kt].long()
+        assert torch.equal(s["order"][kt].long(),
+                           torch.sort(level, stable=True).indices)
+        assert s["depth"][kt] == (int(level.max()) if n else 0)
+        rs = s["round_starts"][kt].long()
+        assert len(rs) == s["rounds"][kt] + 1 and int(rs[0]) == 0 and int(rs[-1]) == n
+        width = rs[1:] - rs[:-1]
+        assert bool((width >= 1).all() and (width <= P).all())
+        lv = level[s["order"][kt].long()]
+        for a, b in zip(rs[:-1].tolist(), rs[1:].tolist()):
+            assert int(lv[a]) == int(lv[b - 1])
+
+
+@pytest.mark.parametrize("width", [64, 4096])
+@pytest.mark.parametrize("rows", [1, 2, 4])
+def test_schedule_levels_follow_shared_cells(rows, width):
+    """Uni and bi key types: every pair of packets sharing a cell in some row
+    is in strictly increasing levels; with a `last` table smaller than R*W
+    (columns alias) the same holds and no level falls."""
+    pk = to_torch(_trace("mirai"), "cpu")
+    idx, _ = kernel_rows(pk, rows, width)
+    s = sketch_schedule_ref(idx, width)
+    _assert_schedule_shape(s, N_PKTS, rows)
+    small = 32 * rows                    # 32 entries a row: columns alias
+    aliased = sketch_schedule_ref(idx, width, table=small)
+    assert last_row_width(rows, small) < width
+    for kt, (cols, cols_a) in enumerate(zip(_cells(idx, width),
+                                            _cells(idx, width, small))):
+        _assert_levels_follow_cells(s["level"][kt], cols)
+        _assert_levels_follow_cells(aliased["level"][kt], cols_a)
+        assert bool((aliased["level"][kt] >= s["level"][kt]).all()), kt
+    if width == 64:                      # rows collide: levels run deep
+        assert min(s["depth"]) > 1 and max(s["depth"]) < N_PKTS
+
+
+def _replay(state, pkts, order):
+    """``process_sketch`` with the packets applied in ``order``; each
+    packet's features land at its own row."""
+    rows = sketch_flat_rows(pkts, state["uni"]["w"].shape[1],
+                            state["uni"]["w"].shape[2])
+    tab = flat_tables(state, SKETCH_TABLES)
+    ts = pkts["ts"].to(torch.float32)
+    lens = pkts["length"].to(torch.float32)
+    lam = torch.tensor(LAMBDAS, dtype=torch.float32)
+    d = rows["dir"][:, None, None]
+    brow_s = rows["bbase"]
+    brow_o, brow_p = brow_s * 2 + d, brow_s * 2 + (1 - d)
+    feats = torch.empty((ts.shape[0], N_FEATURES), dtype=torch.float32)
+    for i in order.tolist():
+        feats[i] = _sketch_packet_step(tab, lam, state["evict_age"],
+                                       rows["urow"][i], brow_o[i], brow_p[i],
+                                       brow_s[i], ts[i], lens[i])
+    return state, feats
+
+
+@pytest.mark.parametrize("rows,evict_age", [(2, 0.0), (4, 0.5)])
+def test_schedule_order_replay_is_bitwise(rows, evict_age):
+    """Each key type's packets replayed in its schedule order through the
+    plain per-packet step: that key type's feature columns and tables equal
+    process_sketch's bit for bit."""
+    pk = to_torch(_trace("ssh_bruteforce"), "cpu")
+    width = 64
+    st_p, f_p = process_sketch(_sketch(width, rows, evict_age), pk)
+    idx, _ = kernel_rows(pk, rows, width)
+    s = sketch_schedule_ref(idx, width)
+    feat_cols = [range(0, 12), range(12, 24), range(24, 52), range(52, 80)]
+    for kt in range(4):
+        order = s["order"][kt]
+        assert not torch.equal(order, torch.arange(N_PKTS, dtype=torch.int32))
+        st_r, f_r = _replay(_sketch(width, rows, evict_age), pk, order)
+        cols = list(feat_cols[kt])
+        assert torch.equal(f_r[:, cols], f_p[:, cols]), kt
+        g, k = ("uni", kt) if kt < 2 else ("bi", kt - 2)
+        for name in st_p[g]:
+            assert torch.equal(st_r[g][name][k], st_p[g][name][k]), (kt, name)
+
+
+def test_schedule_empty_and_single_flow():
+    idx = torch.zeros((4, 0, 2), dtype=torch.int32)
+    s = sketch_schedule_ref(idx, 64)
+    assert s["depth"] == [0] * 4 and s["rounds"] == [0] * 4
+    assert s["level"].shape == s["order"].shape == (4, 0)
+    assert all(rs.tolist() == [0] for rs in s["round_starts"])
+    n = 300
+    tr = _trace("mirai")
+    one = {k: np.repeat(v[:1], n) for k, v in tr.items()}
+    one["ts"] = np.arange(n, dtype=np.float32) * 0.01
+    idx, _ = kernel_rows(to_torch(one, "cpu"), 2, 4096)
+    s = sketch_schedule_ref(idx, 4096)
+    ramp = torch.arange(1, n + 1, dtype=torch.int32)
+    for kt in range(4):
+        assert torch.equal(s["level"][kt], ramp)
+        assert torch.equal(s["order"][kt], ramp - 1)
+        assert s["depth"][kt] == s["rounds"][kt] == n
+    _assert_schedule_shape(s, n, 2)
 
 
 # ---------------------------------------------------------------------------
