@@ -18,10 +18,14 @@ Phases (each prints one JSON line; a failure raises and ends the run):
                library yardstick: no softcap, no window; the faster of the
                GQA call and the call on kv heads repeated beforehand).  The
                f32 bound is at the split-TF32 rate the kernel computes at.
-  3. fc      — the FC kernel against its plain version (core/pipeline.py's
+  3. fc      — the FC kernels (scan, prelude, chain, residual, SR chain,
+               features) against their plain version (core/pipeline.py's
                serial oracle, run on the card) on one 8192-packet chunk at
-               n_slots=8192, features and state to rtol=1e-4, atol=1e-3, plus
-               chunked carry == one shot; kernel and plain timings.
+               n_slots=8192, features and every table bit for bit, chunked
+               carry bit for bit, and an 8192-packet chunk of one flow bit
+               for bit; kernel (each of the six apart), plain and one-flow
+               times, the longest segment and the chain floor (the longest
+               segment times one dependent multiply-add, measured here).
   sketch  — the sketch kernels (schedule, update, features) against their
                plain version (core/sketch.py's process_sketch, run on the
                card), features and every table bit for bit, and the card's
@@ -38,10 +42,20 @@ Phases (each prints one JSON line; a failure raises and ends the run):
                single flow; the chain floor (deepest level times one dependent
                L2 round trip, measured here); ptxas's record of each
                instantiation.
-  fc_single — the single-key kernel's entry point driven once with the
-               launch counts zeroed (its path), then against its plain
-               version at n=8192, n_slots=8192 (rtol=1e-4, atol=1e-3) and
-               chunked == one shot.
+  fc_single — the single-key kernels' entry point driven once with the
+               launch counts zeroed (its path), then against their plain
+               version at n=8192, n_slots=8192 bit for bit, chunked == one
+               shot bit for bit, and all 8192 packets in one slot bit for
+               bit; times (each of the three kernels apart) on mirai's
+               slots, on uniform slots and on the one slot, the longest
+               run and its chain floor.
+  limits  — each shape the kernels took only since this slice, on the card
+               against its plain version: sketch rows 9 and 16 at W=64 bit
+               for bit (and the schedule against its twin); AE widths 33
+               and 64 (<=1e-5, chunked == one shot); flash head dims 80
+               and 112 in f32 and bf16 (zero-padded; 2e-6 and 2e-2); prefill
+               positions arange(S) + 5 through a gemma2 model with the flash
+               kernel against the plain route (2e-5).
   4. main    — the detection service at its defaults (n_slots=8192,
                epoch=1024, 80 features, max_size=10): observe_stream over
                262,144 benign packets, fit, process_stream(chunk=8192) over
@@ -100,7 +114,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-FC_TOL = dict(rtol=1e-4, atol=1e-3)
+FC_TOL = dict(rtol=1e-4, atol=1e-3)     # the sketch cases' report, before bitwise
 MD_TOL = 1e-5
 SCORE_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -118,7 +132,12 @@ LM_REF_TOL = 1e-3               # logits, kernel route against plain route
 # the device kernels of a wrapper that launches more than one, each once a
 # call (a launch is counted by the first)
 DEVICE_KERNELS = {"sketch_update": ("sketch_update_kernel", "sketch_schedule_kernel",
-                                    "sketch_features_kernel")}
+                                    "sketch_features_kernel"),
+                  "fc_full": ("fc_chain_kernel", "fc_scan_kernel", "fc_prelude_kernel",
+                              "fc_residual_kernel", "fc_sr_kernel", "fc_features_kernel"),
+                  "feature_update": ("feature_update_chain_kernel",
+                                     "feature_update_prelude_kernel",
+                                     "feature_update_stats_kernel")}
 
 
 def emit(record: dict, log: list) -> None:
@@ -303,9 +322,9 @@ def sketch_build_record(kern) -> dict:
     smem_of.argtypes, smem_of.restype = [ctypes.c_int], ctypes.c_int
 
     def key(mangled):
-        m = re.search(r"sketch_update_kernelILi(\d+)E", mangled)
+        m = re.search(r"sketch_update_kernelILi(\d+)ELb([01])E", mangled)
         if m:
-            return f"update_RP{m.group(1)}"
+            return f"update_RP{m.group(1)}" + ("_multirow" if m.group(2) == "1" else "")
         for name in ("sketch_schedule_kernel", "l2_chase_kernel"):
             if name in mangled:
                 return name.replace("_kernel", "").replace("sketch_", "")
@@ -360,6 +379,52 @@ SKETCH_NAMES = ("sketch_schedule_kernel", "sketch_update_kernel",
                 "sketch_features_kernel")
 
 
+def states_equal(a, b) -> bool:
+    return all(torch.equal(a[g][k], b[g][k]) for g in ("uni", "bi") for k in b[g])
+
+
+def sketch_case(st0, p, rows: int, width: int, name: str):
+    """The sketch kernels on ``p`` from ``st0`` against process_sketch on the
+    card, features and every table bit for bit, and the card's schedule
+    against its twin; returns the kernel's state and features and the
+    case's record."""
+    from repro_torch.core.sketch import process_sketch
+    from repro_torch.core.state import clone_state
+    from repro_torch.kernels.sketch_update import (kernel_rows, round_size,
+                                                   sketch_schedule_ref,
+                                                   sketch_update_full)
+    sched = {}
+    st_k, f_k = sketch_update_full(clone_state(st0), p, schedule=sched)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_p, f_p = process_sketch(clone_state(st0), p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert_close(f_k, f_p, f"sketch {name} features", **FC_TOL)
+    err = max_abs(f_k, f_p)
+    for g in ("uni", "bi"):
+        for key in st_p[g]:
+            assert_close(st_k[g][key], st_p[g][key], f"sketch {name} state "
+                         f"{g}/{key}", **FC_TOL)
+            err = max(err, max_abs(st_k[g][key], st_p[g][key]))
+    if not (torch.equal(f_k, f_p) and states_equal(st_k, st_p)):
+        raise RuntimeError(f"sketch {name}: kernel and process_sketch differ "
+                           f"(max abs err {err})")
+    want = sketch_schedule_ref(kernel_rows(p, rows, width)[0], width)
+    same = (sched["depth"] == want["depth"] and sched["rounds"] == want["rounds"]
+            and all(torch.equal(sched[key].cpu(), want[key])
+                    for key in ("level", "order"))
+            and all(torch.equal(a.cpu(), b) for a, b in
+                    zip(sched["round_starts"], want["round_starts"])))
+    if not same:
+        raise RuntimeError(f"sketch {name}: the card's schedule differs from "
+                           "its twin")
+    return st_k, f_k, {"packets": int(p["ts"].shape[0]), "max_abs_err": err,
+                       "bitwise": True, "schedule_equals_twin": True,
+                       "plain_ms": plain_ms, "depth": want["depth"],
+                       "rounds": want["rounds"], "round_size": round_size(rows)}
+
+
 def phase_sketch(dev, pk8192, st_dense, log) -> dict:
     """The sketch kernels against their plain versions, run on the card, bit
     for bit (features and every table) and the schedule against its twin:
@@ -372,15 +437,9 @@ def phase_sketch(dev, pk8192, st_dense, log) -> dict:
     dense FC kernel's.  Times of the schedule, update and features apart,
     and the chain floor: the deepest level times one dependent L2 round
     trip."""
-    from repro_torch.core.sketch import process_sketch
     from repro_torch.core.state import clone_state, init_state
-    from repro_torch.kernels.sketch_update import (SKETCH_UPDATE, kernel_rows,
-                                                   round_size, sketch_schedule_ref,
-                                                   sketch_update_full)
+    from repro_torch.kernels.sketch_update import SKETCH_UPDATE, sketch_update_full
     from repro_torch.traffic import synth_trace, to_torch
-
-    def states_equal(a, b) -> bool:
-        return all(torch.equal(a[g][k], b[g][k]) for g in ("uni", "bi") for k in b[g])
 
     stream = to_torch(synth_trace("mirai", n_train=64, n_benign_eval=8192,
                                   n_attack=8192, seed=0)["eval"], dev)
@@ -400,36 +459,7 @@ def phase_sketch(dev, pk8192, st_dense, log) -> dict:
                                          evict_age=0.5), pk, 4, 64),
             ("single_flow_W4096_R2", init_state(4096, "sketch", device=dev,
                                                 rows=2), one, 2, 4096)):
-        sched = {}
-        st_k, f_k = sketch_update_full(clone_state(st0), p, schedule=sched)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st_p, f_p = process_sketch(clone_state(st0), p)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        assert_close(f_k, f_p, f"sketch {name} features", **FC_TOL)
-        err = max_abs(f_k, f_p)
-        for g in ("uni", "bi"):
-            for key in st_p[g]:
-                assert_close(st_k[g][key], st_p[g][key], f"sketch {name} state "
-                             f"{g}/{key}", **FC_TOL)
-                err = max(err, max_abs(st_k[g][key], st_p[g][key]))
-        if not (torch.equal(f_k, f_p) and states_equal(st_k, st_p)):
-            raise RuntimeError(f"sketch {name}: kernel and process_sketch differ "
-                               f"(max abs err {err})")
-        want = sketch_schedule_ref(kernel_rows(p, rows, width)[0], width)
-        same = (sched["depth"] == want["depth"] and sched["rounds"] == want["rounds"]
-                and all(torch.equal(sched[key].cpu(), want[key])
-                        for key in ("level", "order"))
-                and all(torch.equal(a.cpu(), b) for a, b in
-                        zip(sched["round_starts"], want["round_starts"])))
-        if not same:
-            raise RuntimeError(f"sketch {name}: the card's schedule differs from "
-                               "its twin")
-        cases[name] = {"packets": int(p["ts"].shape[0]), "max_abs_err": err,
-                       "bitwise": True, "schedule_equals_twin": True,
-                       "plain_ms": plain_ms, "depth": want["depth"],
-                       "rounds": want["rounds"], "round_size": round_size(rows)}
+        st_k, f_k, cases[name] = sketch_case(st0, p, rows, width, name)
         out[name] = (st_k, f_k)
     st_age, f_age = out["W64_R4_age0.5"]
     # eviction had an effect: the same chunk without aging differs
@@ -487,10 +517,121 @@ def phase_sketch(dev, pk8192, st_dense, log) -> dict:
             "build": sketch_build_record(SKETCH_UPDATE)}
 
 
-def phase_fc_single(dev, pk8192) -> Tuple[dict, int]:
-    """The single-key kernel: its public entry point driven once with the
-    launch counts zeroed just before (its path), then held against its plain
-    version on the card at n=8192, n_slots=8192; chunked == one shot."""
+FC_NAMES = DEVICE_KERNELS["fc_full"]
+FU_NAMES = DEVICE_KERNELS["feature_update"]
+
+
+def chain_step_ms(dev) -> float:
+    """One step of the FC chains' form, w = w*d + 1 (two dependent float32
+    operations, unfused), in ms: one thread runs 2^20 of them
+    (``fc_chain_probe_launch``), timed with CUDA events."""
+    import ctypes
+    from repro_torch.kernels.feature_update import FC_FULL
+    fn = ctypes.CDLL(str(FC_FULL.lib_path())).fc_chain_probe_launch
+    fn.argtypes = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    steps = 1 << 20
+
+    def run():
+        code = fn(0.999, steps, out.data_ptr(), stream)
+        if code:
+            raise RuntimeError(f"chain probe: launch failed with CUDA error {code}")
+
+    return cuda_ms(run, 3) / steps
+
+
+def fc_case(st0, pk, what: str):
+    """The FC kernels on ``pk`` from ``st0`` against process_serial on the
+    card, features and every table bit for bit; returns the kernel's state
+    and features, the plain version's ms and the largest difference."""
+    from repro_torch.core.pipeline import process_serial
+    from repro_torch.core.state import clone_state
+    from repro_torch.kernels.feature_update import feature_update_full
+    st_k, f_k = feature_update_full(clone_state(st0), pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_p, f_p = process_serial(clone_state(st0), pk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max([max_abs(f_k, f_p)] + [max_abs(st_k[g][k], st_p[g][k])
+                                     for g in ("uni", "bi") for k in st_p[g]])
+    if not (torch.equal(f_k, f_p) and states_equal(st_k, st_p)):
+        raise RuntimeError(f"fc {what}: kernel and process_serial differ "
+                           f"(max abs err {err})")
+    return st_k, f_k, plain_ms, err
+
+
+def phase_fc(dev, step_ms: float):
+    """The FC kernels against the serial oracle on the card, bit for bit, on
+    one 8192-packet mirai chunk at n_slots=8192, chunked and in one shot,
+    and on an 8192-packet chunk of one flow; times, segments and the chain
+    floor.  Returns the record, the chunk and the kernel's state."""
+    from repro_torch.core.pipeline import packet_rows
+    from repro_torch.core.state import clone_state, init_state
+    from repro_torch.kernels.feature_update import (fc_segments,
+                                                    feature_update_full)
+    from repro_torch.traffic import synth_trace, to_torch
+    n_slots, chunk = 8192, 8192
+    tr = synth_trace("mirai", n_train=64, n_benign_eval=chunk // 2,
+                     n_attack=chunk // 2, seed=1)["eval"]
+    pk = to_torch(tr, dev)
+    st0 = init_state(n_slots, device=dev)
+    st_k, f_k, plain_ms, err = fc_case(st0, pk, "mirai chunk")
+    st_c = clone_state(st0)
+    parts = []
+    for i in range(0, chunk, 1000):
+        st_c, f = feature_update_full(st_c, {k: v[i:i + 1000] for k, v in pk.items()})
+        parts.append(f)
+    if not (torch.equal(torch.cat(parts), f_k) and states_equal(st_c, st_k)):
+        raise RuntimeError("fc: chunked carry differs from one shot")
+
+    st_w = clone_state(st_k)
+    fc_time = timed(lambda: feature_update_full(st_w, pk), 50, FC_NAMES)
+    # bound: the function's inputs (4 key rows int32, dir, ts, length) read
+    # once, touched rows read and written once, features written once;
+    # segments counted from this chunk's keys
+    skey, _ = fc_segments(packet_rows(pk, n_slots), n_slots)
+    segs = torch.ones_like(skey, dtype=torch.bool)
+    segs[1:] = skey[1:] != skey[:-1]
+    seg_kt = skey[segs] // n_slots
+    n_uni = int((seg_kt < 2).sum())
+    n_bi = int((seg_kt >= 2).sum())
+    seg_len = torch.diff(torch.cat([torch.nonzero(segs).flatten(),
+                                    torch.tensor([skey.numel()], device=dev)]))
+    longest = int(seg_len.max())
+    fc_bytes = (chunk * (4 * 4 + 4 + 4 + 4)                 # rows, dir, ts, len
+                + n_uni * 4 * 16 * 2 + n_bi * (10 + 2) * 16 * 2
+                + chunk * 80 * 4)
+    fc_flops = chunk * (2 * 4 * 16 + 2 * 4 * 45)
+    # one flow: every key type one segment of the whole chunk
+    one = {k: v[:1].repeat(chunk) for k, v in pk.items()}
+    one["ts"] = torch.arange(chunk, device=dev, dtype=torch.float32) * 1e-3
+    st_one0 = init_state(n_slots, device=dev)
+    _, _, one_plain_ms, one_err = fc_case(st_one0, one, "one flow")
+    st_one = clone_state(st_one0)
+    t_one = timed(lambda: feature_update_full(st_one, one), 5, FC_NAMES)
+    return ({"name": "fc_full", "route": "cuda",
+             "source": "src/repro_torch/csrc/fc_full.cu",
+             "replaces": "src/repro/kernels/feature_update.py:339",
+             "max_abs_err": max(err, one_err), **fc_time, "plain_ms": plain_ms,
+             **bound(fc_bytes, fc_flops), "library_ms": None,
+             "chain_floor_ms": longest * step_ms, "chain_step_ns": step_ms * 1e6,
+             "shape": {"packets": chunk, "n_slots": n_slots},
+             "segments": {"uni": n_uni, "bi": n_bi, "longest": longest},
+             "bitwise": True, "chunked_bitwise": True,
+             "one_flow_chunk": {**t_one, "packets": chunk, "bitwise": True,
+                                "plain_ms": one_plain_ms,
+                                "chain_floor_ms": chunk * step_ms}},
+            pk, st_k)
+
+
+def phase_fc_single(dev, pk8192, step_ms: float) -> Tuple[dict, int]:
+    """The single-key kernels: their public entry point driven once with the
+    launch counts zeroed just before (its path), then held against their
+    plain version on the card at n=8192, n_slots=8192 bit for bit; chunked
+    == one shot bit for bit; times and the chain floor."""
     from repro_torch.core.state import packet_slots
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.feature_update import (TABLE_KEYS, feature_update,
@@ -514,23 +655,33 @@ def phase_fc_single(dev, pk8192) -> Tuple[dict, int]:
     tab_p, s_p = feature_update_ref(fresh(), slots, ts, lens)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    assert_close(s_k, s_p, "fc_single stats", **FC_TOL)
-    err = max_abs(s_k, s_p)
-    for key in TABLE_KEYS:
-        assert_close(tab_k[key], tab_p[key], f"fc_single table {key}", **FC_TOL)
-        err = max(err, max_abs(tab_k[key], tab_p[key]))
+    err = max([max_abs(s_k, s_p)] + [max_abs(tab_k[k], tab_p[k]) for k in TABLE_KEYS])
+    if not (torch.equal(s_k, s_p) and all(torch.equal(tab_k[k], tab_p[k])
+                                          for k in TABLE_KEYS)):
+        raise RuntimeError(f"fc_single: kernel and feature_update_ref differ "
+                           f"(max abs err {err})")
     tab_c = fresh()
     s_c = torch.cat([feature_update(tab_c, slots[i:i + 1000], ts[i:i + 1000],
                                     lens[i:i + 1000])[1] for i in range(0, n, 1000)])
-    assert_close(s_c, s_k, "fc_single chunked vs one shot", **FC_TOL)
+    if not (torch.equal(s_c, s_k) and all(torch.equal(tab_c[k], tab_k[k])
+                                          for k in TABLE_KEYS)):
+        raise RuntimeError("fc_single: chunked carry differs from one shot")
     tab_w = {k: v.clone() for k, v in tab_k.items()}
-    t = timed(lambda: feature_update(tab_w, slots, ts, lens), 50, "feature_update_kernel")
+    t = timed(lambda: feature_update(tab_w, slots, ts, lens), 50, FU_NAMES)
     # the same packets on uniformly drawn slots (runs of a few packets)
     uniform = torch.from_numpy(np.random.default_rng(4).integers(
         0, n_slots, n)).to(dev)
-    t_uniform = timed(lambda: feature_update(tab_w, uniform, ts, lens), 50,
-                      "feature_update_kernel")
+    t_uniform = timed(lambda: feature_update(tab_w, uniform, ts, lens), 50, FU_NAMES)
     t_uniform["longest_run"] = int(torch.unique(uniform, return_counts=True)[1].max())
+    # every packet in one slot: one run of n, bit for bit, then timed
+    one = torch.zeros_like(slots)
+    tab_o, s_o = feature_update(fresh(), one, ts, lens)
+    tab_op, s_op = feature_update_ref(fresh(), one, ts, lens)
+    if not (torch.equal(s_o, s_op) and all(torch.equal(tab_o[k], tab_op[k])
+                                          for k in TABLE_KEYS)):
+        raise RuntimeError("fc_single: one slot differs from feature_update_ref")
+    t_one = timed(lambda: feature_update(tab_o, one, ts, lens), 5, FU_NAMES)
+    t_one.update(longest_run=n, bitwise=True, chain_floor_ms=n * step_ms)
     _, counts = torch.unique(slots, return_counts=True)
     # the function's inputs (slot int32, ts, length) read once, touched rows
     # (4 tables) read and written once, 48 B of stats a packet; about 14
@@ -541,11 +692,99 @@ def phase_fc_single(dev, pk8192) -> Tuple[dict, int]:
              "replaces": "src/repro/kernels/feature_update.py:105",
              "max_abs_err": err, **t, "plain_ms": plain_ms,
              **bound(byts, n * 4 * 14), "library_ms": None,
+             "chain_floor_ms": int(counts.max()) * step_ms,
              "shape": {"packets": n, "n_slots": n_slots, "slots": "src_ip",
                        "touched_rows": int(counts.numel()),
                        "longest_run": int(counts.max())},
-             "chunked_max_abs_err": max_abs(s_c, s_k),
-             "uniform_slots": t_uniform}, launches)
+             "bitwise": True, "chunked_bitwise": True,
+             "uniform_slots": t_uniform, "one_slot": t_one}, launches)
+
+
+def phase_limits(dev, log) -> None:
+    """The shapes the kernels take since this slice, each on the card against
+    its plain version: sketch rows 9 and 16 (bit for bit), AE widths 33 and
+    64, flash head dims 80 and 112 in both dtypes, and prefill positions
+    arange(S) + c through the model's flash route."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.state import clone_state, init_state
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import (built_head_dim,
+                                                     flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.kitnet_ae import kitnet_ensemble, kitnet_ensemble_ref
+    from repro_torch.kernels.sketch_update import sketch_update_full
+    from repro_torch.models import build_model
+    from repro_torch.traffic import synth_trace, to_torch
+    rec = {}
+    pk = to_torch(synth_trace("mirai", n_train=64, n_benign_eval=512,
+                              n_attack=512, seed=6)["eval"], dev)
+    for rows in (9, 16):
+        st0 = init_state(64, "sketch", device=dev, rows=rows, evict_age=0.5)
+        _, _, case = sketch_case(st0, pk, rows, 64, f"rows {rows}")
+        case.update(timed(lambda: sketch_update_full(clone_state(st0), pk), 5,
+                          SKETCH_NAMES))
+        rec[f"sketch_W64_R{rows}"] = case
+    rng = np.random.default_rng(8)
+    for m in (33, 64):
+        k, B = 7, 8192
+        arrays = [rng.uniform(0.0, 1.2, (B, k, m)), rng.normal(0, 0.3, (k, m, m)),
+                  rng.normal(0, 0.1, (k, m)), rng.normal(0, 0.3, (k, m, m)),
+                  rng.normal(0, 0.1, (k, m)), (rng.random((k, m)) > 0.2) * 1.0]
+        x, *args = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays)
+        r_k = kitnet_ensemble(x, *args)
+        err = max_abs(r_k, kitnet_ensemble_ref(x, *args))
+        if not err <= MD_TOL:
+            raise RuntimeError(f"ensemble m=h={m}: max abs err {err}")
+        r_c = torch.cat([kitnet_ensemble(x[i:i + 37], *args) for i in range(0, B, 37)])
+        if not torch.equal(r_c, r_k):
+            raise RuntimeError(f"ensemble m=h={m}: chunked scores differ from one shot")
+        rec[f"ae_m{m}_h{m}"] = {"B": B, "k": k, "max_abs_err": err, "tol": MD_TOL,
+                                "chunked_bitwise": True,
+                                **timed(lambda: kitnet_ensemble(x, *args), 20,
+                                        "kitnet_ae_kernel")}
+    for D in (80, 112):
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            q, kk, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dt)
+                        for s in ((1, 8, 1024, D), (1, 4, 1024, D), (1, 4, 1024, D)))
+            kw = dict(causal=True, window=256, softcap=50.0)
+            got = flash_attention(q, kk, v, **kw)
+            want = flash_attention_ref(q, kk, v, **kw)
+            err = max_abs(got.float(), want.float())
+            if (got.shape != q.shape or got.dtype != dt
+                    or not err <= FLASH_TOL[name]):
+                raise RuntimeError(f"flash D={D} {name}: max abs err {err} "
+                                   f"(tol {FLASH_TOL[name]})")
+            rec[f"flash_{name}_D{D}"] = {
+                "shape": [1, 8, 4, 1024, D], "padded_to": built_head_dim(D),
+                "max_abs_err": err, "tol": FLASH_TOL[name],
+                **timed(lambda: flash_attention(q, kk, v, **kw), 10,
+                        "flash_attention_kernel")}
+    cfg = reduced(get_arch("gemma2-2b"), head_dim=256)
+    model = build_model(cfg, device=dev)
+    params = model.init_params(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 96))).to(dev)
+    pos = torch.arange(96, device=dev)[None] + torch.tensor([[5], [40]], device=dev)
+    reset_launch_counts()
+    logits, _, _ = model.forward(params, {"tokens": toks, "positions": pos})
+    n_flash = launch_counts()["flash_attention"]
+    plain, _, _ = model.forward(params, {"tokens": toks, "positions": pos},
+                                attn_impl="plain")
+    err = max_abs(logits, plain)
+    if n_flash != cfg.n_layers or not err <= FLASH_MODEL_TOL:
+        raise RuntimeError(f"shifted positions: {n_flash} flash launches for "
+                           f"{cfg.n_layers} layers, max abs err {err}")
+    try:
+        model.forward(params, {"tokens": toks, "positions": pos.flip(-1)})
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("reversed positions took the flash route")
+    rec["positions_shifted"] = {"batch": 2, "S": 96, "shifts": [5, 40],
+                                "layers": cfg.n_layers, "flash_launches": n_flash,
+                                "max_abs_err": err, "tol": FLASH_MODEL_TOL,
+                                "reversed_raises": True}
+    emit({"phase": "limits", **rec}, log)
 
 
 def phase_sketch_main(data, log) -> Tuple[dict, object]:
@@ -939,19 +1178,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.pipeline import packet_rows, process_serial
-    from repro_torch.core.state import clone_state, init_state
     from repro_torch.detection.metrics import auc
     from repro_torch.interop import kitnet_from_arrays, kitnet_to_arrays
     from repro_torch.kernels import (FC_FULL, FLASH_ATTENTION, KERNELS, KITNET_AE,
                                      launch_counts, reset_launch_counts)
     from repro_torch.kernels.build import build_all
-    from repro_torch.kernels.feature_update import (fc_segments,
-                                                    feature_update_full)
     from repro_torch.kernels.kitnet_ae import (kitnet_ensemble,
                                                kitnet_ensemble_ref)
     from repro_torch.serving import DetectionService
-    from repro_torch.traffic import synth_trace, to_torch
+    from repro_torch.traffic import synth_trace
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -979,62 +1214,9 @@ def main() -> int:
     # ---- 2b. flash-attention kernel against its plain version ----
     flash = phase_flash(dev, log)
 
-    # ---- 3. FC kernel against its plain version ----
-    n_slots, chunk = 8192, 8192
-    tr = synth_trace("mirai", n_train=64, n_benign_eval=chunk // 2,
-                     n_attack=chunk // 2, seed=1)["eval"]
-    pk = to_torch(tr, dev)
-    st0 = init_state(n_slots, device=dev)
-    st_k, f_k = feature_update_full(clone_state(st0), pk)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st_p, f_p = process_serial(clone_state(st0), pk)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    assert_close(f_k, f_p, "fc features", **FC_TOL)
-    state_err = 0.0
-    for g in ("uni", "bi"):
-        for name in st_p[g]:
-            assert_close(st_k[g][name], st_p[g][name], f"fc state {g}/{name}",
-                         **FC_TOL)
-            state_err = max(state_err, max_abs(st_k[g][name], st_p[g][name]))
-    st_c = clone_state(st0)
-    parts = []
-    for i in range(0, chunk, 1000):
-        st_c, f = feature_update_full(st_c, {k: v[i:i + 1000] for k, v in pk.items()})
-        parts.append(f)
-    f_c = torch.cat(parts)
-    assert_close(f_c, f_k, "fc chunked vs one shot", **FC_TOL)
-
-    st_w = clone_state(st_k)
-    fc_time = timed(lambda: feature_update_full(st_w, pk), 50, "fc_full_kernel")
-    # bound: the function's inputs (4 key rows int32, dir, ts, length) read
-    # once, touched rows read and written once, features written once;
-    # segments counted from this chunk's keys
-    skey, _ = fc_segments(packet_rows(pk, n_slots), n_slots)
-    segs = torch.ones_like(skey, dtype=torch.bool)
-    segs[1:] = skey[1:] != skey[:-1]
-    seg_kt = skey[segs] // n_slots
-    n_uni = int((seg_kt < 2).sum())
-    n_bi = int((seg_kt >= 2).sum())
-    seg_len = torch.diff(torch.cat([torch.nonzero(segs).flatten(),
-                                    torch.tensor([skey.numel()], device=dev)]))
-    fc_bytes = (chunk * (4 * 4 + 4 + 4 + 4)                 # rows, dir, ts, len
-                + n_uni * 4 * 16 * 2 + n_bi * (10 + 2) * 16 * 2
-                + chunk * 80 * 4)
-    fc_flops = chunk * (2 * 4 * 16 + 2 * 4 * 45)
-    fc = {"name": "fc_full", "route": "cuda",
-          "source": "src/repro_torch/csrc/fc_full.cu",
-          "replaces": "src/repro/kernels/feature_update.py:339",
-          "max_abs_err": max(max_abs(f_k, f_p), state_err), **fc_time,
-          "plain_ms": plain_ms,
-          "bound_ms": max(fc_bytes / HBM_BYTES_PER_S, fc_flops / FP32_FLOPS) * 1e3,
-          "bound_by": "bytes" if fc_bytes / HBM_BYTES_PER_S >= fc_flops / FP32_FLOPS
-          else "operations", "library_ms": None,
-          "shape": {"packets": chunk, "n_slots": n_slots},
-          "segments": {"uni": n_uni, "bi": n_bi,
-                       "longest": int(seg_len.max())},
-          "chunked_max_abs_err": max_abs(f_c, f_k)}
+    # ---- 3. FC kernels against their plain version ----
+    step_ms = chain_step_ms(dev)
+    fc, pk, st_k = phase_fc(dev, step_ms)
     emit({"phase": "fc", **fc}, log)
 
     # ---- 3b. sketch kernel against its plain version ----
@@ -1042,8 +1224,11 @@ def main() -> int:
     emit({"phase": "sketch", **sk}, log)
 
     # ---- 3c. single-key kernel: its path, then against its plain version ----
-    single, single_launches = phase_fc_single(dev, pk)
+    single, single_launches = phase_fc_single(dev, pk, step_ms)
     emit({"phase": "fc_single", **single, "path_launches": single_launches}, log)
+
+    # ---- 3d. the shapes past the kernels' built sizes ----
+    phase_limits(dev, log)
 
     # ---- 4. main path ----
     n_pkts = 262_144

@@ -9,7 +9,8 @@
 // on absolute positions from 0.  Keys past Sk do not exist (no weight).
 // The softmax is float32 (accurate expf/tanhf); inputs float32 or bfloat16,
 // the output in the input type.  One kernel per (dtype, D), D in {32, 64,
-// 128, 256}.
+// 128, 256}; the wrapper zero-pads any other head dim up to 256 to the next
+// of them and passes the true one for the scale.
 //
 // What bounds it.  Operations: 4*D a visible (query, key) pair and head.
 // bf16: the bf16 tensor rate (989 TFLOP/s dense); the kernel issues 1.5x
@@ -878,7 +879,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int heads, int batch,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int H, int K, int Sq, int Sk, const int64_t* st,
-                   int causal, int window, float softcap, cudaStream_t stream) {
+                   int causal, int window, float softcap, float scale,
+                   cudaStream_t stream) {
   using C = Cfg<T, D>;
   CUtensorMap tq, tk, tv;
   if (!make_map<T, D>(&tq, q, Sq, H, B, st[0], st[1], st[2], 64)
@@ -896,8 +898,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq + C::BQ - 1) / C::BQ, B * H);
   kern<<<grid, C::THREADS, C::SMEM_ALLOC, stream>>>(
       tq, tk, tv, static_cast<T*>(out), H, H / K, Sq, Sk, st[9], st[10], st[11],
-      causal, window, softcap, softcap > 0.f ? 1.0f / softcap : 0.f,
-      1.0f / sqrtf(static_cast<float>(D)));
+      causal, window, softcap, softcap > 0.f ? 1.0f / softcap : 0.f, scale);
   return cudaGetLastError();
 }
 
@@ -905,12 +906,12 @@ template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                      void* out, int B, int H, int K, int Sq, int Sk,
                      const int64_t* st, int causal, int window, float softcap,
-                     cudaStream_t stream) {
+                     float scale, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, stream);
-    case 64: return launch<T, 64>(q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, stream);
-    case 256: return launch<T, 256>(q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, stream);
+    case 32: return launch<T, 32>(q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -920,18 +921,23 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 // q (B, H, Sq, D), k/v (B, K, Sk, D), out (B, H, Sq, D), each addressed by
 // its (batch, head, row) strides in elements with the last dimension
 // contiguous; strides of 16 bytes' multiples and 16-byte aligned pointers
-// (TMA).  bf16 != 0: every tensor is bfloat16, else float32.
+// (TMA).  bf16 != 0: every tensor is bfloat16, else float32.  D is the
+// built head dim the tensors hold; scores scale by 1/sqrt(d_scale), the
+// caller's true head dim when it zero-padded q, k and v up to D (the zero
+// columns add exact zeros to every dot product).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out,
-    int B, int H, int K, int Sq, int Sk, int D,
+    int B, int H, int K, int Sq, int Sk, int D, int d_scale,
     int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
     int64_t vsb, int64_t vsh, int64_t vss, int64_t osb, int64_t osh, int64_t oss,
     int causal, int window, float softcap, int bf16, void* stream) {
   const int64_t st[12] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d_scale < 1 || d_scale > D) return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = 1.0f / sqrtf(static_cast<float>(d_scale));
   const cudaError_t e = bf16
-      ? dispatch<__nv_bfloat16>(D, q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, s)
-      : dispatch<float>(D, q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, s);
+      ? dispatch<__nv_bfloat16>(D, q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, scale, s)
+      : dispatch<float>(D, q, k, v, out, B, H, K, Sq, Sk, st, causal, window, softcap, scale, s);
   return static_cast<int>(e);
 }
 

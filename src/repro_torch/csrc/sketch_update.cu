@@ -25,18 +25,22 @@
 //   stripe of last_row_width(R) entries and a column is taken modulo it, so
 //   columns may alias (an extra dependency: levels only rise) but rows never
 //   do.  Lanes of one step that share a cell are found with
-//   __match_any_sync per row and resolved in lane order.  The block then
+//   __match_any_sync per row and resolved in lane order.  Up to MAX_ROWS
+//   rows a lane holds its packet's rows in registers; past it each row is
+//   read in turn.  The block then
 //   sorts the packets stably by level (counting sort: the walk numbers each
 //   packet within its level, a block scan gives level starts) and cuts each
 //   level into rounds of at most P packets.  Level counts stay in shared
 //   memory up to SMEM_LEVELS packets, else in the scratch buffer.
 //
 //   sketch_update_kernel<RP>, one block per (key type, decay): a group of
-//   RP lanes (R rounded up to a power of two, a lane a row) runs one packet,
-//   UPDATE_THREADS / RP packets a round, rounds in order with
+//   RP lanes (R rounded up to a power of two, at most 32; a lane a row) runs
+//   one packet, UPDATE_THREADS / RP packets a round, rounds in order with
 //   __syncthreads() between them.  No two packets of a round share a cell.
 //   The minimum across rows and the first argmin of sw are __shfl_xor
 //   reductions inside the group; lanes of rows >= R take part with +inf.
+//   Past 32 rows a packet takes the whole warp and lane r the rows r,
+//   r + 32, ..., reducing over its own rows first.
 //   A warp with no packet in the round only waits.  The chain between
 //   rounds holds only what the tables need: row-0 lanes park the packet's
 //   estimates in its feature slots, and the round starts are read three
@@ -64,19 +68,19 @@
 
 namespace {
 
-constexpr int ND = 4;           // decay instances
-constexpr int NF = 80;          // features per packet
-constexpr int UNI_F = 12;       // features per uni key type
-constexpr int BI_F = 28;        // features per bi key type
-constexpr int BI_COL0 = 24;     // first bi feature column
-constexpr int MAX_ROWS = 8;
+using fc::BI_COL0;
+using fc::BI_F;
+using fc::ND;
+using fc::NF;
+using fc::safe_div;
+using fc::UNI_F;
+
+constexpr int MAX_ROWS = 8;     // rows the schedule holds in registers
 constexpr int LAST_TABLE = 32768;     // entries of the schedule's `last` table
 constexpr int SMEM_LEVELS = 8192;     // level counts in shared memory up to this n
 constexpr int SCHED_THREADS = 1024;
 constexpr int UPDATE_THREADS = 512;
 constexpr unsigned FULL = 0xffffffffu;
-
-__constant__ float kLam[ND] = {10.0f, 1.0f, 0.1f, static_cast<float>(1.0 / 60.0)};
 
 struct Tables {
   float *ult, *uw, *uls, *uss;              // (N_UNI*R*W, 4)
@@ -145,6 +149,9 @@ __device__ int block_exclusive_scan(int32_t* a, int m, int* warp_sums) {
 // ---------------------------------------------------------------------------
 // schedule: levels, the stable order by level, and the rounds
 // ---------------------------------------------------------------------------
+// MR = MAX_ROWS: up to 8 rows, each packet's rows in registers and the next
+// step's prefetched; MR = 0: any R, each row read when its turn comes.
+template <int MR>
 __global__ void __launch_bounds__(SCHED_THREADS)
 sketch_schedule_kernel(const int32_t* __restrict__ rows, int32_t* __restrict__ scratch,
                        int n, int R, int W, int P) {
@@ -165,32 +172,53 @@ sketch_schedule_kernel(const int32_t* __restrict__ rows, int32_t* __restrict__ s
     const int tw = last_row_width(R);
     const int kk = kt & 1;                       // key type within uni or bi
     const int32_t* krows = rows + static_cast<size_t>(kt) * n * R;
-    int nxt[MAX_ROWS];
+    constexpr int NR = MR > 0 ? MR : 1;
+    int nxt[NR];
+    if constexpr (MR > 0) {
 #pragma unroll
-    for (int r = 0; r < MAX_ROWS; ++r)
-      nxt[r] = (r < R && lane < n) ? krows[static_cast<size_t>(lane) * R + r] : 0;
+      for (int r = 0; r < MR; ++r)
+        nxt[r] = (r < R && lane < n) ? krows[static_cast<size_t>(lane) * R + r] : 0;
+    }
+    // the cell of row r of this lane's packet in `last`
+    auto cell = [&](int r, int i, bool act) {
+      int v;
+      if constexpr (MR > 0) {
+        v = nxt[r];
+      } else {
+        v = act ? krows[static_cast<size_t>(i) * R + r] : 0;
+      }
+      const int col = v - (kk * R + r) * W;
+      return act ? r * tw + (col & (tw - 1)) : -1 - lane;
+    };
     int deepest = 0;
     for (int base = 0; base < n; base += 32) {
       const int i = base + lane;
       const bool act = i < n;
-      int slot[MAX_ROWS];
-      unsigned same[MAX_ROWS];
+      int slot[NR];
+      unsigned same[NR];
       unsigned deps = 0;
       int lvl = 0;
+      if constexpr (MR > 0) {
 #pragma unroll
-      for (int r = 0; r < MAX_ROWS; ++r) {
-        if (r < R) {
-          const int col = nxt[r] - (kk * R + r) * W;
-          slot[r] = act ? r * tw + (col & (tw - 1)) : -1 - lane;
-          same[r] = __match_any_sync(FULL, slot[r]);
-          deps |= same[r];
-          if (act) lvl = max(lvl, last[slot[r]]);
+        for (int r = 0; r < MR; ++r) {
+          if (r < R) {
+            slot[r] = cell(r, i, act);
+            same[r] = __match_any_sync(FULL, slot[r]);
+            deps |= same[r];
+            if (act) lvl = max(lvl, last[slot[r]]);
+          }
+        }
+        const int ni = i + 32;
+#pragma unroll
+        for (int r = 0; r < MR; ++r)
+          if (r < R && ni < n) nxt[r] = krows[static_cast<size_t>(ni) * R + r];
+      } else {
+        for (int r = 0; r < R; ++r) {
+          const int c = cell(r, i, act);
+          deps |= __match_any_sync(FULL, c);
+          if (act) lvl = max(lvl, last[c]);
         }
       }
-      const int ni = i + 32;
-#pragma unroll
-      for (int r = 0; r < MAX_ROWS; ++r)
-        if (r < R && ni < n) nxt[r] = krows[static_cast<size_t>(ni) * R + r];
       lvl += 1;
       // earlier lanes of this step that share a cell, resolved in lane order
       deps &= below;
@@ -203,9 +231,17 @@ sketch_schedule_kernel(const int32_t* __restrict__ rows, int32_t* __restrict__ s
       }
       __syncwarp();
       // the last lane on a cell holds its highest level
+      if constexpr (MR > 0) {
 #pragma unroll
-      for (int r = 0; r < MAX_ROWS; ++r)
-        if (r < R && act && (same[r] >> lane) == 1u) last[slot[r]] = lvl;
+        for (int r = 0; r < MR; ++r)
+          if (r < R && act && (same[r] >> lane) == 1u) last[slot[r]] = lvl;
+      } else {
+        for (int r = 0; r < R; ++r) {
+          const int c = cell(r, i, act);
+          const unsigned sm = __match_any_sync(FULL, c);
+          if (act && (sm >> lane) == 1u) last[c] = lvl;
+        }
+      }
       // number within the level, in packet order
       const unsigned peers = __match_any_sync(FULL, act ? lvl : -1 - lane);
       const int rk = act ? cnt[lvl] + __popc(peers & below) : 0;
@@ -246,9 +282,6 @@ sketch_schedule_kernel(const int32_t* __restrict__ rows, int32_t* __restrict__ s
 // ---------------------------------------------------------------------------
 // update: the rounds in order
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ float safe_div(float a, float b) {
-  return b > 0.0f ? a / fmaxf(b, 1e-12f) : 0.0f;
-}
 
 // minimum over the RP lanes of one packet (lane bits below RP are the row)
 template <int RP>
@@ -278,15 +311,6 @@ __device__ __forceinline__ float cu_decay(float lt, float t, float lam, float ag
   const float dt = fmaxf(t - lt, 0.0f);
   const bool dead = lt < 0.0f || (age > 0.0f && dt > age);
   return dead ? 0.0f : exp2f(-lam * dt);
-}
-
-// (mu, var, sigma) of one decay instance
-__device__ __forceinline__ void stats(float w, float ls, float ss, float& mu,
-                                      float& var, float& sig) {
-  mu = safe_div(ls, w);
-  const float ex2 = safe_div(ss, w);
-  var = fabsf(ex2 - mu * mu);
-  sig = sqrtf(fmaxf(var, 0.0f));
 }
 
 struct Packet {
@@ -405,7 +429,134 @@ __device__ __forceinline__ void update_packet(const Packet& p, int kt, int j, in
   }
 }
 
-template <int RP>
+// One packet (or none: p.i < 0) through one decay of one key type with
+// R > 32 rows on a whole warp: lane r takes rows r, r + 32, ...; each lane
+// reduces over its rows first (in row order, so the first argmin stays the
+// first), then the warp.  A row's candidates are computed again from the
+// tables for its write-back, which happens after every read of the round.
+__device__ __forceinline__ void update_packet_multi(const Packet& p, int kt, int j,
+                                                    int lane, int R, const int32_t* krows,
+                                                    float lam, float age, const Tables& tab,
+                                                    float* __restrict__ feats) {
+  const float inf = __int_as_float(0x7f800000);
+  const bool active = p.i >= 0;
+  const float t = p.t, x = p.x;
+  const int32_t* prow = krows + static_cast<size_t>(active ? p.i : 0) * R;
+  float* f = feats + static_cast<size_t>(active ? p.i : 0) * NF;
+
+  if (kt < 2) {
+    float cw = inf, cls = inf, css = inf;
+    for (int r = lane; active && r < R; r += 32) {
+      const size_t e = static_cast<size_t>(prow[r]) * ND + j;
+      const float delta = cu_decay(tab.ult[e], t, lam, age);
+      cw = fminf(cw, tab.uw[e] * delta + 1.0f);
+      cls = fminf(cls, tab.uls[e] * delta + x);
+      css = fminf(css, tab.uss[e] * delta + x * x);
+    }
+    const float ew = row_min<32>(cw), els = row_min<32>(cls), ess = row_min<32>(css);
+    for (int r = lane; active && r < R; r += 32) {
+      const size_t e = static_cast<size_t>(prow[r]) * ND + j;
+      const float delta = cu_decay(tab.ult[e], t, lam, age);
+      const float w = tab.uw[e] * delta + 1.0f, ls = tab.uls[e] * delta + x,
+                  ss = tab.uss[e] * delta + x * x;
+      tab.ult[e] = t;
+      tab.uw[e] = fmaxf(w - 1.0f, ew);
+      tab.uls[e] = fmaxf(ls - x, els);
+      tab.uss[e] = fmaxf(ss - x * x, ess);
+    }
+    if (lane == 0 && active) {
+      float* g = f + kt * UNI_F + j * 3;
+      g[0] = ew; g[1] = els; g[2] = ess;
+    }
+    return;
+  }
+
+  // ---- bidirectional key type: own row 2*base+dir, SR row base ----
+  auto rows_of = [&](int r, size_t& eo, size_t& ep, size_t& es) {
+    const size_t base = static_cast<size_t>(prow[r]);
+    eo = (base * 2 + p.dir) * ND + j;
+    ep = (base * 2 + 1 - p.dir) * ND + j;
+    es = base * ND + j;
+  };
+  // the SR decay and the opposite residual of one row
+  auto sr_terms = [&](size_t ep, size_t es, float& dsr, float& r_opp) {
+    const float sr_lt = tab.bslt[es];
+    const float dt_sr = fmaxf(t - sr_lt, 0.0f);
+    const bool evict = age > 0.0f && dt_sr > age;
+    dsr = (sr_lt < 0.0f || evict) ? 0.0f : exp2f(-lam * dt_sr);
+    r_opp = evict ? 0.0f : tab.brl[ep];
+  };
+  float cw = inf, cls = inf, css = inf, wp = inf, lsp = inf, ssp = inf;
+  for (int r = lane; active && r < R; r += 32) {
+    size_t eo, ep, es;
+    rows_of(r, eo, ep, es);
+    const float delta = cu_decay(tab.blt[eo], t, lam, age);
+    cw = fminf(cw, tab.bw[eo] * delta + 1.0f);
+    cls = fminf(cls, tab.bls[eo] * delta + x);
+    css = fminf(css, tab.bss[eo] * delta + x * x);
+    const bool zap = age > 0.0f && (t - tab.blt[ep]) > age;
+    wp = fminf(wp, zap ? 0.0f : tab.bw[ep]);
+    lsp = fminf(lsp, zap ? 0.0f : tab.bls[ep]);
+    ssp = fminf(ssp, zap ? 0.0f : tab.bss[ep]);
+  }
+  const float ew = row_min<32>(cw), els = row_min<32>(cls), ess = row_min<32>(css);
+  const float w_p = row_min<32>(wp), ls_p = row_min<32>(lsp), ss_p = row_min<32>(ssp);
+  const float r_feat = x - safe_div(els, ew);
+  float sw_min = inf;
+  for (int r = lane; active && r < R; r += 32) {
+    size_t eo, ep, es;
+    rows_of(r, eo, ep, es);
+    float dsr, r_opp;
+    sr_terms(ep, es, dsr, r_opp);
+    sw_min = fminf(sw_min, tab.bsw[es] * dsr);
+  }
+  const float m_sw = row_min<32>(sw_min);
+  // each lane's first row of least sw2, and its sr2
+  float best_sw = inf, best_sr = 0.0f;
+  int best_row = R;
+  for (int r = lane; active && r < R; r += 32) {
+    size_t eo, ep, es;
+    rows_of(r, eo, ep, es);
+    float dsr, r_opp;
+    sr_terms(ep, es, dsr, r_opp);
+    const float sw2 = fmaxf(tab.bsw[es] * dsr, m_sw + 1.0f);
+    if (sw2 < best_sw) {
+      best_sw = sw2;
+      best_row = r;
+      best_sr = tab.bsr[es] * dsr + r_feat * r_opp;
+    }
+  }
+  const int best = row_argmin<32>(best_sw, best_row);
+  const float sr_est = __shfl_sync(FULL, best_sr, best & 31);
+  __syncwarp();
+  for (int r = lane; active && r < R; r += 32) {
+    size_t eo, ep, es;
+    rows_of(r, eo, ep, es);
+    float dsr, r_opp;
+    sr_terms(ep, es, dsr, r_opp);
+    const float delta = cu_decay(tab.blt[eo], t, lam, age);
+    const float w = tab.bw[eo] * delta + 1.0f, ls = tab.bls[eo] * delta + x,
+                ss = tab.bss[eo] * delta + x * x;
+    const float sr2 = tab.bsr[es] * dsr + r_feat * r_opp;
+    const float sw2 = fmaxf(tab.bsw[es] * dsr, m_sw + 1.0f);
+    tab.blt[eo] = t;
+    tab.bw[eo] = fmaxf(w - 1.0f, ew);
+    tab.bls[eo] = fmaxf(ls - x, els);
+    tab.bss[eo] = fmaxf(ss - x * x, ess);
+    tab.brl[eo] = r_feat;
+    tab.bsr[es] = sr2;
+    tab.bslt[es] = t;
+    tab.bsw[es] = sw2;
+  }
+  if (lane == 0 && active) {
+    float* g = f + BI_COL0 + (kt - 2) * BI_F + j * 7;
+    g[0] = ew; g[1] = els; g[2] = ess; g[3] = w_p;
+    g[4] = ls_p; g[5] = ss_p; g[6] = sr_est;
+  }
+}
+
+// RP lanes a packet; MULTI: R > 32 rows on RP = 32 lanes (update_packet_multi)
+template <int RP, bool MULTI>
 __global__ void __launch_bounds__(UPDATE_THREADS)
 sketch_update_kernel(const int32_t* __restrict__ rows,
                      const int32_t* __restrict__ dirb,
@@ -417,7 +568,7 @@ sketch_update_kernel(const int32_t* __restrict__ rows,
   const int kt = blockIdx.x >> 2, j = blockIdx.x & 3;   // key type, decay
   const int r = threadIdx.x & (RP - 1);                  // row
   const int slot = threadIdx.x / RP;                     // packet of the round
-  const float lam = kLam[j];
+  const float lam = fc::lam(j);
   const float age = *age_p;
   const int32_t* krows = rows + static_cast<size_t>(kt) * n * R;
   const Sched s = sched_of(const_cast<int32_t*>(scratch), n, kt);
@@ -438,7 +589,12 @@ sketch_update_kernel(const int32_t* __restrict__ rows,
     rs3 = rs_at(k + 4);
 
     // a warp whose lanes hold no packet this round only waits
-    if (__any_sync(FULL, cur.i >= 0)) update_packet<RP>(cur, kt, j, r, R, lam, age, tab, feats);
+    if constexpr (MULTI) {
+      // a packet takes the whole warp, so cur.i is the same on every lane
+      if (cur.i >= 0) update_packet_multi(cur, kt, j, r, R, krows, lam, age, tab, feats);
+    } else if (__any_sync(FULL, cur.i >= 0)) {
+      update_packet<RP>(cur, kt, j, r, R, lam, age, tab, feats);
+    }
     __syncthreads();
     cur = nxt;
   }
@@ -456,15 +612,15 @@ __global__ void sketch_features_kernel(float* __restrict__ feats, int n) {
   float mu_o, var_o, sig_o;
   if (kt < 2) {
     float* g = f + kt * UNI_F + j * 3;
-    stats(g[0], g[1], g[2], mu_o, var_o, sig_o);
+    fc::stats(g[0], g[1], g[2], mu_o, var_o, sig_o);
     g[1] = mu_o; g[2] = sig_o;
     return;
   }
   float* g = f + BI_COL0 + (kt - 2) * BI_F + j * 7;
   const float ew = g[0], w_p = g[3], sr_est = g[6];
   float mu_p, var_p, sig_p;
-  stats(ew, g[1], g[2], mu_o, var_o, sig_o);
-  stats(w_p, g[4], g[5], mu_p, var_p, sig_p);
+  fc::stats(ew, g[1], g[2], mu_o, var_o, sig_o);
+  fc::stats(w_p, g[4], g[5], mu_p, var_p, sig_p);
   const float mag = sqrtf(fmaxf(mu_o * mu_o + mu_p * mu_p, 0.0f));
   const float rad = sqrtf(fmaxf(var_o * var_o + var_p * var_p, 0.0f));
   const float cov = safe_div(sr_est, ew + w_p);
@@ -481,16 +637,21 @@ __global__ void l2_chase_kernel(const int32_t* __restrict__ next, int steps,
   *out = p;
 }
 
-int rows_pow2(int R) { return R == 1 ? 1 : R == 2 ? 2 : R <= 4 ? 4 : 8; }
+// lanes a packet: R rounded up to a power of two, at most a warp
+int rows_pow2(int R) {
+  int rp = 1;
+  while (rp < R && rp < 32) rp <<= 1;
+  return rp;
+}
 
 // packets a round of the update for R rows
 int round_size(int R) { return UPDATE_THREADS / rows_pow2(R); }
 
-template <int RP>
+template <int RP, bool MULTI = false>
 void launch_update(const void* rows, const void* dirb, const void* ts, const void* lens,
                    const void* age, const Tables& tab, void* feats, const void* scratch,
                    int n, int R, cudaStream_t st) {
-  sketch_update_kernel<RP><<<16, UPDATE_THREADS, 0, st>>>(
+  sketch_update_kernel<RP, MULTI><<<16, UPDATE_THREADS, 0, st>>>(
       static_cast<const int32_t*>(rows), static_cast<const int32_t*>(dirb),
       static_cast<const float*>(ts), static_cast<const float*>(lens),
       static_cast<const float*>(age), tab, static_cast<float*>(feats),
@@ -514,13 +675,14 @@ extern "C" int sketch_update_launch(const void* rows, const void* dirb,
                                     void* brl, void* bsr, void* bslt, void* bsw,
                                     void* feats, void* scratch, int n, int R, int W,
                                     void* stream) {
-  if (R < 1 || R > MAX_ROWS || n < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (R < 1 || R > LAST_TABLE || n < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const int smem = sketch_schedule_smem(n);
+  auto sched = R <= MAX_ROWS ? sketch_schedule_kernel<MAX_ROWS> : sketch_schedule_kernel<0>;
   cudaError_t err = cudaFuncSetAttribute(
-      sketch_schedule_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      sched, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sketch_schedule_kernel<<<4, SCHED_THREADS, smem, st>>>(
+  sched<<<4, SCHED_THREADS, smem, st>>>(
       static_cast<const int32_t*>(rows), static_cast<int32_t*>(scratch), n, R, W,
       round_size(R));
   err = cudaGetLastError();
@@ -535,7 +697,15 @@ extern "C" int sketch_update_launch(const void* rows, const void* dirb,
     case 1: launch_update<1>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st); break;
     case 2: launch_update<2>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st); break;
     case 4: launch_update<4>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st); break;
-    default: launch_update<8>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st); break;
+    case 8: launch_update<8>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st); break;
+    case 16: launch_update<16>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st); break;
+    default:
+      if (R <= 32) {
+        launch_update<32>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st);
+      } else {
+        launch_update<32, true>(rows, dirb, ts, lens, age, tab, feats, scratch, n, R, st);
+      }
+      break;
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,33 +1,40 @@
 """Exact FC kernels and their wrappers: the 80-feature ``csrc/fc_full.cu``
 (``feature_update_full``) and the single-key-type ``csrc/feature_update.cu``
-(``feature_update``).
+(``feature_update``), with plain twins of their phases.
 
 ``feature_update_full`` replaces the JAX package's Pallas TPU kernel
 ``repro/kernels/feature_update.py::feature_update_full`` (``_fc_full_kernel``).
 
 On the TPU one sequential grid walks every packet with the flow tables in
-VMEM.  On the H100 the packets are split into per-(key type, slot) segments
-instead: serial order only matters within a segment, so the wrapper stable-
-sorts the (key type, packet) pairs by table row and the kernel runs one
-thread per segment, with that segment's rows held in registers.  Bi key
-types segment on the channel/socket slot with both directions together,
-because the SR and last-residual state crosses directions.
+VMEM.  On the H100 serial order only matters within a (key type, slot)
+segment, so the wrapper stable-sorts the (key type, packet) pairs by table
+row (:func:`fc_segments`); bi key types segment on the channel/socket slot
+with both directions together, because the SR and last-residual state
+crosses directions.  Inside a segment only the recurrences are serial: the
+affine atom updates per (direction, decay) and, for bi key types, the SR.
+One launch runs a parallel prelude (each position's previous packet of its
+own and of the opposite direction in its segment, and its decay factors),
+one thread per (segment, decay) for the atom chains, a parallel residual
+pass, one thread per (bi segment, decay) for the SR chain, and a parallel
+features pass; :func:`fc_phases_ref` is the same decomposition in PyTorch.
 
 What bounds it on the card: bytes, about 1.1 KB per packet (touched rows
-read and written once, 320 B of features); in practice the sort and the
-longest segment, which one thread walks alone, set its time.
+read and written once, 320 B of features); in practice the longest
+segment's chain of dependent multiply-adds and the launches.
 
 ``feature_update`` replaces ``repro/kernels/feature_update.py::
 feature_update`` (``_fc_kernel``), the JAX package's public single-key entry
 point ``kernels/ops.feature_update``: one key type's atom update over an
-``(n_slots, N_DECAY)`` table.  It is the uni half of ``fc_full.cu``: the
-packets are stable-sorted by slot and one thread walks each slot's run.
-Bound: bytes, about 128 B of touched rows and 64 B of stats, packet data,
-index and key a packet; in practice the longest run.
+``(n_slots, N_DECAY)`` table.  It is the uni half of ``fc_full.cu`` (the
+prelude, the chain and the statistics, sharing ``csrc/common.cuh``);
+:func:`feature_update_phases_ref` is its twin.  Bound: bytes, about 128 B of
+touched rows and 64 B of stats, packet data, index and key a packet; in
+practice the longest run's chain.
 
 For a CPU tensor each wrapper runs its plain PyTorch version
 (``core.pipeline.process_serial``, :func:`feature_update_ref`); for a CUDA
-tensor it launches its kernel or raises.
+tensor it launches its kernels or raises.  The twins are held bit for bit
+against the plain versions in the tests.
 """
 from __future__ import annotations
 
@@ -35,19 +42,23 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.core.pipeline import flat_tables, packet_rows, process_serial
+from repro_torch.core import arith
+from repro_torch.core.pipeline import (_stats, flat_tables, packet_rows,
+                                       process_serial)
 from repro_torch.core.state import (LAMBDAS, N_DECAY, N_FEATURES, N_UNI,
                                     state_device, state_slots)
 from repro_torch.kernels.build import INT, VOIDP, CudaKernel
 
 FC_FULL = CudaKernel("fc_full.cu", "fc_full_launch",
-                     argtypes=[VOIDP] * 17 + [INT, INT, INT, VOIDP],
+                     argtypes=[VOIDP] * 18 + [INT, INT, VOIDP],
                      flags=("--fmad=false",))
 FEATURE_UPDATE = CudaKernel("feature_update.cu", "feature_update_launch",
-                            argtypes=[VOIDP] * 9 + [INT, INT, VOIDP],
+                            argtypes=[VOIDP] * 10 + [INT, VOIDP],
                             flags=("--fmad=false",))
 
-_BLOCK = 256
+# as in csrc/fc_full.cu and csrc/common.cuh
+SCAN_TILE = 1024      # sorted positions a scan block of fc_full.cu takes
+CHAIN_PAD = 64        # positions past the last that a chain may load
 # the flat tables in the order fc_full_launch takes them
 _TABLE_ORDER = ("ult", "uw", "uls", "uss", "blt", "bw", "bls", "bss", "brl",
                "bsr", "bslt")
@@ -69,6 +80,16 @@ def fc_segments(rows: Dict[str, torch.Tensor],
     keys = torch.cat([rows["urow"].T, rows["bbase"].T + N_UNI * n_slots])
     skey, perm = torch.sort(keys.reshape(-1).to(torch.int32), stable=True)
     return skey, perm
+
+
+def fc_scratch_words(n: int) -> int:
+    """float32 words of ``fc_full.cu``'s scratch for n packets (its
+    ``Scratch``): per sorted position, and for CHAIN_PAD positions past the
+    last, eleven (N_DECAY,) arrays (decays, parked values) and eight scalars
+    (time, length, packet and direction, three scans, the opposite link, the
+    segment end); three values a scan tile."""
+    N = 4 * n
+    return (11 * N_DECAY + 8) * (N + CHAIN_PAD) + 3 * -(-N // SCAN_TILE)
 
 
 def feature_update_full(state: Dict, pkts: Dict[str, torch.Tensor]
@@ -104,11 +125,173 @@ def feature_update_full(state: Dict, pkts: Dict[str, torch.Tensor]
     rows = packet_rows(pkts, n_slots)
     skey, perm = fc_segments(rows, n_slots)
     dirb = rows["dir"].to(torch.int32)
+    scratch = torch.empty(fc_scratch_words(n), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     FC_FULL.launch(perm.data_ptr(), skey.data_ptr(), dirb.data_ptr(),
                    ts.data_ptr(), lens.data_ptr(),
                    *(tab[k].data_ptr() for k in _TABLE_ORDER),
-                   feats.data_ptr(), n, n_slots, _BLOCK, stream)
+                   feats.data_ptr(), scratch.data_ptr(), n, n_slots, stream)
+    return state, feats
+
+
+def _exp2_decay(lt: torch.Tensor, t: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """The oracle's decay factor, ``0`` where ``lt < 0`` else
+    ``2^(-lam * max(t - lt, 0))``, elementwise."""
+    dt = (t - lt).clamp_min(0.0)
+    return torch.where(lt < 0.0, torch.zeros_like(dt), torch.exp2(-lam * dt))
+
+
+def _decay_in_groups(lt: torch.Tensor, t: torch.Tensor, lam: torch.Tensor,
+                     groups: torch.Tensor) -> torch.Tensor:
+    """:func:`_exp2_decay` of (P, N_DECAY) rows, evaluated on the row groups
+    the oracle evaluates together (rows sharing a value of ``groups``, in
+    row order): PyTorch's CPU ``exp2`` may round a value differently when it
+    runs on a longer tensor, so each group goes through ``exp2`` as one
+    small tensor, as in the oracle's step."""
+    out = torch.empty_like(lt)
+    order = torch.argsort(groups, stable=True)
+    bounds = torch.unique_consecutive(groups[order], return_counts=True)[1]
+    start = 0
+    for c in bounds.tolist():
+        rows = order[start:start + c]
+        out[rows] = _exp2_decay(lt[rows], t[rows][:, None], lam)
+        start += c
+    return out
+
+
+def fc_phases_ref(state: Dict, pkts: Dict[str, torch.Tensor]
+                  ) -> Tuple[Dict, torch.Tensor]:
+    """Plain twin of ``fc_full.cu``'s phases, in PyTorch, state updated in
+    place; returns ``(state, feats)`` like :func:`feature_update_full`.
+
+    1. prelude, per sorted position: the segment head, the latest earlier
+       position of the own and of the opposite direction in the segment
+       (segmented "last index" scans), the own atoms' decay factors (since
+       the previous own-direction packet, or the stored ``last_t``) and the
+       SR's (since the previous packet, or the stored ``sr_last_t``);
+    2. chains, per (segment, decay): ``w*d + 1``, ``ls*d + x``,
+       ``ss*d + x*x``, both directions of a bi slot together, each
+       position's atoms parked;
+    3. residuals, per bi position: ``r = x - mu_own``, the opposite
+       direction as stored and ``r * rl_opp``;
+    4. the SR chain per (bi segment, decay): ``sr*dsr + r*rl_opp``;
+    5. features from the parked values, and the tables as the oracle
+       leaves them.
+    """
+    n_slots = state_slots(state)
+    tab = flat_tables(state)
+    rows = packet_rows(pkts, n_slots)
+    skey, perm = fc_segments(rows, n_slots)
+    ts = pkts["ts"].to(torch.float32)
+    lens = pkts["length"].to(torch.float32)
+    n = ts.shape[0]
+    N = 4 * n
+    feats = torch.empty((n, N_FEATURES), dtype=torch.float32, device=ts.device)
+    if n == 0:
+        return state, feats
+    lam = torch.tensor(LAMBDAS, dtype=torch.float32, device=ts.device)
+    key = skey.long()
+    kt = key // n_slots
+    idx = perm - kt * n
+    bi = kt >= N_UNI
+    dirb = torch.where(bi, rows["dir"][idx], 0)
+    t, x = ts[idx], lens[idx]
+    pos = torch.arange(N, device=ts.device)
+
+    # 1. prelude
+    head = torch.ones(N, dtype=torch.bool, device=ts.device)
+    head[1:] = key[1:] != key[:-1]
+    seg = torch.cummax(torch.where(head, pos, 0), 0).values
+
+    def last_before(d):
+        v = torch.cummax(torch.where(dirb == d, pos, -1), 0).values
+        v = torch.cat([v.new_full((1,), -1), v[:-1]])
+        return torch.where(v >= seg, v, -1)
+
+    last0, last1 = last_before(0), last_before(1)
+    same = torch.where(dirb == 0, last0, last1)
+    popp = torch.where(dirb == 0, last1, last0)
+    prev = torch.where(head, -1, pos - 1)
+    uidx = torch.where(bi, 0, key)
+    base = torch.where(bi, key - N_UNI * n_slots, 0)
+    own_row, opp_row = 2 * base + dirb, 2 * base + 1 - dirb
+    prev_own = torch.where(bi, same, prev)
+    lt = torch.where(bi[:, None], tab["blt"][own_row], tab["ult"][uidx])
+    lt = torch.where(prev_own[:, None] >= 0, t[prev_own.clamp_min(0)][:, None], lt)
+    slt = torch.where(prev[:, None] >= 0, t[prev.clamp_min(0)][:, None],
+                      tab["bslt"][base])
+    # the oracle's step takes both uni (or both bi) key types of a packet
+    group = idx * 2 + bi.long()
+    delta = _decay_in_groups(lt, t, lam, group)
+    dsr = _decay_in_groups(slt, t, lam, group)
+
+    # 2. the atom chains; parked (w, ls, ss) per position
+    park = torch.empty((N, 3, N_DECAY), dtype=torch.float32, device=ts.device)
+    atoms = {}
+    last = {}
+    for p in range(N):
+        k, d = int(key[p]), int(dirb[p])
+        if bool(head[p]):
+            if k < N_UNI * n_slots:
+                atoms = {0: [tab[f][k].clone() for f in ("uw", "uls", "uss")]}
+            else:
+                b = k - N_UNI * n_slots
+                atoms = {e: [tab[f][2 * b + e].clone() for f in ("bw", "bls", "bss")]
+                         for e in (0, 1)}
+        w, ls, ss = atoms[d]
+        w, ls, ss = w * delta[p] + 1.0, ls * delta[p] + x[p], ss * delta[p] + x[p] * x[p]
+        atoms[d] = [w, ls, ss]
+        park[p, 0], park[p, 1], park[p, 2] = w, ls, ss
+        last[(k, d)] = p
+
+    # 3. residuals and the opposite direction as stored
+    po = popp.clamp_min(0)
+    has = (popp >= 0)[:, None]
+    r = x[:, None] - arith.div(park[:, 1], park[:, 0])
+    opp = torch.stack([torch.where(has, park[po, j], tab[f][opp_row])
+                       for j, f in enumerate(("bw", "bls", "bss"))], 1)
+    rl = torch.where(has, x[po][:, None] - arith.div(park[po, 1], park[po, 0]),
+                     tab["brl"][opp_row])
+    rprod = r * rl
+
+    # 4. the SR chain
+    sr_park = torch.zeros((N, N_DECAY), dtype=torch.float32, device=ts.device)
+    sr = None
+    for p in torch.nonzero(bi).flatten().tolist():
+        if bool(head[p]):
+            sr = tab["bsr"][int(base[p])].clone()
+        sr = sr * dsr[p] + rprod[p]
+        sr_park[p] = sr
+        if p + 1 == N or bool(head[p + 1]):
+            tab["bsr"][int(base[p])] = sr
+            tab["bslt"][int(base[p])] = t[p]
+
+    # 5. the tables as the oracle leaves them, and the features
+    for (k, d), p in last.items():
+        if k < N_UNI * n_slots:
+            tab["ult"][k] = t[p]
+            for j, f in enumerate(("uw", "uls", "uss")):
+                tab[f][k] = park[p, j]
+        else:
+            row = 2 * (k - N_UNI * n_slots) + d
+            tab["blt"][row] = t[p]
+            for j, f in enumerate(("bw", "bls", "bss")):
+                tab[f][row] = park[p, j]
+            tab["brl"][row] = r[p]
+    mu_o, var_o, sig_o = _stats(park[:, 0], park[:, 1], park[:, 2])
+    mu_p, var_p, sig_p = _stats(opp[:, 0], opp[:, 1], opp[:, 2])
+    mag = arith.sqrt(arith.square(mu_o) + arith.square(mu_p))
+    rad = arith.sqrt(arith.square(var_o) + arith.square(var_p))
+    cov = arith.div(sr_park, park[:, 0] + opp[:, 0])
+    pcc = arith.div(cov, sig_o * sig_p)
+    q = torch.arange(N_DECAY, device=ts.device)
+    u, b = ~bi, bi
+    ucol = (kt[u] * 12)[:, None] + q * 3
+    for j, v in enumerate((park[:, 0], mu_o, sig_o)):
+        feats[idx[u][:, None], ucol + j] = v[u]
+    bcol = (24 + (kt[b] - N_UNI) * 28)[:, None] + q * 7
+    for j, v in enumerate((park[:, 0], mu_o, sig_o, mag, rad, cov, pcc)):
+        feats[idx[b][:, None], bcol + j] = v[b]
     return state, feats
 
 
@@ -187,9 +370,54 @@ def feature_update(table: Dict[str, torch.Tensor], slots: torch.Tensor,
     if int(slots.min()) < 0 or int(slots.max()) >= n_slots:
         raise ValueError(f"slots must lie in [0, {n_slots})")
     skey, perm = torch.sort(slots.to(torch.int32), stable=True)
+    # per sorted position (and CHAIN_PAD past the last): decays and parked
+    # atoms, time, length, index, run end
+    scratch = torch.empty((4 * N_DECAY + 4) * (n + CHAIN_PAD), dtype=torch.float32,
+                          device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     FEATURE_UPDATE.launch(perm.data_ptr(), skey.data_ptr(), ts.data_ptr(),
                           lens.data_ptr(),
                           *(table[k].data_ptr() for k in TABLE_KEYS),
-                          stats.data_ptr(), n, _BLOCK, stream)
+                          stats.data_ptr(), scratch.data_ptr(), n, stream)
+    return table, stats
+
+
+def feature_update_phases_ref(table: Dict[str, torch.Tensor], slots: torch.Tensor,
+                              ts: torch.Tensor, lens: torch.Tensor
+                              ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Plain twin of ``feature_update.cu``'s phases, in PyTorch, table
+    updated in place; returns ``(table, stats)`` like :func:`feature_update`:
+    the prelude's decay factors per sorted position (since the previous
+    packet of the slot, or the stored ``last_t``), the affine chain per
+    (run, decay) with each packet's atoms parked, then ``mu`` and ``sigma``
+    from the parked atoms."""
+    ts, lens = ts.to(torch.float32), lens.to(torch.float32)
+    n = ts.shape[0]
+    stats = torch.empty((n, 3 * N_DECAY), dtype=torch.float32, device=ts.device)
+    if n == 0:
+        return table, stats
+    lam = torch.tensor(LAMBDAS, dtype=torch.float32, device=ts.device)
+    skey, perm = torch.sort(slots.to(torch.int32), stable=True)
+    key = skey.long()
+    t, x = ts[perm], lens[perm]
+    head = torch.ones(n, dtype=torch.bool, device=ts.device)
+    head[1:] = key[1:] != key[:-1]
+    pos = torch.arange(n, device=ts.device)
+    lt = torch.where(head[:, None], table["last_t"][key],
+                     t[(pos - 1).clamp_min(0)][:, None])
+    # the plain version evaluates each packet's decay as one small tensor
+    delta = _decay_in_groups(lt, t, lam, pos)
+    park = torch.empty((n, 3, N_DECAY), dtype=torch.float32, device=ts.device)
+    for p in range(n):
+        k = int(key[p])
+        if bool(head[p]):
+            w, ls, ss = (table[f][k].clone() for f in ("w", "ls", "ss"))
+        w, ls, ss = w * delta[p] + 1.0, ls * delta[p] + x[p], ss * delta[p] + x[p] * x[p]
+        park[p, 0], park[p, 1], park[p, 2] = w, ls, ss
+        if p + 1 == n or bool(head[p + 1]):
+            table["last_t"][k] = t[p]
+            table["w"][k], table["ls"][k], table["ss"][k] = w, ls, ss
+    mu = park[:, 1] / park[:, 0]
+    sig = torch.sqrt(torch.abs(park[:, 2] / park[:, 0] - mu * mu))
+    stats[perm] = torch.cat([park[:, 0], mu, sig], 1)
     return table, stats

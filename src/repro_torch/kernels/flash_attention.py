@@ -7,7 +7,10 @@ softmax attention with scale 1/sqrt(D), an optional tanh logit softcap, a
 causal and a sliding-window mask on absolute positions from 0 (top-left
 aligned when Sq != Sk), and GQA (query head h reads kv head h // (H / K)).
 The softmax runs in float32; the output is in q's dtype (float32 or
-bfloat16), D in {32, 64, 128, 256}.
+bfloat16).  The kernel is built for D in {32, 64, 128, 256}; any other D up
+to 256 is zero-padded to the next of them (80 and 112 to 128, 48 to 64),
+which adds exact zeros to every dot product, with the scale kept at
+1/sqrt of the true D, and the output sliced back.
 
 What bounds it on the H100 is operations, 4*D a visible (query, key) pair
 and head: at the bf16 tensor rate for bf16 inputs, and for float32 inputs
@@ -49,7 +52,7 @@ from repro_torch.kernels.build import INT, VOIDP, CudaKernel
 I64 = ctypes.c_int64
 FLASH_ATTENTION = CudaKernel(
     "flash_attention.cu", "flash_attention_launch",
-    argtypes=[VOIDP] * 4 + [INT] * 6 + [I64] * 12
+    argtypes=[VOIDP] * 4 + [INT] * 7 + [I64] * 12
     + [INT, INT, ctypes.c_float, INT, VOIDP])
 
 HEAD_DIMS = (32, 64, 128, 256)      # head_dim values the kernel is built for
@@ -93,11 +96,32 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention needs at least one key")
 
 
+def built_head_dim(D: int) -> int:
+    """The head dim the kernel runs a head of D at: D itself if built, else
+    the next built one (zero padding); raises past the largest."""
+    for built in HEAD_DIMS:
+        if D <= built:
+            return built
+    raise ValueError(f"head_dim {D} exceeds the largest the kernel is built "
+                     f"for, {HEAD_DIMS[-1]}")
+
+
+def _pad_head_dim(t: torch.Tensor, Dp: int) -> torch.Tensor:
+    """``t`` zero-padded along its last dimension to ``Dp``, laid out in
+    memory with its dimensions in the order of t's strides."""
+    order = sorted(range(3), key=lambda d: -t.stride(d)) + [3]
+    shape = [t.shape[d] for d in order[:3]] + [Dp]
+    out = t.new_zeros(shape).permute(*[order.index(d) for d in range(4)])
+    out[..., :t.shape[3]] = t
+    return out
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, K, Sk, D) with H a multiple of K.
 
-    Returns (B, H, Sq, D) in q.dtype, laid out in memory as q is.
+    Returns (B, H, Sq, D) in q.dtype, laid out in memory as q is (at a
+    padded head dim, as a view of the padded output's first D columns).
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -107,15 +131,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     B, H, Sq, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} is not one the kernel is built for "
-                         f"{HEAD_DIMS}")
-    out = torch.empty_like(q)
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+    Dp = built_head_dim(D)
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.device != q.device or t.dtype != q.dtype
                 or t.dtype not in (torch.float32, torch.bfloat16)):
             raise ValueError(f"{name} must be float32 or bfloat16 on {q.device} "
                              f"like q, got {t.dtype} on {t.device}")
+    if Dp != D:
+        q, k, v = (_pad_head_dim(t, Dp) for t in (q, k, v))
+    out = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         step = 16 // t.element_size()        # TMA: 16-byte strides
         if (t.stride(3) != 1 or any(s % step or s <= 0 for s in t.stride()[:3])
                 or t.data_ptr() % 16):
@@ -126,12 +151,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if B * H > 65535:
         raise ValueError(f"B*H={B * H} exceeds the grid's 65535")
     if Sq == 0:
-        return out
+        return out[..., :D]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     FLASH_ATTENTION.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, K, Sq, Sk, D,
+        B, H, K, Sq, Sk, Dp, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), int(window), float(softcap),
         int(q.dtype == torch.bfloat16), stream)
-    return out
+    return out[..., :D]

@@ -9,8 +9,10 @@ each one's masked reconstruction RMSE.
 The TPU kernel runs two MXU matmuls per (AE, batch tile).  The AEs are far
 too small for tensor cores (m <= 10 features, h = ceil(0.75 m) hidden), so
 on the H100 a block takes one AE and a tile of records, holds the AE's
-weights in shared memory, and gives each thread one record, computed with
-scalar FMAs in registers.  What bounds it is bytes: the gathered (B, k, m)
+weights in shared memory (in global memory past what fits), and gives each
+thread one record, computed with scalar FMAs: in registers up to width 64
+(``REGISTER_DIMS``), with the hidden vector in a scratch row past it, so
+any m and h run.  What bounds it is bytes: the gathered (B, k, m)
 input read once and the (B, k) output written once.  One thread per record
 also makes every score bitwise independent of its batch.
 
@@ -25,9 +27,9 @@ import torch
 from repro_torch.kernels.build import INT, VOIDP, CudaKernel
 
 KITNET_AE = CudaKernel("kitnet_ae.cu", "kitnet_ae_launch",
-                       argtypes=[VOIDP] * 7 + [INT] * 6 + [VOIDP])
+                       argtypes=[VOIDP] * 8 + [INT] * 6 + [VOIDP])
 
-MAX_DIM = 32          # largest m or h the kernel is compiled for
+REGISTER_DIMS = (16, 32, 64)   # widths whose kernel keeps a record in registers
 BLOCK = 128           # records (threads) per block
 
 
@@ -72,18 +74,19 @@ def kitnet_ensemble(x_sub, w1, b1, w2, b2, mask) -> torch.Tensor:
             raise ValueError(f"{name} must be a contiguous float32 {shape} "
                              f"tensor on {x_sub.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if max(m, h) > MAX_DIM:
-        raise ValueError(f"AE width m={m}, h={h} exceeds the compiled "
-                         f"maximum {MAX_DIM}")
     if -(-B // BLOCK) > 65535:
         raise ValueError(f"B={B} records exceed the grid's "
                          f"{65535 * BLOCK}-record limit")
     out = torch.empty((B, k), dtype=torch.float32, device=x_sub.device)
     if B == 0 or k == 0:
         return out
-    maxd = 16 if max(m, h) <= 16 else 32
+    maxd = next((d for d in REGISTER_DIMS if max(m, h) <= d), 0)
+    # past the register widths each (record, AE) keeps its hidden vector here
+    hid = torch.empty(B * k * h if maxd == 0 else 0, dtype=torch.float32,
+                      device=x_sub.device)
     stream = torch.cuda.current_stream(x_sub.device).cuda_stream
     KITNET_AE.launch(x_sub.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                      w2.data_ptr(), b2.data_ptr(), mask.data_ptr(),
-                     out.data_ptr(), B, k, m, h, maxd, BLOCK, stream)
+                     out.data_ptr(), hid.data_ptr(), B, k, m, h, maxd, BLOCK,
+                     stream)
     return out

@@ -18,7 +18,8 @@ off the channel's base column).  So one launch runs three kernels:
   owns a stripe of ``last_row_width(R)`` and a column is taken modulo it:
   aliased columns only add dependencies.
 * the update, one block per (key type, decay): the rounds in order, a
-  packet per group of R lanes (R rounded up to a power of two), the
+  packet per group of R lanes (R rounded up to a power of two, at most a
+  warp; past 32 rows a lane takes several and reduces over them first), the
   Count-Min minimum and the argmin of ``sw`` as shuffles inside the group;
   it leaves each packet's estimates in its feature slots;
 * the features, a thread per (packet, key type, decay): the divisions and
@@ -56,9 +57,8 @@ SKETCH_UPDATE = CudaKernel("sketch_update.cu", "sketch_update_launch",
                            argtypes=[VOIDP] * 19 + [INT, INT, INT, VOIDP],
                            flags=("--fmad=false",))
 
-MAX_ROWS = 8          # rows of one packet's lane group
 # as in csrc/sketch_update.cu
-LAST_TABLE = 32768    # entries of the schedule's `last` table
+LAST_TABLE = 32768    # entries of the schedule's `last` table; at most R rows
 UPDATE_THREADS = 512  # threads of an update block
 # the flat tables in the order sketch_update_launch takes them
 _TABLE_ORDER = ("ult", "uw", "uls", "uss", "blt", "bw", "bls", "bss", "brl",
@@ -67,8 +67,8 @@ _TABLE_ORDER = ("ult", "uw", "uls", "uss", "blt", "bw", "bls", "bss", "brl",
 
 def round_size(rows: int) -> int:
     """Packets a round of the update: a group of lanes a packet, one lane a
-    row, rows rounded up to a power of two."""
-    return UPDATE_THREADS // (1 << (rows - 1).bit_length())
+    row, rows rounded up to a power of two, at most a warp of 32 lanes."""
+    return UPDATE_THREADS // min(32, 1 << (rows - 1).bit_length())
 
 
 def last_row_width(rows: int, table: int = LAST_TABLE) -> int:
@@ -149,7 +149,7 @@ def sketch_update_full(state: Dict, pkts: Dict[str, torch.Tensor],
     """All 80 features through the Count-Min sketch, state updated in place.
 
     ``state``: an ``init_state(..., state_backend="sketch")`` dict with at
-    most ``MAX_ROWS`` rows; ``pkts``: ``to_torch`` packet tensors on the
+    most ``LAST_TABLE`` rows; ``pkts``: ``to_torch`` packet tensors on the
     state's device.  Returns ``(state, feats (n, N_FEATURES))`` matching
     ``process_sketch``.  A ``schedule`` dict, if given, receives the
     kernel's schedule (:func:`schedule_views`) on the card.
@@ -160,9 +160,9 @@ def sketch_update_full(state: Dict, pkts: Dict[str, torch.Tensor],
     if device.type != "cuda":
         raise ValueError(f"sketch_update_full runs on cpu or cuda, not {device}")
     R, W = sketch_rows(state), sketch_width(state)
-    if R > MAX_ROWS:
-        raise ValueError(f"the sketch kernel takes at most {MAX_ROWS} rows, "
-                         f"got {R}")
+    if R > LAST_TABLE:
+        raise ValueError(f"the sketch kernel takes at most {LAST_TABLE} rows "
+                         f"(a stripe of its schedule's table each), got {R}")
     if 2 * 2 * R * W * 4 >= 2 ** 31:
         raise ValueError(f"rows={R}, width={W} overflow the int32 row indices")
     tab = flat_tables(state, SKETCH_TABLES)

@@ -135,18 +135,22 @@ def blockwise_attention(q, k, v, cfg: ArchConfig, q_pos, k_pos,
 
 
 def is_prefill_positions(q_pos: torch.Tensor, k_pos: torch.Tensor) -> bool:
-    """Whether ``q_pos`` and ``k_pos`` are both ``arange(S)`` on every row,
-    the positions the flash kernel's masks assume (one device sync)."""
+    """Whether ``q_pos`` and ``k_pos`` are equal and each row is ``arange(S)
+    + c`` for a constant ``c`` of that row (one device sync).  The masks sit
+    on position differences (``_mask_bias``), so these positions give the
+    flash kernel's masks, which sit on indices."""
     S = q_pos.shape[-1]
+    if k_pos.shape[-1] != S:
+        return False
     ar = torch.arange(S, device=q_pos.device)
-    return (k_pos.shape[-1] == S and bool((q_pos == ar).all())
-            and bool((k_pos == ar).all()))
+    return bool(((q_pos - q_pos[..., :1]) == ar).all() & (q_pos == k_pos).all())
 
 
 def flash_prefill(q, k, v, cfg: ArchConfig, causal: Optional[bool] = None,
                   window: Optional[int] = None):
     """Prefill attention through the flash kernel (its plain version for
-    CPU tensors), on positions ``arange(S)``: q (B,S,H,d), k/v (B,S,K,d)."""
+    CPU tensors), on positions ``arange(S) + c`` per row (the masks of
+    ``arange(S)``): q (B,S,H,d), k/v (B,S,K,d)."""
     causal = cfg.causal if causal is None else causal
     window = cfg.window if window is None else window
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -159,7 +163,8 @@ def attention(q, k, v, cfg: ArchConfig, q_pos, k_pos,
               causal: Optional[bool] = None, window: Optional[int] = None, *,
               impl: str):
     """Prefill attention through ``impl``: "flash" (the kernel; the caller
-    vouches that the positions are ``arange(S)``), "dense" or "blockwise"."""
+    vouches that the positions are ``arange(S) + c`` per row), "dense" or
+    "blockwise"."""
     if impl == "flash":
         return flash_prefill(q, k, v, cfg, causal, window)
     if impl == "blockwise":

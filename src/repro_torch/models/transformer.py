@@ -107,15 +107,17 @@ def _per_layer_windows(cfg: ArchConfig):
 def _prefill_impl(x: torch.Tensor, positions: torch.Tensor, explicit: bool,
                   attn_impl: Optional[str]) -> str:
     """The attention path of one forward.  The flash kernel on the card, or
-    wherever "flash" is asked for; its masks assume positions arange(S),
-    checked once when the caller gave positions.  Otherwise ("plain", or
-    None on the CPU) the JAX package's routing by length."""
+    wherever "flash" is asked for; its masks are those of positions
+    arange(S) + c per row, checked once when the caller gave positions.
+    Otherwise ("plain", or None on the CPU) the JAX package's routing by
+    length."""
     if attn_impl not in ATTN_ROUTES:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_ROUTES}")
     if attn_impl == "flash" or (attn_impl is None and x.is_cuda):
         if explicit and not attn.is_prefill_positions(positions, positions):
             raise ValueError("prefill through the flash kernel masks positions "
-                             "arange(S); pass attn_impl='plain' for others")
+                             "arange(S) + c per row; pass attn_impl='plain' "
+                             "for others")
         return "flash"
     return "blockwise" if x.shape[1] >= attn.BLOCKWISE_THRESHOLD else "dense"
 

@@ -1,6 +1,9 @@
 """PyTorch port, the CUDA kernels on the card: each kernel (dense FC, KitNET
 ensemble, Count-Min sketch, single-key update, flash attention) against its
-plain PyTorch version at small sizes, launch counting, and the wrappers'
+plain PyTorch version at small sizes (the FC, single-key and sketch kernels
+bit for bit), at the shapes past the kernels' built sizes (sketch rows past
+8 and 32, AE widths past 32 and 64, flash head dims other than 32, 64, 128,
+256, prefill positions arange(S) + c), launch counting, and the wrappers'
 checks.
 
 Marked ``cuda``; each test skips without a CUDA device.  Run on the card:
@@ -26,9 +29,6 @@ from repro_torch.traffic import synth_trace, to_torch
 
 pytestmark = pytest.mark.cuda
 
-FC_TOL = dict(rtol=1e-4, atol=1e-3)
-
-
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -36,37 +36,85 @@ def dev():
     return torch.device("cuda")
 
 
+def _fc_bitwise(dev, pk, n_slots, st0=None):
+    """The FC kernel against the serial oracle bit for bit, features and
+    every table, from ``st0`` (a fresh state if None); one launch."""
+    st0 = init_state(n_slots, device=dev) if st0 is None else st0
+    reset_launch_counts()
+    st_k, f_k = feature_update_full(clone_state(st0), pk)
+    assert launch_counts()["fc_full"] == 1
+    st_p, f_p = process_serial(clone_state(st0), pk)
+    assert torch.equal(f_k, f_p), float((f_k - f_p).abs().max())
+    for g in st_p:
+        for k in st_p[g]:
+            assert torch.equal(st_k[g][k], st_p[g][k]), (g, k)
+    return st_k, f_k
+
+
 @pytest.mark.parametrize("attack", ["mirai", "arp_mitm", "active_wiretap",
                                     "ssh_bruteforce", "video_injection"])
 def test_fc_kernel_matches_plain(dev, attack):
     tr = synth_trace(attack, n_train=64, n_benign_eval=512, n_attack=512,
                      seed=0)["eval"]
-    pk = to_torch(tr, dev)
-    st0 = init_state(512, device=dev)
-    reset_launch_counts()
-    st_k, f_k = feature_update_full(clone_state(st0), pk)
-    assert launch_counts()["fc_full"] == 1
-    st_p, f_p = process_serial(clone_state(st0), pk)
-    torch.testing.assert_close(f_k, f_p, **FC_TOL)
-    for g in st_p:
-        for k in st_p[g]:
-            torch.testing.assert_close(st_k[g][k], st_p[g][k], **FC_TOL)
+    _fc_bitwise(dev, to_torch(tr, dev), 512)
 
 
 def test_fc_kernel_chunked_carry(dev):
+    """Chunks of 250 carried in place equal one shot and the oracle, bit for
+    bit; each chunk starts from the state the last one left."""
     pk = to_torch(synth_trace("mirai", n_train=64, n_benign_eval=600,
                               n_attack=600, seed=1)["eval"], dev)
-    st_a, f_once = feature_update_full(init_state(1024, device=dev), pk)
+    st_a, f_once = _fc_bitwise(dev, pk, 1024)
     st_b = init_state(1024, device=dev)
     parts = []
     for i in range(0, 1200, 250):
-        st_b, f = feature_update_full(st_b, {k: v[i:i + 250] for k, v in pk.items()})
+        chunk = {k: v[i:i + 250] for k, v in pk.items()}
+        st_b, f = _fc_bitwise(dev, chunk, 1024, st_b)
         parts.append(f)
-    torch.testing.assert_close(torch.cat(parts), f_once, **FC_TOL)
+    assert torch.equal(torch.cat(parts), f_once)
+    for g in st_a:
+        for k in st_a[g]:
+            assert torch.equal(st_a[g][k], st_b[g][k]), (g, k)
 
 
-@pytest.mark.parametrize("m,h", [(10, 8), (3, 3), (16, 12), (32, 24)])
+def _one_flow(n, alternate):
+    """n packets of one flow, 10 ms apart; with ``alternate`` every other
+    packet goes the other way (source and destination swapped)."""
+    tr = synth_trace("mirai", n_train=64, n_benign_eval=64, n_attack=64,
+                     seed=2)["eval"]
+    one = {k: np.repeat(v[:1], n) for k, v in tr.items()}
+    one["ts"] = np.arange(n, dtype=np.float32) * 0.01
+    one["length"] = (60 + np.arange(n) % 1400).astype(tr["length"].dtype)
+    if alternate:
+        back = np.arange(n) % 2 == 1
+        for a, b in (("src", "dst"), ("sport", "dport")):
+            one[a][back], one[b][back] = one[b][back], one[a][back].copy()
+    return one
+
+
+@pytest.mark.parametrize("alternate", [False, True])
+def test_fc_kernel_bitwise_one_flow(dev, alternate):
+    """One flow of 2100 packets: every key type is one segment of 2100, the
+    chains run their whole length in one thread each (more than 32 scan
+    tiles of positions, so the links come through the tiles' look-back)."""
+    _fc_bitwise(dev, to_torch(_one_flow(2100, alternate), dev), 1024)
+
+
+def test_fc_kernel_bitwise_heavy_hitter(dev):
+    """Two thirds of 3000 packets from one source (a segment of about 2000
+    in the uni key types, many channels and sockets under it)."""
+    tr = synth_trace("mirai", n_train=64, n_benign_eval=1500, n_attack=1500,
+                     seed=4)["eval"]
+    hot = np.random.default_rng(0).random(len(tr["ts"])) < 2 / 3
+    tr["src"] = np.where(hot, tr["src"][0], tr["src"])
+    _fc_bitwise(dev, to_torch(tr, dev), 4096)
+
+
+@pytest.mark.parametrize("m,h", [(10, 8), (3, 3), (16, 12), (32, 24), (33, 25),
+                                 (64, 64), (100, 75), (300, 225)])
 def test_ensemble_kernel_matches_plain_and_is_batch_independent(dev, m, h):
+    """Widths in registers (16, 32, 64), past them with the weights in
+    shared memory (100) and in global memory (300)."""
     g = torch.Generator().manual_seed(m)
     k, B = 7, 1000
     x = torch.rand(B, k, m, generator=g).to(dev)
@@ -93,12 +141,16 @@ def test_wrappers_reject_bad_inputs(dev):
         kitnet_ensemble(x.double(), *args)
     with pytest.raises(ValueError, match="contiguous"):
         kitnet_ensemble(x.transpose(0, 1).contiguous().transpose(0, 1), *args)
-    big = torch.rand(8, 2, 33, device=dev)
-    with pytest.raises(ValueError, match="compiled maximum"):
-        kitnet_ensemble(big, torch.rand(2, 33, 25, device=dev),
-                        torch.rand(2, 25, device=dev),
-                        torch.rand(2, 25, 33, device=dev),
-                        torch.rand(2, 33, device=dev), torch.ones(2, 33, device=dev))
+    # widths past 32 run on the kernel (they raised before the limit went)
+    big = (torch.rand(8, 2, 33, device=dev), torch.rand(2, 33, 25, device=dev),
+           torch.rand(2, 25, device=dev), torch.rand(2, 25, 33, device=dev),
+           torch.rand(2, 33, device=dev), torch.ones(2, 33, device=dev))
+    reset_launch_counts()
+    torch.testing.assert_close(kitnet_ensemble(*big), kitnet_ensemble_ref(*big),
+                               rtol=1e-5, atol=1e-5)
+    assert launch_counts()["kitnet_ae"] == 1
+    with pytest.raises(ValueError, match="float32"):
+        kitnet_ensemble(big[0], big[1], big[2], big[3].double(), big[4], big[5])
     st = init_state(64, device=dev)
     pk = to_torch(synth_trace("mirai", n_train=16, n_benign_eval=16,
                               n_attack=16, seed=0)["eval"], "cpu")
@@ -185,8 +237,9 @@ def test_sketch_service_runs_the_kernel(dev):
     assert len(idx) == 1024 // 64
 
 
-@pytest.mark.parametrize("n,n_slots", [(100, 64), (257, 128), (8192, 8192)])
+@pytest.mark.parametrize("n,n_slots", [(100, 64), (257, 128), (8192, 8192), (3000, 1)])
 def test_single_key_kernel_matches_plain(dev, n, n_slots):
+    """Bit for bit; n_slots=1 puts every packet in one run."""
     g = torch.Generator().manual_seed(n)
     slots = torch.randint(0, n_slots, (n,), generator=g).to(dev)
     ts = torch.sort(torch.rand(n, generator=g) * 5)[0].to(dev)
@@ -200,9 +253,9 @@ def test_single_key_kernel_matches_plain(dev, n, n_slots):
     t_k, s_k = feature_update(fresh(), slots, ts, lens)
     assert launch_counts()["feature_update"] == 1
     t_p, s_p = feature_update_ref(fresh(), slots, ts, lens)
-    torch.testing.assert_close(s_k, s_p, **FC_TOL)
+    assert torch.equal(s_k, s_p)
     for k in TABLE_KEYS:
-        torch.testing.assert_close(t_k[k], t_p[k], **FC_TOL)
+        assert torch.equal(t_k[k], t_p[k]), k
 
 
 def test_new_wrappers_reject_bad_inputs(dev):
@@ -211,11 +264,10 @@ def test_new_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="device"):
         sketch_update_full(init_state(64, state_backend="sketch", device=dev,
                                       rows=2), pk)
-    with pytest.raises(ValueError, match="at most 8 rows"):
-        sketch_update_full(init_state(64, state_backend="sketch", device=dev,
-                                      rows=9), to_torch(synth_trace(
-                                          "mirai", n_train=16, n_benign_eval=16,
-                                          n_attack=16, seed=0)["eval"], dev))
+    # rows past 8 run on the kernel (they raised before the limit went)
+    pk9 = to_torch(synth_trace("mirai", n_train=16, n_benign_eval=16,
+                               n_attack=16, seed=0)["eval"], dev)
+    _sketch_bitwise(dev, pk9, 9, 64)
     tab = {f: torch.zeros(16, 4, device=dev) for f in TABLE_KEYS}
     x = torch.ones(4, device=dev)
     with pytest.raises(ValueError, match="slots must lie"):
@@ -294,8 +346,16 @@ def test_flash_kernel_ragged_keys_and_single_query(dev, D, dtype):
 
 
 def test_flash_wrapper_rejects_bad_inputs(dev):
+    # a head dim the kernel is not built for runs zero-padded (it raised
+    # before the limit went); past 256 it raises
     q, k, v = _flash_inputs(dev, 1, 2, 1, 8, 8, 48, torch.float32)
-    with pytest.raises(ValueError, match="head_dim 48"):
+    got = flash_attention(q, k, v)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got, flash_attention_ref(q, k, v),
+                               rtol=FLASH_TOL[torch.float32],
+                               atol=FLASH_TOL[torch.float32])
+    q, k, v = _flash_inputs(dev, 1, 2, 1, 8, 8, 320, torch.float32)
+    with pytest.raises(ValueError, match="head_dim 320"):
         flash_attention(q, k, v)
     q, k, v = _flash_inputs(dev, 1, 2, 1, 8, 8, 32, torch.float32)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -334,3 +394,39 @@ def test_model_prefill_runs_the_kernel(dev):
     torch.testing.assert_close(logits, plain, rtol=2e-5, atol=2e-5)
     with pytest.raises(ValueError, match="arange"):
         model.forward(params, {"tokens": toks, "positions": toks * 0})
+    # positions arange(S) + c run the kernel and give the plain route's logits
+    shifted = {"tokens": toks, "positions": torch.arange(96, device=dev)[None] + 5}
+    reset_launch_counts()
+    logits, _, _ = model.forward(params, shifted)
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    plain, _, _ = model.forward(params, shifted, attn_impl="plain")
+    torch.testing.assert_close(logits, plain, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("rows", [9, 16, 33, 40])
+def test_sketch_kernel_bitwise_past_eight_rows(dev, rows):
+    """Rows past 8 (the schedule reads rows in turn), 16 (a half warp a
+    packet), past 32 (a lane takes two rows); W=64 with eviction."""
+    pk = to_torch(synth_trace("mirai", n_train=64, n_benign_eval=300,
+                              n_attack=300, seed=2)["eval"], dev)
+    _sketch_bitwise(dev, pk, rows, 64, 0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 48, 80, 112, 200])
+def test_flash_kernel_padded_head_dims(dev, D, dtype):
+    """Head dims the kernel is not built for, zero-padded to the next built
+    one (80 and 112: zamba2, hubert-xlarge, kimi-k2), scaled by the true D;
+    GQA, window and softcap on, and from (B, S, H, D) views."""
+    q, k, v = _flash_inputs(dev, 2, 4, 2, 150, 150, D, dtype, seed=D)
+    kw = dict(causal=True, window=40, softcap=30.0)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, **kw)
+    assert launch_counts()["flash_attention"] == 1
+    assert got.shape == q.shape and got.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), flash_attention_ref(q, k, v, **kw).float(),
+                               rtol=tol, atol=tol)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    torch.testing.assert_close(flash_attention(qt, kt, vt, **kw).float(), got.float(),
+                               rtol=tol, atol=tol)

@@ -38,7 +38,7 @@ from repro_torch.core import (FEATURE_NAMES, N_FEATURES, available_backends,
 from repro_torch.core.pipeline import bi_step, flat_tables, packet_rows, uni_step
 from repro_torch.core.state import LAMBDAS
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.feature_update import fc_segments
+from repro_torch.kernels.feature_update import fc_phases_ref, fc_segments
 from repro_torch.traffic import to_torch
 
 torch.set_num_threads(1)
@@ -280,6 +280,87 @@ def test_kernel_segment_walk_equals_serial(attack):
     for g in st_s:
         for k in st_s[g]:
             assert torch.equal(st_w[g][k], st_s[g][k]), (g, k)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's phases in PyTorch (fc_phases_ref): the prelude's links and
+# decays, the atom chains per (segment, direction, decay), the residuals, the
+# SR chain and the features, each value by the oracle's operations
+# ---------------------------------------------------------------------------
+def _assert_bitwise(st_a, f_a, st_b, f_b, msg=""):
+    assert torch.equal(f_a, f_b), (msg, float((f_a - f_b).abs().max()))
+    for g in st_b:
+        for k in st_b[g]:
+            assert torch.equal(st_a[g][k], st_b[g][k]), (msg, g, k)
+
+
+@pytest.mark.parametrize("attack", ["mirai", "arp_mitm", "active_wiretap",
+                                    "ssh_bruteforce", "slowloris"])
+def test_phase_twin_equals_serial(attack):
+    """The phase decomposition reproduces the serial oracle bit for bit,
+    features and every table, on the segment walk's five attacks."""
+    pk = to_torch(_trace(attack), "cpu")
+    st_s, f_s = process_serial(init_state(N_SLOTS, device="cpu"), pk)
+    st_t, f_t = fc_phases_ref(init_state(N_SLOTS, device="cpu"), pk)
+    _assert_bitwise(st_t, f_t, st_s, f_s, attack)
+
+
+def _two_flows(n: int):
+    """Two flows whose packets interleave, each flow's direction flipping
+    packet by packet (a, b, a reversed, b reversed, ...)."""
+    tr = _trace("mirai")
+    flows = [{k: v[j] for k, v in tr.items()} for j in (0, 1)]
+    assert (flows[0]["src"], flows[0]["dst"]) != (flows[1]["src"], flows[1]["dst"])
+    out = {k: [] for k in tr}
+    for i in range(n):
+        f = dict(flows[i % 2])
+        if (i // 2) % 2:
+            f["src"], f["dst"] = f["dst"], f["src"]
+            f["sport"], f["dport"] = f["dport"], f["sport"]
+        f["ts"] = np.float32(i * 0.003)
+        f["length"] = np.asarray(64 + 7 * i % 1400, dtype=tr["length"].dtype)
+        for k in tr:
+            out[k].append(f[k])
+    return {k: np.asarray(v, dtype=tr[k].dtype) for k, v in out.items()}
+
+
+def test_phase_twin_two_flows_alternating_directions():
+    """Both directions of each bi slot in one segment, turn about: every
+    packet's stale opposite row and last residual come from the packet just
+    before it in its flow."""
+    pk = to_torch(_two_flows(300), "cpu")
+    assert pk["ts"].shape[0] == 300
+    rows = packet_rows(pk, N_SLOTS)
+    d = rows["dir"]
+    assert bool((d[2:] != d[:-2]).all())          # each flow turns about
+    st_s, f_s = process_serial(init_state(N_SLOTS, device="cpu"), pk)
+    st_t, f_t = fc_phases_ref(init_state(N_SLOTS, device="cpu"), pk)
+    _assert_bitwise(st_t, f_t, st_s, f_s)
+
+
+def test_phase_twin_chunked_carry():
+    """Chunks carried through the twin equal the oracle in one shot, and a
+    second pass over the same packets (every row warm, times repeating)
+    equals the oracle's second pass."""
+    pk = to_torch(_trace("mirai"), "cpu")
+    st_s, f_s = process_serial(init_state(N_SLOTS, device="cpu"), pk)
+    st_t = init_state(N_SLOTS, device="cpu")
+    parts = []
+    for i in range(0, N_PKTS, 100):
+        st_t, f = fc_phases_ref(st_t, {k: v[i:i + 100] for k, v in pk.items()})
+        parts.append(f)
+    _assert_bitwise(st_t, torch.cat(parts), st_s, f_s)
+    st_s, f_s = process_serial(st_s, pk)
+    st_t, f_t = fc_phases_ref(st_t, pk)
+    _assert_bitwise(st_t, f_t, st_s, f_s)
+
+
+def test_phase_twin_empty_batch():
+    st = init_state(64, device="cpu")
+    before = {g: {k: v.clone() for k, v in st[g].items()} for g in st}
+    st, f = fc_phases_ref(st, {k: v[:0] for k, v in to_torch(_trace("mirai"), "cpu").items()})
+    assert f.shape == (0, N_FEATURES)
+    _assert_bitwise(st, f, before, f)
 
 
 if __name__ == "__main__":

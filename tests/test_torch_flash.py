@@ -25,10 +25,12 @@ import torch
 
 from repro.kernels import ops, ref
 from repro_torch.configs import get_arch, reduced
-from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
+from repro_torch.kernels.flash_attention import (NEG_INF, _pad_head_dim,
+                                                 built_head_dim, flash_attention,
                                                  flash_attention_ref)
 from repro_torch.models.attention import (attention, blockwise_attention,
-                                          dense_attention, flash_prefill)
+                                          dense_attention, flash_prefill,
+                                          is_prefill_positions)
 
 SHAPES = [
     (1, 4, 4, 64, 64, 32),      # MHA square
@@ -212,6 +214,60 @@ def test_flash_plain_matches_jax_shapes(B, H, K, Sq, Sk, D, dtype):
     tol = KERNEL_TOL[dtype]
     assert err_pallas <= tol, err_pallas
     assert err_ref <= tol, err_ref
+
+
+@pytest.mark.parametrize("D", [48, 80, 112])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_jax_unbuilt_head_dims(D, dtype):
+    """Head dims the CUDA kernel runs zero-padded (zamba2 and hubert-xlarge
+    80, kimi-k2 112): the plain version against the Pallas kernel and the
+    JAX reference, with GQA, window and softcap."""
+    qkv = _qkv(D, 2, 4, 2, 72, 72, D)
+    errs = _errors(qkv, dtype, causal=True, window=24, softcap=30.0)
+    assert max(errs) <= KERNEL_TOL[dtype], errs
+
+
+@pytest.mark.parametrize("D", [1, 48, 80, 112, 200])
+def test_zero_padded_head_dim_keeps_the_attention(D):
+    """What the wrapper hands the kernel at an unbuilt D: q, k, v zero-padded
+    to the next built head dim, laid out as the inputs are; softmax attention
+    on them with the scale of the true D, sliced back, equals the reference
+    at D (the zeros add exact zeros to every product)."""
+    Dp = built_head_dim(D)
+    assert Dp in (32, 64, 128, 256) and Dp >= D
+    q, k, v = (torch.from_numpy(a) for a in _qkv(D, 1, 4, 2, 40, 40, D))
+    q = q.transpose(1, 2).contiguous().transpose(1, 2)     # (B, S, H, D) memory
+    qp, kp, vp = (_pad_head_dim(t, Dp) for t in (q, k, v))
+    assert qp.shape == (1, 4, 40, Dp) and qp.stride(3) == 1
+    assert qp.stride(1) < qp.stride(2)                    # heads inside rows, as q
+    assert torch.equal(qp[..., :D], q) and not qp[..., D:].any()
+    kw = dict(causal=True, window=16, softcap=30.0)
+    s = torch.einsum("bkgqd,bktd->bkgqt", qp.reshape(1, 2, 2, 40, Dp), kp) / math.sqrt(D)
+    s = 30.0 * torch.tanh(s / 30.0)
+    i = torch.arange(40)
+    ok = (i[:, None] >= i[None]) & (i[:, None] - i[None] < 16)
+    p = torch.softmax(torch.where(ok, s, torch.tensor(NEG_INF)), -1)
+    got = torch.einsum("bkgqt,bktd->bkgqd", p, vp).reshape(1, 4, 40, Dp)
+    assert not got[..., D:].any()
+    want = flash_attention_ref(q, k, v, **kw)
+    assert float((got[..., :D] - want).abs().max()) <= KERNEL_TOL["float32"]
+    with pytest.raises(ValueError, match="head_dim 257"):
+        built_head_dim(257)
+
+
+def test_prefill_positions_are_arange_plus_a_constant_per_row():
+    """The flash route's check: q and k positions equal, each row arange(S)
+    shifted by a constant of its own (the masks sit on differences)."""
+    ar = torch.arange(6)
+    assert is_prefill_positions(ar[None], ar[None])
+    rows = torch.stack([ar + 3, ar + 100])
+    assert is_prefill_positions(rows, rows)
+    assert is_prefill_positions(ar + 7, ar + 7)
+    for bad in (torch.tensor([[0, 2, 1, 3, 4, 5]]), torch.tensor([[0, 1, 1, 2, 3, 4]]),
+                (ar * 2)[None]):
+        assert not is_prefill_positions(bad, bad)
+    assert not is_prefill_positions(rows, rows + 1)
+    assert not is_prefill_positions(ar[None], ar[None, :5])
 
 
 @pytest.mark.parametrize("window,softcap", WINDOW_SOFTCAP)

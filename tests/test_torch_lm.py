@@ -211,10 +211,23 @@ def test_forward_positions_and_impl_checks():
     assert float((base - shifted).abs().max()) < 1e-4
     with pytest.raises(ValueError, match="unknown attn_impl"):
         model.forward(params, {"tokens": toks}, attn_impl="sdpa")
-    # the kernel's masks sit on positions arange(S): other positions raise
-    with pytest.raises(ValueError, match="arange"):
-        model.forward(params, {"tokens": toks, "positions": torch.arange(6)[None] + 3},
-                      attn_impl="flash")
+    # the kernel's masks are those of arange(S) + c per row: shifted
+    # positions take the flash route and give the plain route's logits
+    flash, _, _ = model.forward(params, {"tokens": toks,
+                                         "positions": torch.arange(6)[None] + 3},
+                                attn_impl="flash")
+    assert float((flash - shifted).abs().max()) < 1e-4
+    two = torch.cat([toks, toks + 1])
+    rows = torch.stack([torch.arange(6) + 3, torch.arange(6) + 7])
+    flash2, _, _ = model.forward(params, {"tokens": two, "positions": rows},
+                                 attn_impl="flash")
+    plain2, _, _ = model.forward(params, {"tokens": two, "positions": rows},
+                                 attn_impl="plain")
+    assert float((flash2 - plain2).abs().max()) < 1e-4
+    # other positions raise on the flash route
+    for pos in (torch.tensor([[0, 2, 1, 3, 4, 5]]), torch.tensor([[0, 1, 1, 2, 3, 4]])):
+        with pytest.raises(ValueError, match="arange"):
+            model.forward(params, {"tokens": toks, "positions": pos}, attn_impl="flash")
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,8 @@ from repro_torch.interop import (kitnet_from_arrays, state_from_arrays,
                                  state_to_arrays)
 from repro_torch.kernels import (feature_update, launch_counts,
                                  reset_launch_counts, sketch_update_full)
-from repro_torch.kernels.feature_update import feature_update_ref
+from repro_torch.kernels.feature_update import (feature_update_phases_ref,
+                                                feature_update_ref)
 from repro_torch.kernels.sketch_update import (kernel_rows, last_row_width,
                                                round_size, sketch_schedule_ref)
 from repro_torch.serving import DetectionService
@@ -440,7 +441,7 @@ def _assert_schedule_shape(s, n, R):
 
 
 @pytest.mark.parametrize("width", [64, 4096])
-@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("rows", [1, 2, 4, 9, 40])
 def test_schedule_levels_follow_shared_cells(rows, width):
     """Uni and bi key types: every pair of packets sharing a cell in some row
     is in strictly increasing levels; with a `last` table smaller than R*W
@@ -481,7 +482,7 @@ def _replay(state, pkts, order):
     return state, feats
 
 
-@pytest.mark.parametrize("rows,evict_age", [(2, 0.0), (4, 0.5)])
+@pytest.mark.parametrize("rows,evict_age", [(2, 0.0), (4, 0.5), (9, 0.5)])
 def test_schedule_order_replay_is_bitwise(rows, evict_age):
     """Each key type's packets replayed in its schedule order through the
     plain per-packet step: that key type's feature columns and tables equal
@@ -582,6 +583,40 @@ def test_feature_update_warm_table_carries():
                                       torch.from_numpy(ts), torch.from_numpy(lens))
         assert out is pt
         _assert_single(pt, s_p, jt, s_j, f"batch {r}")
+
+
+def test_round_size_past_a_warp():
+    """A packet takes R lanes rounded up to a power of two, at most a warp:
+    past 32 rows a round keeps 16 packets, and every R has its table
+    stripe."""
+    assert [round_size(r) for r in (1, 2, 3, 8, 9, 16, 17, 32, 33, 64, 1000)] == \
+        [512, 256, 128, 64, 32, 32, 16, 16, 16, 16, 16]
+    for r in (1, 9, 40, 1000, 32768):
+        w = last_row_width(r)
+        assert w >= 1 and w & (w - 1) == 0 and w * r <= 32768 < 2 * w * r
+
+
+@pytest.mark.parametrize("n,n_slots,seed", [(300, 16, 0), (400, 1, 1),
+                                            (500, 512, 2)])
+def test_feature_update_phase_twin_equals_plain(n, n_slots, seed):
+    """The single-key kernel's phases in PyTorch (decays per sorted position,
+    the chain per (run, decay), then mu and sigma) equal the plain version
+    bit for bit: many short runs, one run of every packet, then the same
+    packets again onto the warm table."""
+    rng = np.random.default_rng(seed)
+    slots, ts, lens = (torch.from_numpy(a) for a in _single_inputs(rng, n, n_slots))
+
+    def fresh():
+        return {f: torch.full((n_slots, 4), -1.0 if f == "last_t" else 0.0)
+                for f in ("last_t", "w", "ls", "ss")}
+
+    t_p, t_t = fresh(), fresh()
+    for _ in range(2):
+        t_p, s_p = feature_update_ref(t_p, slots, ts, lens)
+        out, s_t = feature_update_phases_ref(t_t, slots, ts, lens)
+        assert out is t_t and torch.equal(s_t, s_p)
+        for k in t_p:
+            assert torch.equal(t_t[k], t_p[k]), k
 
 
 if __name__ == "__main__":
