@@ -60,19 +60,36 @@ Phases (each prints one JSON line; a failure raises and ends the run):
                epoch=1024, 80 features, max_size=10): observe_stream over
                262,144 benign packets, fit, process_stream(chunk=8192) over
                262,144 eval packets of synth_trace("mirai", seed=0); launch
-               counts are zeroed just before and read just after, and both
-               of its kernels (fc_full, kitnet_ae) must have launched.
+               counts are zeroed just before and read just after: fc_full
+               must have launched, kitnet_score once per eval chunk plus
+               once for fit's training-set score, and kitnet_ae at least once
+               (fit's ensemble pass).  Three more untraced passes over the
+               eval stream give the run's own spread of eval pps.  Then the
+               MD stage of one chunk (its 8 records scored and compared with
+               the threshold) under torch.profiler: it must run 2 device
+               kernels; the same stage as plain torch ops around the
+               ensemble kernel is counted and timed beside it.
   trace   — the eval stream again under torch.profiler: the device's busy
-               share (the events that ran on the card, each counted once)
-               and each kernel's device time per launch on the main path.
+               share (the events that ran on the card, each counted once),
+               the device launches per chunk, and each kernel's device time
+               per launch on the main path.
   sketch_main — the service with sketch state (n_slots=4096, rows=2) over
                the same traffic as phase 4, counts zeroed just before and
-               read just after: the sketch and ensemble kernels must have
-               launched; then sketch_trace, its eval stream traced.
-  5. ensemble — the KitNET ensemble kernel against its plain version on the
-               k, m and h of the net fitted in phase 4, at B=8192 records
-               (≤1e-5) and chunked == one shot bit for bit; timings at the
-               main path's per-chunk batch and at B=8192.
+               read just after: sketch_update must have launched, and the
+               KitNET kernels as in phase 4; more passes and its MD stage
+               as in phase 4; then sketch_trace, its eval stream traced.
+  5. ensemble — both KitNET kernels against their plain versions on the net
+               fitted in phase 4: the ensemble (kitnet_ae) at its k, m and
+               h on fit's batch (the main path's training records, 256)
+               and on B=8192 gathered records, the scoring kernel
+               (kitnet_score) on the main path's per-chunk batch and on
+               B=8192 records (each <=1e-5, chunked == one shot bit for
+               bit); kernel, plain and bound times at both batches of each.
+               Then kitnet_ae's two designs (tile and pair), each forced,
+               on the same inputs: equal bit for bit, and each one's time
+               on the service's net at 8 to 8192 records and on nets of 7
+               AEs at m = h = 33 and 64 (``designs``), the measurements
+               behind the launcher's choice between them.
 A kernel's ``ms`` is its device time per launch from torch.profiler, on the
 inputs its bound is computed for; ``call_ms`` is the CUDA-event time per
 back-to-back call, which includes the wrapper's host overhead.
@@ -247,7 +264,11 @@ def trace_eval(svc, pkts, eval_s: float, kernels) -> dict:
     busy_s = sum(dev_us.values()) * 1e-6
     # each kernel's device time per launch on the path, at its shapes
     traced_ms = {name: kern_us[name] / kern_calls[name] * 1e-3 for name in kern_us}
+    chunks = -(-len(pkts["ts"]) // 8192)
+    launched = sum(count for _, count in events.values())
     return {"traced_s": traced_s, "device_busy_s": busy_s,
+            "chunks": chunks, "device_launches": launched,
+            "device_launches_per_chunk": launched / chunks,
             "busy_share_traced": busy_s / traced_s,
             "busy_share_untraced": busy_s / eval_s,
             "kernel_device_ms_per_launch": traced_ms,
@@ -258,6 +279,63 @@ def trace_eval(svc, pkts, eval_s: float, kernels) -> dict:
             "top_host_self_us": dict(sorted(
                 ((e.key, e.self_cpu_time_total) for e in prof.key_averages()),
                 key=lambda kv: -kv[1])[:12])}
+
+
+def md_stage_launches(net, threshold: float, md_backend: str, dev) -> dict:
+    """One chunk's MD stage (its records scored, then compared with the
+    threshold, as serving/fused.py's step does) through the backend's
+    scoring function ("fused"), and through the plain stages around the
+    ensemble kernel ("unfused", the route before the scoring kernel): the
+    device kernels each runs a call, from torch.profiler over 200 calls, as
+    all device events per event of its KitNET kernel (a window of one call
+    can come back empty), and its CUDA-event time a call, host overhead
+    included.  The fused stage must run 2."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.detection.md_backends import _ensemble_cuda, _scorer, md_score_fn
+    U = torch.rand(8, net.norm_min.shape[0], generator=torch.Generator().manual_seed(5))
+    X = net.norm_min + 1.5 * U.to(dev) * (net.norm_max - net.norm_min)
+    out = {}
+    for name, score, kern in (("fused", md_score_fn(md_backend), "kitnet_score_kernel"),
+                              ("unfused", _scorer(_ensemble_cuda), "kitnet_ae_kernel")):
+        def stage():
+            return score(net, X) > threshold
+        call_ms = cuda_ms(stage, reps=200)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(200):
+                stage()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        total = sum(count for _, count in events.values())
+        ours = sum(count for key, (_, count) in events.items() if kern in key)
+        out[name] = {"device_launches": total / max(ours, 1), "events": total,
+                     f"{kern}_events": ours, "call_ms": call_ms}
+    if not (out["fused"]["kitnet_score_kernel_events"] >= 100
+            and round(out["fused"]["device_launches"]) == 2):
+        raise RuntimeError(f"the MD stage ran {out['fused']} device kernels, not 2")
+    return out
+
+
+def eval_passes(svc, pkts, n: int = 3) -> list:
+    """Eval pps of n more untraced passes over the eval stream (the flow
+    tables carry on): the run's own spread, as the host's speed varies from
+    run to run and within one."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.process_stream(pkts, chunk=8192)
+        torch.cuda.synchronize()
+        out.append(len(pkts["ts"]) / (time.perf_counter() - t0))
+    return out
+
+
+def check_kitnet_launches(launches: dict, chunks: int, where: str) -> None:
+    """Every eval chunk scored by one kitnet_score launch, plus fit's
+    training-set score; fit's ensemble pass through kitnet_ae."""
+    if launches["kitnet_score"] != chunks + 1 or launches["kitnet_ae"] < 1:
+        raise RuntimeError(f"{where}: kitnet_score launched {launches['kitnet_score']} "
+                           f"times for {chunks} eval chunks + fit, kitnet_ae "
+                           f"{launches['kitnet_ae']} times")
 
 
 def sass_counts(lib: Path, opcodes=("HGMMA", "HMMA", "FFMA")) -> dict:
@@ -793,8 +871,8 @@ def phase_sketch_main(data, log) -> Tuple[dict, object]:
     over the main path's traffic; launch counts zeroed just before and read
     just after; then the eval stream traced."""
     from repro_torch.detection.metrics import auc
-    from repro_torch.kernels import (KERNELS, KITNET_AE, SKETCH_UPDATE,
-                                     launch_counts, reset_launch_counts)
+    from repro_torch.kernels import (KERNELS, SKETCH_UPDATE, launch_counts,
+                                     reset_launch_counts)
     from repro_torch.serving import DetectionService
 
     svc = DetectionService(state_backend="sketch", n_slots=4096,
@@ -814,10 +892,10 @@ def phase_sketch_main(data, log) -> Tuple[dict, object]:
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     launches = launch_counts()
-    missing = [k.name for k in (SKETCH_UPDATE, KITNET_AE) if launches[k.name] == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the sketch path: {missing}")
+    if launches[SKETCH_UPDATE.name] == 0:
+        raise RuntimeError("sketch_update never launched on the sketch path")
     n_eval = len(data["eval"]["ts"])
+    check_kitnet_launches(launches, -(-n_eval // 8192), "sketch path")
     want_idx = np.arange(svc.epoch - 1 - eval_start % svc.epoch, n_eval,
                          svc.epoch) + eval_start
     if not np.array_equal(idx, want_idx):
@@ -832,7 +910,9 @@ def phase_sketch_main(data, log) -> Tuple[dict, object]:
           "observe_fit_s": fit_s, "eval_s": eval_s, "eval_pps": n_eval / eval_s,
           "records": int(len(scores)), "alarms": int(alarms.sum()),
           "auc": auc(scores, labels), "threshold": svc.threshold,
-          "launches": launches}, log)
+          "launches": launches, "eval_pps_more_passes": eval_passes(svc, data["eval"]),
+          "md_stage_device_launches": md_stage_launches(
+              svc.net, svc.threshold, svc.md_backend, svc.device)}, log)
     emit({"phase": "sketch_trace", **trace_eval(svc, data["eval"], eval_s, KERNELS)},
          log)
     return launches, svc
@@ -1173,6 +1253,40 @@ def phase_lm_reference(log) -> None:
                            "margin exceeds the tolerance")
 
 
+def ensemble_designs(dev, x_sub, args, batches) -> dict:
+    """kitnet_ae's two designs (csrc/kitnet_ae.cu), each forced, on the same
+    inputs: their results equal bit for bit, and each one's device time a
+    launch beside the launcher's own choice's.  On the service's net at
+    each of ``batches`` records, and on random nets of k=7 AEs at m = h = 33
+    (the whole net fits a block) and m = h = 64 (it does not), where the
+    launcher's choice turns."""
+    from repro_torch.kernels.kitnet_ae import kitnet_ensemble
+    rng = np.random.default_rng(9)
+    cases = [(f"service_B{b}", x_sub[:b].contiguous(), args) for b in batches]
+    for mm, bs in ((33, (1024, 8192, 16384)), (64, (256, 8192))):
+        kk = 7
+        arrays = [rng.normal(0, 0.3, (kk, mm, mm)), rng.normal(0, 0.1, (kk, mm)),
+                  rng.normal(0, 0.3, (kk, mm, mm)), rng.normal(0, 0.1, (kk, mm)),
+                  (rng.random((kk, mm)) > 0.2) * 1.0]
+        net = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays)
+        x = rng.uniform(0.0, 1.2, (max(bs), kk, mm)).astype(np.float32)
+        x = torch.from_numpy(x).to(dev)
+        cases += [(f"k7_m{mm}_h{mm}_B{b}", x[:b].contiguous(), net) for b in bs]
+    out = {}
+    for name, x, net in cases:
+        got = {d: kitnet_ensemble(x, *net, design=d) for d in ("tile", "pair")}
+        if not torch.equal(got["tile"], got["pair"]):
+            raise RuntimeError(f"ensemble designs differ on {name}")
+        reps = 5 if x.shape[-1] == 64 else 50
+        out[name] = {"B": int(x.shape[0]), "pairs": int(x.shape[0] * x.shape[1]),
+                     **{f"{d}_ms": timed(lambda: kitnet_ensemble(x, *net, design=d), reps,
+                                         f"kitnet_ae_kernel_{d}")["ms"]
+                        for d in ("tile", "pair")},
+                     "auto_ms": timed(lambda: kitnet_ensemble(x, *net), reps,
+                                      "kitnet_ae_kernel")["ms"]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1180,11 +1294,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.detection.metrics import auc
     from repro_torch.interop import kitnet_from_arrays, kitnet_to_arrays
-    from repro_torch.kernels import (FC_FULL, FLASH_ATTENTION, KERNELS, KITNET_AE,
+    from repro_torch.kernels import (FC_FULL, FLASH_ATTENTION, KERNELS,
                                      launch_counts, reset_launch_counts)
     from repro_torch.kernels.build import build_all
-    from repro_torch.kernels.kitnet_ae import (kitnet_ensemble,
-                                               kitnet_ensemble_ref)
+    from repro_torch.kernels.kitnet_ae import (kitnet_ensemble, kitnet_ensemble_ref,
+                                               kitnet_score, kitnet_score_ref)
     from repro_torch.serving import DetectionService
     from repro_torch.traffic import synth_trace
 
@@ -1250,10 +1364,10 @@ def main() -> int:
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     launches = launch_counts()
-    missing = [k.name for k in (FC_FULL, KITNET_AE) if launches[k.name] == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the main path: {missing}")
+    if launches[FC_FULL.name] == 0:
+        raise RuntimeError("fc_full never launched on the main path")
     n_eval = len(data["eval"]["ts"])
+    check_kitnet_launches(launches, -(-n_eval // 8192), "main path")
     want_idx = np.arange(svc.epoch - 1 - eval_start % svc.epoch, n_eval,
                          svc.epoch) + eval_start
     if not np.array_equal(idx, want_idx):
@@ -1270,7 +1384,10 @@ def main() -> int:
             "observe_fit_s": fit_s, "eval_s": eval_s, "eval_pps": n_eval / eval_s,
             "records": int(len(scores)), "alarms": int(alarms.sum()),
             "auc": auc(scores, labels), "threshold": svc.threshold,
-            "ae": {"k": int(k), "m": int(m), "h": int(h)}, "launches": launches}
+            "ae": {"k": int(k), "m": int(m), "h": int(h)}, "launches": launches,
+            "eval_pps_more_passes": eval_passes(svc, data["eval"]),
+            "md_stage_device_launches": md_stage_launches(net, svc.threshold,
+                                                          svc.md_backend, dev)}
     emit(main, log)
 
     # ---- 4b. the same eval stream again, traced ----
@@ -1281,14 +1398,15 @@ def main() -> int:
 
     # ---- 5. ensemble kernel against its plain version ----
     B = 8192
+    n_fit = len(range(svc.epoch - 1, n_pkts, svc.epoch))  # fit's training records
     rng = np.random.default_rng(2)
     x_sub = torch.from_numpy(rng.uniform(0.0, 1.2, (B, k, m)).astype(np.float32)).to(dev)
+    xf = x_sub[:n_fit].contiguous()
     p = net.params
     args = (p["W1"], p["b1"], p["W2"], p["b2"], net.mask)
     r_k = kitnet_ensemble(x_sub, *args)
-    r_p = kitnet_ensemble_ref(x_sub, *args)
-    torch.cuda.synchronize()
-    md_err = max_abs(r_k, r_p)
+    md_err = max(max_abs(r_k, kitnet_ensemble_ref(x_sub, *args)),
+                 max_abs(kitnet_ensemble(xf, *args), kitnet_ensemble_ref(xf, *args)))
     if not md_err <= MD_TOL:
         raise RuntimeError(f"ensemble kernel vs plain: max abs err {md_err}")
     r_c = torch.cat([kitnet_ensemble(x_sub[i:i + 37], *args) for i in range(0, 1110, 37)]
@@ -1300,27 +1418,64 @@ def main() -> int:
     def ens_cost(b):
         byts = (b * k * m + k * (2 * m * h + h + 2 * m) + b * k) * 4
         flops = b * k * (4 * m * h + 10 * m + 4 * h)
-        return byts, flops, max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+        return byts, flops
 
-    xs = x_sub[:b_main].contiguous()
-    e_bytes, e_flops, e_bound = ens_cost(b_main)
-    big_bytes, big_flops, big_bound = ens_cost(B)
     ens = {"name": "kitnet_ae", "route": "cuda",
            "source": "src/repro_torch/csrc/kitnet_ae.cu",
            "replaces": "src/repro/kernels/kitnet_ae.py:38",
            "max_abs_err": md_err,
-           **timed(lambda: kitnet_ensemble(xs, *args), 200, "kitnet_ae_kernel"),
-           "plain_ms": cuda_ms(lambda: kitnet_ensemble_ref(xs, *args), reps=200),
-           "bound_ms": e_bound,
-           "bound_by": "bytes" if e_bytes / HBM_BYTES_PER_S >= e_flops / FP32_FLOPS
-           else "operations", "library_ms": None,
-           "shape": {"B": b_main, "k": int(k), "m": int(m), "h": int(h)},
+           **timed(lambda: kitnet_ensemble(xf, *args), 200, "kitnet_ae_kernel"),
+           "plain_ms": cuda_ms(lambda: kitnet_ensemble_ref(xf, *args), reps=200),
+           **bound(*ens_cost(n_fit)), "library_ms": None,
+           "shape": {"B": n_fit, "k": int(k), "m": int(m), "h": int(h)},
            "B8192": timed(lambda: kitnet_ensemble(x_sub, *args), 200, "kitnet_ae_kernel"),
            "B8192_plain_ms": cuda_ms(lambda: kitnet_ensemble_ref(x_sub, *args), reps=200),
-           "B8192_bound_ms": big_bound,
-           "B8192_bound_by": "bytes" if big_bytes / HBM_BYTES_PER_S >= big_flops / FP32_FLOPS
-           else "operations"}
-    emit({"phase": "ensemble", **ens}, log)
+           **{f"B8192_{key}": v for key, v in bound(*ens_cost(B)).items()},
+           "designs": ensemble_designs(dev, x_sub, args, (8, b_main, n_fit, 1024, 2048, 4096,
+                                                          8192))}
+    # the scoring kernel against its plain version, on records about the
+    # net's training range (below it, inside it and up to 1.5 times past it)
+    U = rng.uniform(-0.2, 1.5, (B, net.norm_min.shape[0])).astype(np.float32)
+    X = net.norm_min + torch.from_numpy(U).to(dev) * (net.norm_max - net.norm_min)
+    sargs = (net.idx, net.mask, p["W1"], p["b1"], p["W2"], p["b2"], p["V1"], p["c1"],
+             p["V2"], p["c2"], net.norm_min, net.norm_max, net.out_min, net.out_max)
+    Xs = X[:b_main].contiguous()
+    s_k = kitnet_score(X, *sargs)
+    s_err = max(max_abs(s_k, kitnet_score_ref(X, *sargs)),
+                max_abs(kitnet_score(Xs, *sargs), kitnet_score_ref(Xs, *sargs)))
+    if not s_err <= MD_TOL:
+        raise RuntimeError(f"scoring kernel vs plain: max abs err {s_err}")
+    s_c = torch.cat([kitnet_score(X[i:i + 37], *sargs) for i in range(0, B, 37)])
+    if not torch.equal(s_c, s_k):
+        raise RuntimeError("scoring kernel: chunked scores differ from one shot")
+    kh = p["V1"].shape[-1]
+    net_bytes = sum(t.numel() * t.element_size() for t in sargs)
+
+    def score_cost(b):
+        """Bytes (records read once, the net once, scores written once) and
+        operations (the ensemble as in ens_cost, both normalisations and the
+        output AE) of one scoring call on b records."""
+        byts = b * net.norm_min.shape[0] * 4 + net_bytes + b * 4
+        flops = (ens_cost(b)[1] + b * 5 * (net.norm_min.shape[0] + k)
+                 + b * (4 * k * kh + 4 * kh + 10 * k))
+        return byts, flops
+
+    score = {"name": "kitnet_score", "route": "cuda",
+             "source": "src/repro_torch/csrc/kitnet_score.cu",
+             "replaces": "src/repro/kernels/kitnet_ae.py:38",
+             "computes": "src/repro/detection/md_backends.py:119 (_score_pallas_jit)",
+             "max_abs_err": s_err, "chunked_bitwise": True,
+             **timed(lambda: kitnet_score(Xs, *sargs), 200, "kitnet_score_kernel"),
+             "plain_ms": cuda_ms(lambda: kitnet_score_ref(Xs, *sargs), reps=200),
+             **bound(*score_cost(b_main)), "library_ms": None,
+             "shape": {"B": b_main, "F": int(net.norm_min.shape[0]), "k": int(k),
+                       "m": int(m), "h": int(h), "kh": int(kh)},
+             f"B{n_fit}": timed(lambda: kitnet_score(X[:n_fit], *sargs), 200,
+                                "kitnet_score_kernel"),
+             "B8192": timed(lambda: kitnet_score(X, *sargs), 200, "kitnet_score_kernel"),
+             "B8192_plain_ms": cuda_ms(lambda: kitnet_score_ref(X, *sargs), reps=200),
+             **{f"B8192_{key}": v for key, v in bound(*score_cost(B)).items()}}
+    emit({"phase": "ensemble", **ens, "score": score}, log)
 
     # ---- 6. the service on the card against the plain versions on the CPU ----
     small = synth_trace("syn_dos", n_train=64, n_benign_eval=1024,
@@ -1355,14 +1510,15 @@ def main() -> int:
     # ---- report ----
     fc["launches"] = launches["fc_full"]
     ens["launches"] = launches["kitnet_ae"]
+    score["launches"] = launches["kitnet_score"]
     sk["launches"] = sketch_launches["sketch_update"]
     single["launches"] = single_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("bf16", "chain_floor_ms")
+    extra = ("bf16", "chain_floor_ms", "computes")
     table = {"kernels": [{**{key: kern[key] for key in keys},
                           **{key: kern[key] for key in extra if key in kern}}
-                         for kern in (fc, ens, sk, single, flash)]}
+                         for kern in (fc, ens, score, sk, single, flash)]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

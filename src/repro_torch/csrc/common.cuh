@@ -1,7 +1,9 @@
 // Shared by every kernel library of the port: the error-string export the
-// Python loader (kernels/build.py) looks up in each library, and the exact
-// FC arithmetic that the dense (fc_full.cu), single-key (feature_update.cu)
-// and sketch (sketch_update.cu) kernels have in common.
+// Python loader (kernels/build.py) looks up in each library, the mbarrier
+// helpers of the kernels that load through TMA (flash_attention.cu,
+// kitnet_ae.cuh), and the exact FC arithmetic that the dense (fc_full.cu),
+// single-key (feature_update.cu) and sketch (sketch_update.cu) kernels have
+// in common.
 //
 // The FC arithmetic is the plain versions' operation for operation: exp2f
 // (not __expf), IEEE division and square root; every library that uses it
@@ -12,6 +14,43 @@
 
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// ---- shared addresses and mbarriers ----
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait longer
+// than 2^34 clocks (about 9 s; a tile takes microseconds) traps, so a
+// broken pipeline ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && clock64() - start > (1LL << 34)) __trap();
+  }
 }
 
 namespace fc {

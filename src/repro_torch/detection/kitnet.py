@@ -24,7 +24,9 @@ import torch
 from scipy.cluster.hierarchy import linkage, to_tree
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.kitnet_ae import kitnet_ensemble_ref, sigmoid
+from repro_torch.kernels.kitnet_ae import (  # noqa: F401 (output_rmse re-exported)
+    _normalize, kitnet_ensemble_ref, output_rmse, sigmoid,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +80,16 @@ class KitNet:
     out_min: torch.Tensor     # (k,) RMSE normalisation for the output AE
     out_max: torch.Tensor
 
+    def __post_init__(self):
+        # the scoring kernel reads idx unchecked: every index must name a
+        # feature, checked once here rather than at each launch
+        n_features = self.norm_min.shape[0]
+        if self.idx.numel():
+            lo, hi = int(self.idx.min()), int(self.idx.max())
+            if lo < 0 or hi >= n_features:
+                raise ValueError(f"KitNET idx must lie in [0, {n_features}), "
+                                 f"got [{lo}, {hi}]")
+
     @property
     def device(self) -> torch.device:
         return self.mask.device
@@ -121,25 +133,10 @@ def init_kitnet(generator: torch.Generator, clusters: List[np.ndarray],
                   out_max=torch.ones(k, device=dev))
 
 
-def _normalize(x, lo, hi):
-    # benign training data lands in [0,1]; eval values may reach 4x so
-    # flood-style feature explosions sit far off the learned manifold
-    # (DESIGN.md §3)
-    return torch.clamp((x - lo) / (hi - lo).clamp_min(1e-9), 0.0, 4.0)
-
-
 def ensemble_rmse(params, idx, mask, xb) -> torch.Tensor:
     """xb: (B, F) normalised features -> per-AE RMSE (B, k)."""
     return kitnet_ensemble_ref(xb[:, idx], params["W1"], params["b1"],
                                params["W2"], params["b2"], mask)
-
-
-def output_rmse(params, r_norm) -> torch.Tensor:
-    """r_norm: (B, k) normalised ensemble RMSEs -> final score (B,)."""
-    h = sigmoid((r_norm[..., None] * params["V1"][None]).sum(1)
-                + params["c1"][None])
-    y = sigmoid((h[..., None] * params["V2"][None]).sum(1) + params["c2"][None])
-    return torch.sqrt(torch.mean((y - r_norm) ** 2, dim=-1))
 
 
 # ---------------------------------------------------------------------------

@@ -6,25 +6,27 @@ Backends (per-record anomaly scores agree to ≤1e-5):
 
   * ``einsum`` — plain PyTorch: the ensemble as two batched einsums
     (detection/kitnet.py).  The training-time reference.
-  * ``cuda``   — the hand-written ensemble kernel (kernels/kitnet_ae.py,
-    ``csrc/kitnet_ae.cu``); aliases ``pallas`` and ``kernel``.
-    The gather + normalisation in front of it and the output AE after it
-    stay plain torch ops, as the JAX package leaves them to XLA.  For CPU
-    tensors it runs the plain version.
+  * ``cuda``   — the hand-written kernels (kernels/kitnet_ae.py); aliases
+    ``pallas`` and ``kernel``.  Scoring is one launch of
+    ``csrc/kitnet_score.cu`` from records to scores (normalise, gather,
+    ensemble, output AE: the JAX package's ``_score_pallas_jit``); the
+    ensemble stage alone is ``csrc/kitnet_ae.cu``.  For CPU tensors both
+    run their plain versions.
 
 Each backend supplies the ensemble stage ``fn(params, idx, mask, xn) ->
-(B, k)`` plus the full scoring function built around it; ``train_kitnet``
-runs its training-set RMSE pass through the same backend it scores with
-(DESIGN.md §3).
+(B, k)`` and a full scoring function, by default the plain stages built
+around its ensemble; ``train_kitnet`` runs its training-set RMSE pass
+through the same backend it scores with (DESIGN.md §3).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.detection.kitnet import _normalize, ensemble_rmse, output_rmse
+from repro_torch.kernels import kitnet_ae
 
 
 class _MDBackend(NamedTuple):
@@ -47,9 +49,12 @@ def _scorer(ensemble: Callable) -> Callable:
     return score
 
 
-def register_md_backend(name: str, *, ensemble: Callable):
-    """Register an MD backend by its ensemble stage."""
-    _REGISTRY[name] = _MDBackend(score=_scorer(ensemble), ensemble=ensemble)
+def register_md_backend(name: str, *, ensemble: Callable,
+                        score: Optional[Callable] = None):
+    """Register an MD backend by its ensemble stage and, optionally, its own
+    scoring function (else the plain stages around the ensemble)."""
+    _REGISTRY[name] = _MDBackend(score=score or _scorer(ensemble),
+                                 ensemble=ensemble)
 
 
 def available_md_backends() -> Tuple[str, ...]:
@@ -74,13 +79,20 @@ def _ensemble_einsum(params, idx, mask, xn):
 
 
 def _ensemble_cuda(params, idx, mask, xn):
-    from repro_torch.kernels.kitnet_ae import kitnet_ensemble
-    return kitnet_ensemble(xn[:, idx], params["W1"], params["b1"],
-                           params["W2"], params["b2"], mask)
+    return kitnet_ae.kitnet_ensemble(xn[:, idx], params["W1"], params["b1"],
+                                     params["W2"], params["b2"], mask)
+
+
+def _score_cuda(net, X):
+    p = net.params
+    return kitnet_ae.kitnet_score(X, net.idx, net.mask, p["W1"], p["b1"],
+                                  p["W2"], p["b2"], p["V1"], p["c1"], p["V2"],
+                                  p["c2"], net.norm_min, net.norm_max,
+                                  net.out_min, net.out_max)
 
 
 register_md_backend("einsum", ensemble=_ensemble_einsum)
-register_md_backend("cuda", ensemble=_ensemble_cuda)
+register_md_backend("cuda", ensemble=_ensemble_cuda, score=_score_cuda)
 
 
 def md_score_fn(backend: str = "cuda") -> Callable:

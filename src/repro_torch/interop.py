@@ -30,7 +30,8 @@ KITNET_FIELDS = ("idx", "mask") + PARAM_FIELDS + (
 
 def kitnet_from_arrays(d: Dict[str, np.ndarray],
                        device: DeviceLike = None) -> KitNet:
-    """A :class:`KitNet` from the arrays named in ``KITNET_FIELDS``."""
+    """A :class:`KitNet` from the arrays named in ``KITNET_FIELDS``; the
+    feature indices ``idx`` must lie in [0, F), F = len(norm_min)."""
     missing = set(KITNET_FIELDS) - set(d)
     if missing:
         raise KeyError(f"KitNET arrays missing {sorted(missing)}")

@@ -10,12 +10,15 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 from repro_torch.kernels.feature_update import (  # noqa: F401
     FC_FULL, FEATURE_UPDATE, feature_update, feature_update_full,
 )
-from repro_torch.kernels.kitnet_ae import KITNET_AE, kitnet_ensemble  # noqa: F401
+from repro_torch.kernels.kitnet_ae import (  # noqa: F401
+    KITNET_AE, KITNET_SCORE, kitnet_ensemble, kitnet_score,
+)
 from repro_torch.kernels.sketch_update import (  # noqa: F401
     SKETCH_UPDATE, sketch_update_full,
 )
 
-KERNELS = (FC_FULL, KITNET_AE, SKETCH_UPDATE, FEATURE_UPDATE, FLASH_ATTENTION)
+KERNELS = (FC_FULL, KITNET_AE, KITNET_SCORE, SKETCH_UPDATE, FEATURE_UPDATE,
+           FLASH_ATTENTION)
 
 
 def reset_launch_counts() -> None:

@@ -1,10 +1,10 @@
 """PyTorch port, the CUDA kernels on the card: each kernel (dense FC, KitNET
-ensemble, Count-Min sketch, single-key update, flash attention) against its
-plain PyTorch version at small sizes (the FC, single-key and sketch kernels
-bit for bit), at the shapes past the kernels' built sizes (sketch rows past
-8 and 32, AE widths past 32 and 64, flash head dims other than 32, 64, 128,
-256, prefill positions arange(S) + c), launch counting, and the wrappers'
-checks.
+ensemble and scoring, Count-Min sketch, single-key update, flash attention)
+against its plain PyTorch version at small sizes (the FC, single-key and
+sketch kernels bit for bit), at the shapes past the kernels' built sizes
+(sketch rows past 8 and 32, AE widths past 32 and 64, flash head dims other
+than 32, 64, 128, 256, prefill positions arange(S) + c), launch counting,
+and the wrappers' checks.
 
 Marked ``cuda``; each test skips without a CUDA device.  Run on the card:
 
@@ -24,7 +24,8 @@ from repro_torch.kernels.feature_update import (TABLE_KEYS, feature_update,
                                                 feature_update_ref)
 from repro_torch.kernels.sketch_update import (kernel_rows, sketch_schedule_ref,
                                                sketch_update_full)
-from repro_torch.kernels.kitnet_ae import kitnet_ensemble, kitnet_ensemble_ref
+from repro_torch.kernels.kitnet_ae import (kitnet_ensemble, kitnet_ensemble_ref,
+                                           kitnet_score, kitnet_score_ref)
 from repro_torch.traffic import synth_trace, to_torch
 
 pytestmark = pytest.mark.cuda
@@ -156,6 +157,159 @@ def test_wrappers_reject_bad_inputs(dev):
                               n_attack=16, seed=0)["eval"], "cpu")
     with pytest.raises(ValueError, match="device"):
         feature_update_full(st, pk)
+
+
+def _score_inputs(dev, B, F, k, m, h, seed):
+    """Records X (B, F) and a random net as kitnet_score's arguments: about
+    a fifth of the AE slots padded (mask 0, idx 0), three constant feature
+    columns, records past the training range on both sides."""
+    rng = np.random.default_rng(seed)
+    kh = -(-3 * k // 4)
+    mask = rng.random((k, m)) > 0.2
+    idx = np.where(mask, rng.integers(0, F, (k, m)), 0)
+    lo = rng.normal(0.0, 1.0, F)
+    hi = lo + rng.uniform(0.0, 2.0, F)
+    hi[:3] = lo[:3]
+    r_lo = rng.uniform(0.0, 0.1, k)
+    X = lo + (hi - lo + 0.1) * rng.uniform(-0.3, 1.6, (B, F))
+
+    def normal(scale, *shape):
+        return rng.normal(0.0, scale, shape)
+
+    arrays = [X, idx, mask, normal(0.3, k, m, h), normal(0.1, k, h),
+              normal(0.3, k, h, m), normal(0.1, k, m), normal(0.5, k, kh),
+              normal(0.1, kh), normal(0.5, kh, k), normal(0.1, k), lo, hi,
+              r_lo, r_lo + rng.uniform(0.0, 0.5, k)]
+    X, *args = (torch.from_numpy(a.astype(np.int64 if a is idx else np.float32)).to(dev)
+                for a in arrays)
+    return X, args
+
+
+@pytest.mark.parametrize("k", [7, 14, 40])
+@pytest.mark.parametrize("m,h", [(10, 8), (3, 3), (33, 25), (64, 64), (100, 75),
+                                 (300, 225)])
+def test_score_kernel_matches_plain_and_is_batch_independent(dev, m, h, k):
+    """Widths 3 to 300 at k = 7, 14 and 40: the net in shared memory and,
+    where it does not fit, read in global memory; F = 97 takes the
+    unaligned row loads; B = 1 and 8 spread a record a block, B = 1000
+    takes tiles.  The plain version runs 100 records at a time (it is
+    batch-independent bit for bit)."""
+    X, args = _score_inputs(dev, 1000, 97, k, m, h, seed=m + k)
+    for B in (1, 8, 1000):
+        got = kitnet_score(X[:B], *args)
+        want = torch.cat([kitnet_score_ref(X[i:min(i + 100, B)], *args)
+                          for i in range(0, B, 100)])
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    chunked = torch.cat([kitnet_score(X[i:i + 37], *args) for i in range(0, 1000, 37)])
+    assert torch.equal(chunked, got)
+
+
+@pytest.mark.parametrize("F", [80, 97])
+def test_score_kernel_chunked_equals_one_shot(dev, F):
+    """The service's width (F = 80: 16-byte row loads) and an odd one, in
+    slices of 37 records against one shot, bit for bit."""
+    X, args = _score_inputs(dev, 8192, F, 14, 10, 8, seed=F)
+    reset_launch_counts()
+    one = kitnet_score(X, *args)
+    assert launch_counts()["kitnet_score"] == 1
+    torch.testing.assert_close(one, kitnet_score_ref(X, *args), rtol=1e-5, atol=1e-5)
+    chunked = torch.cat([kitnet_score(X[i:i + 37], *args) for i in range(0, 8192, 37)])
+    assert torch.equal(chunked, one)
+
+
+def _ensemble_inputs(dev, B, k, m, h, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(B, k, m, generator=g).to(dev)
+    net = ((torch.randn(k, m, h, generator=g) * 0.3).to(dev),
+           (torch.randn(k, h, generator=g) * 0.1).to(dev),
+           (torch.randn(k, h, m, generator=g) * 0.3).to(dev),
+           (torch.randn(k, m, generator=g) * 0.1).to(dev),
+           (torch.rand(k, m, generator=g) > 0.2).float().to(dev))
+    return x, net
+
+
+@pytest.mark.parametrize("B,k,m,h", [(8, 14, 10, 8), (256, 14, 10, 8), (8192, 14, 10, 8),
+                                     (1000, 7, 33, 25), (300, 7, 64, 64),
+                                     (100, 7, 100, 75)])
+def test_ensemble_designs_agree_bitwise(dev, B, k, m, h):
+    """kitnet_ae's tile and pair designs, each forced, give the same bits
+    (registers up to width 64, the scratch row past it; the net in shared
+    memory and, at 64 and 100, in global memory), within 1e-5 of the plain
+    version; the launcher's own choice gives them too."""
+    x, net = _ensemble_inputs(dev, B, k, m, h, seed=B + m)
+    tile = kitnet_ensemble(x, *net, design="tile")
+    assert torch.equal(kitnet_ensemble(x, *net, design="pair"), tile)
+    assert torch.equal(kitnet_ensemble(x, *net), tile)
+    torch.testing.assert_close(tile, kitnet_ensemble_ref(x, *net), rtol=1e-5, atol=1e-5)
+
+
+def test_ensemble_and_score_past_a_block(dev):
+    """k=80 AEs of m=300, h=225: one record's tile values (k (2m + h)
+    floats) pass a block's shared memory, so kitnet_ae takes the pair design
+    with its scratch row; kitnet_score still keeps a record in shared memory
+    there, and at k=120 it keeps it in global memory.  Each within 1e-5 of
+    its plain version, chunked (slices of 37) == one shot bit for bit."""
+    x, net = _ensemble_inputs(dev, 64, 80, 300, 225, seed=80)
+    reset_launch_counts()
+    got = kitnet_ensemble(x, *net)
+    assert launch_counts()["kitnet_ae"] == 1
+    torch.testing.assert_close(got, kitnet_ensemble_ref(x, *net), rtol=1e-5, atol=1e-5)
+    assert torch.equal(torch.cat([kitnet_ensemble(x[i:i + 37], *net)
+                                  for i in range(0, 64, 37)]), got)
+    for k, B in ((80, 40), (120, 16)):
+        X, args = _score_inputs(dev, B, 97, k, 300, 225, seed=k)
+        got = kitnet_score(X, *args)
+        torch.testing.assert_close(got, kitnet_score_ref(X, *args), rtol=1e-5, atol=1e-5)
+        assert torch.equal(torch.cat([kitnet_score(X[i:i + 37], *args)
+                                      for i in range(0, B, 37)]), got)
+    X, args = _score_inputs(dev, 300, 60000, 2, 3, 3, seed=1)   # a wide record: F
+    got = kitnet_score(X, *args)
+    torch.testing.assert_close(got, kitnet_score_ref(X, *args), rtol=1e-5, atol=1e-5)
+    assert torch.equal(torch.cat([kitnet_score(X[i:i + 37], *args)
+                                  for i in range(0, 300, 37)]), got)
+
+
+def test_fused_step_scores_in_one_launch(dev):
+    """One step of serving/fused.py: FC, the epoch gather, one kitnet_score
+    launch for its records, and no ensemble launch."""
+    from repro_torch.serving import DetectionService
+    from repro_torch.serving.fused import make_fused_step
+    data = synth_trace("syn_dos", n_train=2048, n_benign_eval=512,
+                       n_attack=512, seed=0)
+    svc = DetectionService(epoch=64, n_slots=256, device=dev)
+    svc.observe_stream(data["train"], chunk=512)
+    svc.fit(fpr=0.05)
+    step = make_fused_step(epoch=64)
+    pk = to_torch({key: v[:512] for key, v in data["eval"].items()}, dev)
+    reset_launch_counts()
+    _, idx, scores, alarms, count = step(svc.state, svc.net, svc.threshold, 0, pk)
+    assert launch_counts()["kitnet_score"] == 1 and launch_counts()["kitnet_ae"] == 0
+    assert count == 8 and torch.isfinite(scores).all()
+    assert torch.equal(alarms, scores > svc.threshold)
+
+
+def test_score_wrapper_rejects_bad_inputs(dev):
+    X, args = _score_inputs(dev, 8, 80, 14, 10, 8, seed=0)
+    with pytest.raises(ValueError, match="float32"):
+        kitnet_score(X.double(), *args)
+    with pytest.raises(ValueError, match="int64"):
+        kitnet_score(X, args[0].int(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        kitnet_score(X.t().contiguous().t(), *args)
+    with pytest.raises(ValueError, match="on cpu"):
+        kitnet_score(X, args[0].cpu(), *args[1:])
+    with pytest.raises(ValueError, match=r"\(14,\)"):
+        kitnet_score(X, *args[:-1], args[-1][:5])
+    with pytest.raises(ValueError, match="X \\(B, F\\)"):
+        kitnet_score(X[0], *args)
+    x = torch.rand(8, 80, 300, device=dev)
+    net = (torch.rand(80, 300, 225, device=dev), torch.rand(80, 225, device=dev),
+           torch.rand(80, 225, 300, device=dev), torch.rand(80, 300, device=dev),
+           torch.ones(80, 300, device=dev))
+    with pytest.raises(ValueError, match="tile design"):
+        kitnet_ensemble(x, *net, design="tile")
+    with pytest.raises(ValueError, match="design must be one of"):
+        kitnet_ensemble(x, *net, design="serial")
 
 
 def _sketch_bitwise(dev, pk, rows, width, evict_age=0.0):

@@ -173,8 +173,9 @@ def test_kernel_backend_on_cpu_runs_plain_version():
     reset_launch_counts()
     st_k, f_k = compute_features(clone_state(st0), pk, backend="pallas")
     _, f_s = compute_features(clone_state(st0), pk, backend="serial")
-    assert launch_counts() == {"fc_full": 0, "kitnet_ae": 0, "sketch_update": 0,
-                               "feature_update": 0, "flash_attention": 0}
+    assert launch_counts() == {"fc_full": 0, "kitnet_ae": 0, "kitnet_score": 0,
+                               "sketch_update": 0, "feature_update": 0,
+                               "flash_attention": 0}
     assert torch.equal(f_k, f_s)
     assert st_k["uni"]["w"].data_ptr() != st0["uni"]["w"].data_ptr()
 

@@ -1,7 +1,11 @@
 """PyTorch port, KitNET: the ensemble's plain version against the JAX
 package's Pallas kernel (interpret mode) and its einsum path, full scoring
-with a JAX-fitted net carried across, bitwise batch independence, the
-feature mapper, SGD from carried initial weights, and the MD registry."""
+(the scoring kernel's plain version among it) with a JAX-fitted net carried
+across against the JAX package's einsum and Pallas scoring, bitwise batch
+independence, the feature mapper, SGD from carried initial weights, and the
+MD registry with its fused scoring path."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,18 +15,21 @@ import torch
 from repro.core import compute_features as jax_compute_features
 from repro.core import init_state as jax_init_state
 from repro.detection import kitnet as jk
+from repro.detection import md_backends as jmd
 from repro.detection import score_records as jax_score_records
 from repro.kernels.ops import kitnet_ensemble as jax_kitnet_ensemble
 from repro.traffic import ATTACKS, attack_trace, benign_trace, to_jnp
 
 from repro_torch.detection import (available_md_backends, feature_map,
-                                   resolve_md_backend, score_records,
-                                   train_kitnet)
+                                   md_score_fn, resolve_md_backend,
+                                   score_records, train_kitnet)
 from repro_torch.detection.kitnet import ensemble_rmse
 from repro_torch.interop import (KITNET_FIELDS, kitnet_from_arrays,
                                  kitnet_to_arrays)
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.kitnet_ae import kitnet_ensemble, kitnet_ensemble_ref
+from repro_torch.kernels import kitnet_ae
+from repro_torch.kernels.kitnet_ae import (kitnet_ensemble, kitnet_ensemble_ref,
+                                           kitnet_score, kitnet_score_ref)
 
 torch.set_num_threads(1)
 
@@ -42,6 +49,14 @@ def _arrays(net: jk.KitNet):
          "norm_min": net.norm_min, "norm_max": net.norm_max,
          "out_min": net.out_min, "out_max": net.out_max}
     return {k: np.array(v) for k, v in d.items()}
+
+
+def _score_args(net):
+    """A port KitNet as kitnet_score's arguments after X."""
+    p = net.params
+    return (net.idx, net.mask, p["W1"], p["b1"], p["W2"], p["b2"], p["V1"],
+            p["c1"], p["V2"], p["c2"], net.norm_min, net.norm_max,
+            net.out_min, net.out_max)
 
 
 @pytest.fixture(scope="module")
@@ -83,9 +98,20 @@ def test_ensemble_plain_matches_jax_kernel_and_einsum(jax_net, train_feats):
 @pytest.mark.parametrize("attack", sorted(ATTACKS))
 def test_scores_match_jax_with_carried_net(jax_net, net, attack):
     """Full scoring (normalise, gather, ensemble, output AE) with the
-    JAX-fitted net carried into the port: ≤1e-5 from the JAX einsum path."""
+    JAX-fitted net carried into the port: both backends and the scoring
+    kernel's plain version ≤1e-5 from the JAX einsum path (``kitnet._score``)
+    and from its Pallas path (``md_backends._score_pallas_jit``, interpret
+    mode)."""
     feats = _feats(attack_trace(attack, 600, 0.0, 10.0, seed=1))
     want = np.asarray(jax_score_records(jax_net, feats, backend="einsum"))
+    n = jax_net
+    want_pallas = np.asarray(jmd._score_pallas_jit(
+        n.params, n.idx, n.mask, n.norm_min, n.norm_max, n.out_min,
+        n.out_max, jnp.asarray(feats), bb=128, interpret=True))
+    got_ref = kitnet_score_ref(torch.tensor(feats), *_score_args(net)).numpy()
+    assert np.isfinite(got_ref).all()
+    np.testing.assert_allclose(got_ref, want, err_msg="plain", **MD_TOL)
+    np.testing.assert_allclose(got_ref, want_pallas, err_msg="pallas", **MD_TOL)
     for backend in ("cuda", "einsum"):
         got = score_records(net, feats, backend=backend)
         assert np.isfinite(got).all()
@@ -102,6 +128,51 @@ def test_scores_batch_independent_bitwise(net, backend):
     chunked = np.concatenate([score_records(net, feats[i:i + 37], backend=backend)
                               for i in range(0, len(feats), 37)])
     np.testing.assert_array_equal(one, chunked)
+
+
+def test_cuda_backend_on_cpu_is_the_plain_score_bitwise(net):
+    """On CPU tensors the cuda backend's scores are the scoring kernel's
+    plain version bit for bit, and no kernel launches."""
+    feats = _feats(attack_trace("syn_dos", 300, 0.0, 10.0, seed=4))
+    want = kitnet_score_ref(torch.tensor(feats), *_score_args(net)).numpy()
+    reset_launch_counts()
+    got = score_records(net, feats, backend="cuda")
+    assert sum(launch_counts().values()) == 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_md_score_fn_cuda_is_one_fused_call(net, monkeypatch):
+    """``md_score_fn("cuda")`` scores through one ``kitnet_score`` call and
+    never calls the ensemble wrapper; ``einsum`` calls neither wrapper."""
+    calls = []
+
+    def spy(name):
+        real = getattr(kitnet_ae, name)
+
+        def wrapped(*a):
+            calls.append(name)
+            return real(*a)
+        monkeypatch.setattr(kitnet_ae, name, wrapped)
+
+    spy("kitnet_score")
+    spy("kitnet_ensemble")
+    X = torch.rand(8, 80, generator=torch.Generator().manual_seed(1))
+    md_score_fn("cuda")(net, X)
+    assert calls == ["kitnet_score"]
+    calls.clear()
+    md_score_fn("einsum")(net, X)
+    assert calls == []
+
+
+def test_wrappers_reject_devices_other_than_cpu_and_cuda(net):
+    X = torch.rand(4, 80, device="meta")
+    args = tuple(t.to("meta") for t in _score_args(net))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        kitnet_score(X, *args)
+    p = net.params
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        kitnet_ensemble(X[:, net.idx.to("meta")], *(t.to("meta") for t in (
+            p["W1"], p["b1"], p["W2"], p["b2"], net.mask)))
 
 
 def test_feature_map_identical_clusters(train_feats):
@@ -161,6 +232,36 @@ def test_interop_round_trip(jax_net):
         np.testing.assert_array_equal(back[k], d[k].astype(back[k].dtype))
     with pytest.raises(KeyError):
         kitnet_from_arrays({"idx": d["idx"]}, device="cpu")
+    with pytest.raises(ValueError, match="idx must lie in"):
+        kitnet_from_arrays({**d, "idx": d["idx"] + len(d["norm_min"])}, device="cpu")
+
+
+@pytest.mark.parametrize("shift", ["past_features", "negative"])
+def test_kitnet_rejects_idx_outside_features(net, shift):
+    """A KitNet whose feature indices leave [0, F) is refused where it is
+    built (the scoring kernel reads idx unchecked), before any scoring;
+    one index out of range is enough."""
+    F = net.norm_min.shape[0]
+    bad = net.idx.clone()
+    bad[-1, 0] = F if shift == "past_features" else -1
+    with pytest.raises(ValueError, match="idx must lie in"):
+        dataclasses.replace(net, idx=bad)
+    with pytest.raises(ValueError, match="idx must lie in"):
+        dataclasses.replace(net, norm_min=net.norm_min[:int(net.idx.max())],
+                            norm_max=net.norm_max[:int(net.idx.max())])
+
+
+def test_ensemble_design_must_be_known(net):
+    """``design`` is validated on every device, though the plain version
+    (CPU tensors) has one design."""
+    x = torch.rand(4, *net.idx.shape)
+    p = net.params
+    args = (p["W1"], p["b1"], p["W2"], p["b2"], net.mask)
+    for design in ("auto", "tile", "pair"):
+        assert torch.equal(kitnet_ensemble(x, *args, design=design),
+                           kitnet_ensemble_ref(x, *args))
+    with pytest.raises(ValueError, match="design must be one of"):
+        kitnet_ensemble(x, *args, design="serial")
 
 
 def test_ensemble_rmse_is_plain_einsum(net):

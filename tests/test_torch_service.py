@@ -69,8 +69,9 @@ def test_process_stream_matches_jax(fitted):
     svc = _port(carried)
     reset_launch_counts()
     idx, scores, alarms = svc.process_stream(data["eval"], chunk=256)
-    assert launch_counts() == {"fc_full": 0, "kitnet_ae": 0, "sketch_update": 0,
-                               "feature_update": 0, "flash_attention": 0}
+    assert launch_counts() == {"fc_full": 0, "kitnet_ae": 0, "kitnet_score": 0,
+                               "sketch_update": 0, "feature_update": 0,
+                               "flash_attention": 0}
     assert len(idx) == len(data["eval"]["ts"]) // 64
     np.testing.assert_array_equal(idx, j_idx)
     np.testing.assert_allclose(scores, j_scores, **SCORE_TOL)
@@ -149,5 +150,6 @@ def test_serve_launcher_on_cpu(capsys):
         sys.argv = argv
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["device"] == "cpu" and out["records"] == 2500 // 64 - 1500 // 64
-    assert out["launches"] == {"fc_full": 0, "kitnet_ae": 0, "sketch_update": 0,
-                               "feature_update": 0, "flash_attention": 0}
+    assert out["launches"] == {"fc_full": 0, "kitnet_ae": 0, "kitnet_score": 0,
+                               "sketch_update": 0, "feature_update": 0,
+                               "flash_attention": 0}
