@@ -98,6 +98,29 @@ back-to-back call, which includes the wrapper's host overhead.
                indices, scores within 1e-3, alarms equal off the threshold.
   sketch_reference — the same for the sketch service (rows=2, width 256,
                evict_age=1), with phase sketch_main's net.
+  switch  — process_serial(mode="switch") on the card against the same call
+               on the CPU (2048 packets of a mirai trace, n_slots=8192):
+               features and every table bit for bit; the card's ms a packet;
+               each switch arithmetic function on the card against the CPU
+               over a grid of 4.4 M operands (mismatch counts, all 0).
+  scan    — compute_features(backend="scan") on phase fc's chunk against
+               backend="cuda" (fc_full) in the JAX package's scan envelope,
+               the record-sampled path against the full path's rows and state
+               bit for bit; device ms and sorts a call (profiler).
+  scan_main — the service on backend="scan" over phase main's traffic,
+               launch counts zeroed just before and read just after (no
+               fc_full, the KitNET kernels as in phase main); eval pps, the
+               device's busy share and AUC beside phase main's.
+  eval    — the evaluation protocol, launch counts zeroed just before each
+               part and read just after: sweep_attack in exact mode over
+               phase main's traffic at rates 64, 256 and 1024 (fc_full and
+               both KitNET kernels must launch); run_peregrine (exact) and
+               run_kitsune_baseline at rate 256; sweep_attack (rates 1 and
+               256) at its defaults, switch mode, on a mirai trace of 4096 +
+               4096 packets, and run_peregrine (rate 64) at its defaults on
+               1024 + 1024 packets; AUC, F1 and
+               seconds of each; the plain MD path against kitnet_score on
+               rate 256's records (1e-5).
   lm_main — LM serving of gemma2-2b at full width (26 layers, d_model
                2304, vocab 256,000, float32 parameters from seed 0, bf16
                cache) through launch.serve.serve_lm: the JAX launcher's
@@ -157,7 +180,11 @@ DEVICE_KERNELS = {"sketch_update": ("sketch_update_kernel", "sketch_schedule_ker
                                      "feature_update_stats_kernel")}
 
 
+T_START = time.perf_counter()
+
+
 def emit(record: dict, log: list) -> None:
+    record["at_s"] = time.perf_counter() - T_START      # seconds since start
     log.append(record)
     print(json.dumps(record), flush=True)
 
@@ -948,6 +975,273 @@ def phase_sketch_reference(net_arrays, threshold: float, log) -> None:
           "max_score_err": score_err, "alarms": int(a_g.sum())}, log)
 
 
+# ---------------------------------------------------------------------------
+# switch-mode arithmetic, the scan FC backend and the evaluation protocol
+# ---------------------------------------------------------------------------
+def switch_op_diffs(dev) -> dict:
+    """Each switch arithmetic function on the card against the same call on
+    the CPU over every integer 1..2^22, the powers of two 2^0..2^30 and
+    random floats (dividends and factors a permutation of the same): the
+    count of operands whose results differ, per function."""
+    from repro_torch.core import arith
+    rng = np.random.default_rng(0)
+    g = np.concatenate([np.arange(1, 2 ** 22 + 1, dtype=np.float32),
+                        np.ldexp(np.float32(1), np.arange(31)).astype(np.float32),
+                        np.exp(rng.uniform(0, np.log(2.0 ** 40), 200_000)).astype(np.float32),
+                        rng.uniform(-2, 1, 1000).astype(np.float32)])
+    x, a = torch.from_numpy(g), torch.from_numpy(rng.permutation(g))
+    lam = torch.tensor([10.0, 1.0, 0.1, 1.0 / 60.0])
+    dt = torch.from_numpy(rng.exponential(3.0, (4096, 1)).astype(np.float32))
+    cases = {"shift_div": (arith.shift_div, (a, x)), "shift_mul": (arith.shift_mul, (a, x)),
+             "mathunit_square": (arith.mathunit_square, (x,)),
+             "mathunit_sqrt": (arith.mathunit_sqrt, (x,)),
+             "quantized_decay": (arith.quantized_decay, (lam, dt)),
+             "frexp_exponent": (lambda v: torch.frexp(v)[1], (x,))}
+    out = {}
+    for name, (fn, args) in cases.items():
+        want = fn(*args)
+        got = fn(*(t.to(dev) for t in args)).cpu()
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        out[name] = int((~same).sum())
+    return out
+
+
+def phase_switch(dev, log) -> None:
+    """process_serial(mode="switch") on the card against the same call on the
+    CPU: 2048 packets of a mirai trace at n_slots=8192, features and every
+    table (round-robin counters included) bit for bit; the card's ms a
+    packet; each switch function on the card against the CPU."""
+    from repro_torch.core import init_state, process_serial
+    from repro_torch.traffic import synth_trace, to_torch
+    tr = synth_trace("mirai", n_train=64, n_benign_eval=1024, n_attack=1024,
+                     seed=0)["eval"]
+    out, secs = {}, {}
+    for where in ("cuda", "cpu"):
+        st = init_state(8192, device=where)
+        pk = to_torch(tr, where)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, f = process_serial(st, pk, mode="switch")
+        torch.cuda.synchronize()
+        secs[where] = time.perf_counter() - t0
+        out[where] = (st, f)
+    (st_g, f_g), (st_c, f_c) = out["cuda"], out["cpu"]
+    diffs = {"features": max_abs(f_g.cpu(), f_c)}
+    diffs.update({f"{g}/{k}": max_abs(st_g[g][k].cpu(), st_c[g][k])
+                  for g in ("uni", "bi") for k in st_c[g]})
+    ops = switch_op_diffs(dev)
+    n = len(tr["ts"])
+    rec = {"phase": "switch", "packets": n, "n_slots": 8192,
+           "card_ms_per_packet": secs["cuda"] / n * 1e3,
+           "cpu_ms_per_packet": secs["cpu"] / n * 1e3,
+           "max_abs_diff": diffs, "op_mismatches": ops,
+           "rr_max": int(st_g["bi"]["rr"].max())}
+    emit(rec, log)
+    bitwise = torch.equal(f_g.cpu(), f_c) and all(
+        torch.equal(st_g[g][k].cpu(), st_c[g][k]) for g in ("uni", "bi") for k in st_c[g])
+    if not bitwise or any(ops.values()):
+        raise RuntimeError(f"switch: card and CPU differ: {diffs}; ops {ops}")
+
+
+def device_ms_per_call(fn, reps: int) -> dict:
+    """Device time (the events that ran on the card) and torch sort calls
+    per call of ``fn``, from torch.profiler over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    sorts = sum(e.count for e in prof.key_averages() if e.key == "aten::sort")
+    return {"device_ms": sum(us for us, _ in events.values()) / reps * 1e-3,
+            "device_launches": sum(c for _, c in events.values()) / reps,
+            "sorts": sorts / reps}
+
+
+def phase_scan(dev, pk, log) -> None:
+    """compute_features(backend="scan") on the dense main path's chunk (phase
+    fc's 8192 packets, n_slots=8192, fresh tables) against backend="cuda"
+    (fc_full, bit for bit the serial oracle) in the JAX package's scan
+    envelope (tests/test_backends.py); the record-sampled path against the
+    full path's rows and state; device ms a chunk and sorts a call."""
+    from repro_torch.core import clone_state, compute_features, init_state
+    from repro_torch.core.backends import compute_features_sampled
+    from repro_torch.core.records import epoch_gather
+    from repro_torch.core.state import FEATURE_NAMES
+    st0 = init_state(8192, device=dev)
+    st_k, f_k = compute_features(clone_state(st0), pk, backend="cuda")
+    st_s, f_s = compute_features(clone_state(st0), pk, backend="scan")
+    want, got = f_k.double(), f_s.double()
+    ok = (got - want).abs() <= 1.0 + 1e-3 * want.abs()
+    pcc = torch.tensor([n.endswith(":pcc") for n in FEATURE_NAMES], device=dev)
+    state_ok = all(torch.allclose(st_s[g][k].double(), st_k[g][k].double(),
+                                  rtol=1e-3, atol=1.0)
+                   for g in ("uni", "bi") for k in st_k[g])
+    idx, _ = epoch_gather(pk["ts"].shape[0], 1024, 0, device=dev)
+    st_x, f_x = compute_features_sampled(clone_state(st0), pk, idx, backend="scan")
+    sampled_bitwise = torch.equal(f_x, f_s[idx]) and states_equal(st_x, st_s)
+    st_w = clone_state(st0)
+    rec = {"phase": "scan", "packets": int(pk["ts"].shape[0]), "n_slots": 8192,
+           "envelope_share": float(ok.double().mean()),
+           "non_pcc_in_envelope": bool(ok[:, ~pcc].all()),
+           "max_abs_diff_non_pcc": max_abs(f_s[:, ~pcc], f_k[:, ~pcc]),
+           "state_in_envelope": state_ok, "sampled_bitwise": sampled_bitwise,
+           "full": {**device_ms_per_call(
+                        lambda: compute_features(st_w, pk, backend="scan"), 20),
+                    "call_ms": cuda_ms(lambda: compute_features(st_w, pk, backend="scan"),
+                                       20)},
+           "sampled": {**device_ms_per_call(
+                           lambda: compute_features_sampled(st_w, pk, idx, backend="scan"),
+                           20),
+                       "call_ms": cuda_ms(lambda: compute_features_sampled(
+                           st_w, pk, idx, backend="scan"), 20),
+                       "records": int(idx.shape[0])},
+           "fc_full": device_ms_per_call(lambda: compute_features(st_w, pk, backend="cuda"),
+                                         20)}
+    emit(rec, log)
+    if not (rec["non_pcc_in_envelope"] and rec["envelope_share"] >= 0.995
+            and state_ok and sampled_bitwise):
+        raise RuntimeError(f"scan: outside the JAX envelope against fc_full: {rec}")
+
+
+def phase_scan_main(data, main: dict, main_trace: dict, log) -> None:
+    """The detection service on backend="scan" (the fused step through the
+    record-sampled path) over the dense main path's traffic, launch counts
+    zeroed just before and read just after: no fc_full launch, the KitNET
+    kernels as on the main path; eval pps and the device's busy share beside
+    phase main's, and AUC."""
+    from repro_torch.detection.metrics import auc
+    from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from repro_torch.serving import DetectionService
+    svc = DetectionService(backend="scan")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.observe_stream(data["train"], chunk=8192)
+    svc.fit(seed=0, fpr=0.01)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    eval_start = svc.pkt_count
+    t0 = time.perf_counter()
+    idx, scores, alarms = svc.process_stream(data["eval"], chunk=8192)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = launch_counts()
+    n_eval = len(data["eval"]["ts"])
+    if launches["fc_full"] != 0:
+        raise RuntimeError("scan path launched fc_full")
+    check_kitnet_launches(launches, -(-n_eval // 8192), "scan path")
+    want_idx = np.arange(svc.epoch - 1 - eval_start % svc.epoch, n_eval,
+                         svc.epoch) + eval_start
+    if not np.array_equal(idx, want_idx):
+        raise RuntimeError("scan path record indices are not the epoch closers")
+    if not (np.isfinite(scores).all() and scores.shape == idx.shape):
+        raise RuntimeError("scan path scores are not finite or misshapen")
+    labels = data["eval"]["label"][idx - eval_start]
+    trace = trace_eval(svc, data["eval"], eval_s, KERNELS)
+    emit({"phase": "scan_main", "backend": "scan", "observe_fit_s": fit_s,
+          "eval_s": eval_s, "eval_pps": n_eval / eval_s,
+          "eval_pps_more_passes": eval_passes(svc, data["eval"]),
+          "auc": auc(scores, labels), "records": int(len(scores)),
+          "launches": launches,
+          "busy_share_untraced": trace["busy_share_untraced"],
+          "device_busy_s": trace["device_busy_s"],
+          "device_launches_per_chunk": trace["device_launches_per_chunk"],
+          "top_device_us": trace["top_device_us"],
+          "main": {"eval_pps": main["eval_pps"], "auc": main["auc"],
+                   "busy_share_untraced": main_trace["busy_share_untraced"],
+                   "device_launches_per_chunk": main_trace["device_launches_per_chunk"]}},
+         log)
+
+
+def phase_eval(data, net, log) -> None:
+    """The paper's evaluation protocol on the card, launch counts zeroed
+    just before each part and read just after: sweep_attack in exact mode
+    over the dense main path's traffic at rates 64, 256 and 1024 (both
+    systems, dense state; fc_full and the KitNET kernels must launch);
+    run_peregrine (exact) and run_kitsune_baseline at rate 256; sweep_attack
+    (rates 1 and 256) and run_peregrine (rate 64) at their defaults (switch
+    mode) on smaller mirai traces; and the plain MD path against kitnet_score on one rate's records
+    with the main path's net (within 1e-5)."""
+    from repro_torch.core import compute_features, init_state
+    from repro_torch.core.records import epoch_indices
+    from repro_torch.detection import run_kitsune_baseline, run_peregrine
+    from repro_torch.detection.md_backends import score_records
+    from repro_torch.detection.metrics import auc
+    from repro_torch.detection.sweep import sweep_attack
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.traffic import synth_trace, to_torch
+
+    def part(fn):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launch_counts()
+
+    def check_sweep(res, rates, n_eval, where):
+        for system in ("peregrine", "kitsune"):
+            for rate in rates:
+                m = res[system][rate]
+                one_class = m["n_attack"] in (0, m["n_records"])   # AUC is NaN
+                if m["n_records"] != len(epoch_indices(n_eval, rate)) or not (
+                        one_class or 0.0 <= m["auc"] <= 1.0):
+                    raise RuntimeError(f"eval {where}: {system} at {rate}: {m}")
+
+    rec = {"phase": "eval"}
+    rates = (64, 256, 1024)
+    n_eval = len(data["eval"]["ts"])
+    res, rec["sweep_exact_s"], launches = part(
+        lambda: sweep_attack(data, rates, mode="exact"))
+    check_sweep(res, rates, n_eval, "exact sweep")
+    if min(launches[k] for k in ("fc_full", "kitnet_score", "kitnet_ae")) == 0:
+        raise RuntimeError(f"eval exact sweep: a kernel of its path never launched: {launches}")
+    rec["sweep_exact"] = res
+    rec["sweep_exact_launches"] = launches
+
+    (s, lab), rec["run_peregrine_exact_s"], launches = part(
+        lambda: run_peregrine(data, 256, mode="exact"))
+    if len(lab) != n_eval // 256 or not np.isfinite(s).all() or launches["fc_full"] == 0:
+        raise RuntimeError("eval run_peregrine: wrong records, scores or launches")
+    rec["run_peregrine_exact"] = {"auc": auc(s, lab), "records": int(len(lab)),
+                                  "launches": launches}
+    (s, lab), rec["run_kitsune_s"], launches = part(
+        lambda: run_kitsune_baseline(data, 256))
+    if len(lab) != len(epoch_indices(n_eval, 256, offset=len(data["train"]["ts"]))) \
+            or not np.isfinite(s).all():
+        raise RuntimeError("eval run_kitsune_baseline: wrong records or scores")
+    rec["run_kitsune"] = {"auc": auc(s, lab), "records": int(len(lab)),
+                          "launches": launches}
+
+    small = synth_trace("mirai", n_train=4096, n_benign_eval=2048, n_attack=2048, seed=0)
+    res, rec["sweep_switch_s"], launches = part(lambda: sweep_attack(small, (1, 256)))
+    check_sweep(res, (1, 256), len(small["eval"]["ts"]), "switch sweep")
+    rec["sweep_switch"] = res
+    rec["sweep_switch_launches"] = launches
+    # run_peregrine at its defaults on a quarter of that trace: the switch
+    # oracle costs milliseconds a packet on the card
+    quarter = synth_trace("mirai", n_train=1024, n_benign_eval=512, n_attack=512,
+                          seed=0)
+    (s, lab), rec["run_peregrine_switch_s"], launches = part(
+        lambda: run_peregrine(quarter, 64))
+    if len(lab) != len(quarter["eval"]["ts"]) // 64 or not np.isfinite(s).all():
+        raise RuntimeError("eval run_peregrine (switch): wrong records or scores")
+    rec["run_peregrine_switch"] = {"auc": auc(s, lab), "records": int(len(lab)),
+                                   "launches": launches}
+
+    _, f = compute_features(init_state(8192), to_torch(data["eval"], "cuda"))
+    recs = f[torch.as_tensor(epoch_indices(n_eval, 256), device=f.device)]
+    md_err = float(np.abs(score_records(net, recs, backend="einsum")
+                          - score_records(net, recs, backend="cuda")).max())
+    rec["md_plain_vs_kernel"] = {"records": int(recs.shape[0]), "max_abs_err": md_err}
+    emit(rec, log)
+    if not md_err <= MD_TOL:
+        raise RuntimeError(f"eval: plain MD path vs kitnet_score: {md_err}")
+
+
 def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     """(query, key) pairs the masks leave visible, positions from 0."""
     q = np.arange(sq)[:, None]
@@ -1391,7 +1685,8 @@ def main() -> int:
     emit(main, log)
 
     # ---- 4b. the same eval stream again, traced ----
-    emit({"phase": "trace", **trace_eval(svc, data["eval"], eval_s, KERNELS)}, log)
+    main_trace = trace_eval(svc, data["eval"], eval_s, KERNELS)
+    emit({"phase": "trace", **main_trace}, log)
 
     # ---- 4c. the sketch service over the same traffic, then traced ----
     sketch_launches, sketch_svc = phase_sketch_main(data, log)
@@ -1501,6 +1796,12 @@ def main() -> int:
 
     # ---- 6b. the sketch service on the card against the CPU ----
     phase_sketch_reference(kitnet_to_arrays(sketch_svc.net), sketch_svc.threshold, log)
+
+    # ---- 6c. switch arithmetic, the scan backend, the evaluation protocol ----
+    phase_switch(dev, log)
+    phase_scan(dev, pk, log)
+    phase_scan_main(data, main, main_trace, log)
+    phase_eval(data, net, log)
 
     # ---- 7. LM serving of gemma2-2b at full width, traced, against plain ----
     flash["launches"], long_prompt_s = phase_lm_main(log)

@@ -2,24 +2,31 @@
 
     state, feats = compute_features(state, pkts, backend="cuda")
 
-Backends (both emit the identical (n, N_FEATURES) layout and update the
+Backends (all emit the identical (n, N_FEATURES) layout and update the
 state dict in place):
 
   * ``serial`` — the per-packet oracle (core/pipeline.py), plain PyTorch.
+    The only backend that also takes ``mode="switch"`` (shift arithmetic and
+    round-robin decay), which is packet-serial by nature.
   * ``cuda``   — the hand-written FC kernel (kernels/feature_update.py,
     ``csrc/fc_full.cu``); aliases ``pallas`` and ``kernel`` so call sites of
     the JAX package port unchanged.  For CPU tensors it runs the plain
-    version.
+    version.  Exact mode only.
+  * ``scan``   — segmented scans over a sorted batch (core/parallel.py),
+    plain torch ops on either device; alias ``parallel``.  Exact mode only.
+    It also has a record-sampled path (``compute_features_sampled``).
+
+A switch-mode request to an exact-only backend raises ``ValueError``
+naming ``serial``, as in the JAX package.
 
 A state whose layout carries its own update (the Count-Min ``sketch``,
 ``core/sketch.py``) is routed to it before the registry is consulted; the
 backend name then only picks the implementation (``cuda`` → the sketch
-kernel, ``serial`` → its plain version).  Naming ``sketch`` with a dense
+kernel, anything else → its plain version).  Naming ``sketch`` with a dense
 state raises ``ValueError``.
 
-Exact mode only.  The JAX package's ``scan``, ``bucketed`` and ``sharded``
-backends are not ported yet (ROADMAP queue 1 items 7 and 10); naming one
-raises ``NotImplementedError``.
+The JAX package's ``bucketed`` and ``sharded`` backends are not ported yet
+(ROADMAP queue 1 item 10b); naming one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,23 +37,27 @@ import torch
 from repro_torch.core.arith import check_mode
 from repro_torch.core.state import state_spec_of
 
-_REGISTRY: Dict[str, Callable] = {}
+# name -> (fn(state, pkts, mode) -> (state, feats), supported modes)
+_REGISTRY: Dict[str, Tuple[Callable, Tuple[str, ...]]] = {}
 
-_ALIASES = {"pallas": "cuda", "kernel": "cuda"}
+# name -> fn(state, pkts, sample_idx) -> (state, feats[sample_idx]): backends
+# that emit ONLY the sampled feature rows (the state update still covers
+# every packet), exact mode
+_SAMPLED: Dict[str, Callable] = {}
+
+_ALIASES = {"pallas": "cuda", "kernel": "cuda", "parallel": "scan"}
 
 # JAX-package backends that later slices port
 _NOT_PORTED = {
-    "scan": "queue 1 item 7 (scan FC backend)",
-    "parallel": "queue 1 item 7 (scan FC backend)",
-    "bucketed": "queue 1 item 10 (partitioned FC)",
-    "sharded": "queue 1 item 10 (partitioned FC)",
+    "bucketed": "queue 1 item 10b (partitioned FC)",
+    "sharded": "queue 1 item 10b (partitioned FC)",
 }
 
 
-def register_backend(name: str):
-    """Register ``fn(state, pkts) -> (state, feats)`` as ``name``."""
+def register_backend(name: str, modes: Tuple[str, ...] = ("exact",)):
+    """Register ``fn(state, pkts, mode) -> (state, feats)`` as ``name``."""
     def deco(fn):
-        _REGISTRY[name] = fn
+        _REGISTRY[name] = (fn, modes)
         return fn
     return deco
 
@@ -68,20 +79,53 @@ def resolve_backend(name: str) -> str:
 
 
 def default_backend(mode: str = "exact") -> str:
+    """The default for an arithmetic mode: the FC kernel for exact mode,
+    the serial oracle for switch mode."""
     check_mode(mode)
-    return "cuda"
+    return "cuda" if mode == "exact" else "serial"
 
 
-@register_backend("serial")
-def _serial(state, pkts):
+def check_backend_mode(name: str, mode: str) -> None:
+    """Raise ``ValueError`` unless the (canonical) dense backend ``name``
+    supports the arithmetic ``mode``."""
+    check_mode(mode)
+    modes = _REGISTRY[name][1]
+    if mode not in modes:
+        raise ValueError(
+            f"FC backend {name!r} does not support mode {mode!r} "
+            f"(supports {modes}); use backend='serial' for switch mode")
+
+
+@register_backend("serial", modes=("exact", "switch"))
+def _serial(state, pkts, mode):
     from repro_torch.core.pipeline import process_serial
-    return process_serial(state, pkts)
+    return process_serial(state, pkts, mode=mode)
 
 
 @register_backend("cuda")
-def _cuda(state, pkts):
+def _cuda(state, pkts, mode):
     from repro_torch.kernels.feature_update import feature_update_full
     return feature_update_full(state, pkts)
+
+
+@register_backend("scan")
+def _scan(state, pkts, mode):
+    from repro_torch.core.parallel import process_parallel
+    return process_parallel(state, pkts)
+
+
+def _scan_sampled(state, pkts, sample_idx):
+    from repro_torch.core.parallel import process_parallel_sampled
+    return process_parallel_sampled(state, pkts, sample_idx)
+
+
+def register_sampled_backend(name: str, fn: Callable) -> None:
+    """Register a record-sampled FC path for an existing backend:
+    ``fn(state, pkts, sample_idx) -> (state, feats (m, N_FEATURES))``."""
+    _SAMPLED[resolve_backend(name)] = fn
+
+
+register_sampled_backend("scan", _scan_sampled)
 
 
 def compute_features(state: Dict, pkts: Dict[str, torch.Tensor],
@@ -103,8 +147,8 @@ def compute_features(state: Dict, pkts: Dict[str, torch.Tensor],
     name = resolve_backend(backend)
     if spec.compute is not None:
         return spec.compute(state, pkts, mode=mode, fc_backend=name)
-    check_mode(mode)
-    return _REGISTRY[name](state, pkts)
+    check_backend_mode(name, mode)
+    return _REGISTRY[name][0](state, pkts, mode)
 
 
 def compute_features_sampled(state: Dict, pkts: Dict[str, torch.Tensor],
@@ -113,9 +157,14 @@ def compute_features_sampled(state: Dict, pkts: Dict[str, torch.Tensor],
                              ) -> Tuple[Dict, torch.Tensor]:
     """One batch through the FC backend, returning only the sampled rows.
 
-    No ported backend or layout has a record-sampled path, so this computes
-    the full (n, N_FEATURES) matrix and gathers ``sample_idx`` on the
-    device.
+    The state is updated as by :func:`compute_features` and the rows equal
+    ``compute_features(...)[1][sample_idx]``.  A backend with a
+    record-sampled path (``scan``) never materialises the unsampled rows in
+    exact mode; everything else computes the full (n, N_FEATURES) matrix and
+    gathers ``sample_idx`` on the device.
     """
+    fn = _SAMPLED.get(resolve_backend(backend))
+    if fn is not None and mode == "exact" and state_spec_of(state).compute is None:
+        return fn(state, pkts, sample_idx)
     state, feats = compute_features(state, pkts, backend=backend, mode=mode)
     return state, feats[sample_idx]

@@ -1,0 +1,368 @@
+"""Exact-mode feature computation by segmented scans (port of
+``repro.core.parallel``, the ``scan`` FC backend).
+
+The switch updates flow state one packet at a time, but the decayed-atom
+update ``A_i = delta_i * A_{i-1} + x_i`` is a linear first-order recurrence,
+hence associative:
+
+    (s2, a2) o (s1, a1) = (s1 * s2, a1 * s2 + a2)
+
+so a packet batch is processed in O(log n) steps, segmented by flow: sort
+by stream id (stable, which keeps time order inside each stream), then scan.
+Cross-direction state (the opposite direction's stale statistics, the last
+residual for SR) is a segmented latest-value scan.
+
+Plain torch ops on either device, like the JAX module's XLA ops (it calls
+no Pallas kernel, so there is no kernel to port):
+
+  * The linear scan is a Hillis-Steele doubling scan with the JAX module's
+    combine, over the stacked ``(n, N_DECAY, 3)`` atoms (w, LS, SS) in one
+    pass.  It reassociates float32 products, so it matches the serial
+    oracle to the JAX package's scan envelope, not bit for bit.
+  * The latest-value scan is an index ``cummax`` reset at segment starts:
+    no arithmetic, so it is exact.
+  * Both key types of a group share one stable sort: the flat row layout
+    of ``core/pipeline.py`` (row ``k * n_slots + slot``) makes the key type
+    part of the stream id, so a batch pays two sorts (uni, bi).  The
+    directional (slot, dir, time) order of the bi streams is derived from
+    the channel sort by segmented ranks (``_dir_interleave_perm``), and the
+    ``res_last`` store-back reuses it.
+
+``process_parallel_sampled`` emits feature rows only at the sampled
+packets (the fused serving step's records); the flow-state update always
+covers every packet.  The state is updated in place.
+
+The JAX module's two-level chunked form (``chunks=``/``shard=``, the
+bucketed backend's) belongs to ROADMAP item 10b and is not ported here.
+
+Requires ``pkts["ts"]`` sorted ascending (streams are time-ordered).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import arith
+from repro_torch.core.pipeline import _stats, flat_tables, packet_rows
+from repro_torch.core.state import LAMBDAS, N_DECAY, N_FEATURES, state_slots
+
+
+# ---------------------------------------------------------------------------
+# segmented-scan primitives
+# ---------------------------------------------------------------------------
+def _expand(a: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Append trailing singleton dims until ``a.ndim == ndim``."""
+    return a.reshape(a.shape + (1,) * (ndim - a.ndim))
+
+
+def seg_linear_scan(seg_start: torch.Tensor, delta: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Segmented ``A_i = delta_i * A_{i-1} + x_i`` (A resets at segment
+    starts), inclusive, as a Hillis-Steele doubling scan.
+
+    ``seg_start``: (n,) bool; ``delta``, ``x``: (n, ...) with ``delta``
+    broadcastable to ``x`` (it may be narrower in trailing dims).  Returns
+    A with ``x``'s shape.  Each step combines every element with the one
+    ``off`` before it by the JAX module's combine, ``(s, a) = (sl * sr,
+    al * sr + ar)``.  Its segment flags are folded into the decays: a
+    segment start's decay is 0, so a product that spans a start is 0 and
+    nothing before the start reaches past it (the flagged combine's
+    values, for finite inputs, without the flags).
+    """
+    n = x.shape[0]
+    s = torch.where(_expand(seg_start, delta.ndim), 0.0, delta)
+    a = x.clone()
+    off = 1
+    while off < n:
+        a[off:] += a[:-off] * s[off:]
+        if 2 * off < n:
+            s[off:] = s[:-off] * s[off:]
+        off *= 2
+    return a
+
+
+def seg_last_scan(seg_start: torch.Tensor, valid: torch.Tensor,
+                  value: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segmented latest valid value (inclusive), per column.
+
+    ``valid``: (n, K) bool; ``value``: (n, K, ...).  Returns ``(found,
+    last)``: ``found`` (n, K) is False where column k has no valid element
+    yet in the row's segment, and ``last`` the value at the latest valid
+    row (zeros where not found).  An index ``cummax`` reset at segment
+    starts (along the contiguous dimension, where the card's scan is
+    parallel): values are gathered, never combined, so this is exact.
+    """
+    n, k = valid.shape
+    ar = torch.arange(n, device=valid.device)
+    first = _seg_first(seg_start)
+    last = torch.cummax(torch.where(valid.T, ar, -1), 1).values.T
+    found = last >= first[:, None]
+    val = value[last.clamp_min(0), torch.arange(k, device=valid.device)]
+    return found, torch.where(_expand(found, val.ndim), val, 0.0)
+
+
+def _segments(sorted_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segment start and end markers of a sorted id array."""
+    one = torch.ones(1, dtype=torch.bool, device=sorted_ids.device)
+    diff = sorted_ids[1:] != sorted_ids[:-1]
+    return torch.cat([one, diff]), torch.cat([diff, one])
+
+
+def _seg_first(start: torch.Tensor) -> torch.Tensor:
+    """Index of the first element of each element's segment."""
+    ar = torch.arange(start.shape[0], device=start.device)
+    return torch.cummax(torch.where(start, ar, -1), 0).values
+
+
+def _seg_last(end: torch.Tensor) -> torch.Tensor:
+    """Index of the last element of each element's segment."""
+    n = end.shape[0]
+    ar = torch.arange(n, device=end.device)
+    return torch.flip(torch.cummin(torch.flip(torch.where(end, ar, n), (0,)),
+                                   0).values, (0,))
+
+
+def _dir_interleave_perm(start: torch.Tensor, end: torch.Tensor,
+                         d: torch.Tensor) -> torch.Tensor:
+    """Derive the (slot, dir, time) permutation from the (slot, time) sort.
+
+    Given segment markers of the channel-sorted order and its direction
+    bits ``d``, returns ``gather`` such that ``X[gather]`` is the stable
+    sort by the composite key ``slot*2 + dir``: segmented ranks from
+    cumulative sums, in O(n), instead of a second sort.
+    """
+    seg_first, seg_last = _seg_first(start), _seg_last(end)
+    d0 = (d == 0).to(seg_first.dtype)
+    pref0 = torch.cumsum(d0, 0)                 # inclusive dir-0 count
+    excl0 = pref0 - d0
+    base0 = excl0[seg_first]
+    n0_seg = pref0[seg_last] - base0            # dir-0 population of the segment
+    rank0 = excl0 - base0
+    d1 = 1 - d0
+    excl1 = torch.cumsum(d1, 0) - d1
+    rank1 = excl1 - excl1[seg_first]
+    pos = seg_first + torch.where(d == 0, rank0, n0_seg + rank1)
+    return arith.invert_perm(pos)
+
+
+def _decay(lam: torch.Tensor, start: torch.Tensor, t: torch.Tensor,
+           lt_tab: torch.Tensor) -> torch.Tensor:
+    """Per-element decay in stream order: ``dt`` to the previous element of
+    the segment, or to the table's ``last_t`` at a segment start (no decay,
+    0, for a stream never seen)."""
+    t_prev = torch.cat([t[:1], t[:-1]])
+    fresh = lt_tab < 0.0
+    dt = torch.where(start[:, None],
+                     torch.where(fresh, 0.0, t[:, None] - lt_tab),
+                     (t - t_prev)[:, None]).clamp_min(0.0)
+    return torch.where(start[:, None] & fresh, 0.0, torch.exp2(-lam * dt))
+
+
+def _store(tab: Dict[str, torch.Tensor], writes) -> None:
+    """Apply a store-back: every element writes its segment's last values
+    to its row, so rows written more than once get the same values (no
+    boolean mask, hence no device-to-host sync)."""
+    rows, values = writes
+    for name, v in values.items():
+        tab[name][rows] = v
+
+
+# ---------------------------------------------------------------------------
+# one directional stream table pass
+# ---------------------------------------------------------------------------
+def stream_pass(tab: Dict[str, torch.Tensor], stream_ids: torch.Tensor,
+                ts: torch.Tensor, lens: torch.Tensor, lam: torch.Tensor,
+                order: Optional[torch.Tensor] = None,
+                sample: Optional[torch.Tensor] = None):
+    """Decayed-atom update of one table of streams.
+
+    ``tab``: ``{"last_t", "w", "ls", "ss"}`` flat (rows, N_DECAY) tables;
+    ``stream_ids``/``ts``/``lens``: (n,).  Returns ``(atoms, writes)``:
+    the post-update atoms (n|m, N_DECAY, 3) (lanes w/ls/ss) in original
+    order, at ``sample``'s rows if given, and the store-back (each
+    stream's last row) for :func:`_store`, which the caller applies once
+    every pass that reads the pre-batch table is done.  ``order`` is the
+    stable sort by stream id, when already known.
+    """
+    if order is None:
+        order = torch.argsort(stream_ids, stable=True)
+    inv = arith.invert_perm(order)
+    sid = stream_ids[order]
+    t = ts[order]
+    x = lens[order]
+    start, end = _segments(sid)
+    delta = _decay(lam, start, t, tab["last_t"][sid])        # (n, ND)
+
+    # stacked per-packet increments, the table carried into each segment's
+    # first element: A_1 = delta_1 * A_tab + x_1
+    n = sid.shape[0]
+    xs = torch.stack([torch.ones(n, N_DECAY, device=x.device),
+                      x[:, None].expand(n, N_DECAY),
+                      (x * x)[:, None].expand(n, N_DECAY)], -1)   # (n, ND, 3)
+    tab_a = torch.stack([tab["w"][sid], tab["ls"][sid], tab["ss"][sid]], -1)
+    x0 = torch.where(start[:, None, None], xs + delta[..., None] * tab_a, xs)
+    atoms = seg_linear_scan(start, delta[..., None], x0)
+    last = _seg_last(end)
+    at_end = atoms[last]
+    writes = (sid, {"last_t": t[last][:, None].expand(-1, N_DECAY),
+                    "w": at_end[..., 0], "ls": at_end[..., 1],
+                    "ss": at_end[..., 2]})
+    rows = inv if sample is None else inv[sample]
+    return atoms[rows], writes
+
+
+# ---------------------------------------------------------------------------
+# channel pass: stale opposite stats + SR recurrence
+# ---------------------------------------------------------------------------
+def _bi_features(own: torch.Tensor, opp: torch.Tensor,
+                 sr: torch.Tensor) -> torch.Tensor:
+    """The 7 bi statistics from own and opposite atoms (m, ND, 3) and the
+    SR sums (m, ND); (m, ND, 7)."""
+    mu, var, sig = _stats(torch.stack([own[..., 0], opp[..., 0]]),
+                          torch.stack([own[..., 1], opp[..., 1]]),
+                          torch.stack([own[..., 2], opp[..., 2]]))
+    sq = arith.square(torch.stack([mu, var]))
+    mag, rad = arith.sqrt(sq[:, 0] + sq[:, 1])
+    cov = arith.div(sr, own[..., 0] + opp[..., 0])
+    pcc = arith.div(cov, sig[0] * sig[1])
+    return torch.stack([own[..., 0], mu[0], sig[0], mag, rad, cov, pcc], -1)
+
+
+def channel_pass(tab: Dict[str, torch.Tensor], slots: torch.Tensor,
+                 dirs: torch.Tensor, ts: torch.Tensor, lens: torch.Tensor,
+                 own_atoms: torch.Tensor, lam: torch.Tensor,
+                 order: torch.Tensor, dir_gather: torch.Tensor,
+                 sample: Optional[torch.Tensor] = None):
+    """Cross-direction state of the bi streams.
+
+    ``tab``: the flat bi tables, still holding their pre-batch values
+    (``bw``/``bls``/``bss``/``brl`` rows ``2*slot + dir``, ``bsr``/``bslt``
+    rows ``slot``); ``slots`` the channel rows, ``own_atoms`` the
+    post-update atoms of each packet's own direction (original order, full
+    width).  ``order`` is the stable sort by slot and ``dir_gather`` its
+    directional permutation.  Returns ``(features (n|m, ND, 7), writes)``;
+    ``sample`` restricts the emitted rows (the scans and store-backs always
+    cover every packet, and a row's statistics are the same either way).
+    """
+    inv = arith.invert_perm(order)
+    sid = slots[order]
+    d = dirs[order]
+    t = ts[order]
+    start, end = _segments(sid)
+    own = own_atoms[order]                                   # (n, ND, 3)
+
+    # residual against the own direction's mean (SR consumes every row)
+    r = lens[order][:, None] - arith.div(own[..., 1], own[..., 0])
+
+    # latest same-channel packet of each direction: atoms and residual;
+    # the table fallback is applied where it is read
+    n = sid.shape[0]
+    lanes = torch.cat([own, r[..., None]], -1)               # (n, ND, 4)
+    found, latest = seg_last_scan(start, torch.stack([d == 0, d == 1], 1),
+                                  lanes[:, None].expand(n, 2, N_DECAY, 4))
+    res = [torch.where(found[:, X, None], latest[:, X, :, 3],
+                       tab["brl"][2 * sid + X]) for X in (0, 1)]
+    r_opp = torch.where((d == 0)[:, None], res[1], res[0])
+
+    # SR recurrence over the whole channel (both directions)
+    dsr = _decay(lam, start, t, tab["bslt"][sid])
+    x_sr = r * r_opp
+    x_sr = torch.where(start[:, None], x_sr + dsr * tab["bsr"][sid], x_sr)
+    sr = seg_linear_scan(start, dsr, x_sr)
+
+    # statistics, emitted at the requested rows only
+    rows = inv if sample is None else inv[sample]
+    s, dr = sid[rows], d[rows]
+    stale = [torch.where(found[rows, X, None, None], latest[rows, X, :, :3],
+                         torch.stack([tab[k][2 * s + X]
+                                      for k in ("bw", "bls", "bss")], -1))
+             for X in (0, 1)]
+    opp = torch.where((dr == 0)[:, None, None], stale[1], stale[0])
+    feats = _bi_features(own[rows], opp, sr[rows])
+
+    # store-back: SR at each channel's last row; the residual at each
+    # (channel, direction)'s last row, the segment ends of the directional
+    # order (the derived permutation, no re-sort)
+    k2s = (2 * sid + d)[dir_gather]
+    last, last2 = _seg_last(end), _seg_last(_segments(k2s)[1])
+    writes = [(sid, {"bsr": sr[last],
+                     "bslt": t[last][:, None].expand(-1, N_DECAY)}),
+              (k2s, {"brl": r[dir_gather][last2]})]
+    return feats, writes
+
+
+# ---------------------------------------------------------------------------
+# the whole batch
+# ---------------------------------------------------------------------------
+def _process(state: Dict, pkts: Dict[str, torch.Tensor],
+             sample_idx: Optional[torch.Tensor] = None
+             ) -> Tuple[Dict, torch.Tensor]:
+    ts = pkts["ts"].to(torch.float32)
+    lens = pkts["length"].to(torch.float32)
+    n = ts.shape[0]
+    m = n if sample_idx is None else sample_idx.shape[0]
+    if n == 0 or m == 0:
+        if n:
+            _process(state, pkts)      # the state still takes every packet
+        return state, torch.empty((m, N_FEATURES), dtype=torch.float32,
+                                  device=ts.device)
+    n_slots = state_slots(state)
+    rows = packet_rows(pkts, n_slots)
+    tab = flat_tables(state)
+    lam = torch.tensor(LAMBDAS, dtype=torch.float32, device=ts.device)
+    # both key types of a group in one array: position k*n + i is packet i
+    # under key type k, so its stream id (row) also names the key type
+    ts2, lens2 = ts.repeat(2), lens.repeat(2)
+    dirs2 = rows["dir"].repeat(2)
+    sample2 = (None if sample_idx is None else
+               torch.cat([sample_idx, sample_idx + n]))
+
+    # ---- unidirectional: one sort for both key types ----
+    uni_tab = {"last_t": tab["ult"], "w": tab["uw"], "ls": tab["uls"],
+               "ss": tab["uss"]}
+    atoms, writes = stream_pass(uni_tab, rows["urow"].T.reshape(-1), ts2, lens2,
+                                lam, sample=sample2)
+    _store(uni_tab, writes)
+    mu, _, sig = _stats(atoms[..., 0], atoms[..., 1], atoms[..., 2])
+    uni_feats = torch.stack([atoms[..., 0], mu, sig], -1)       # (2m, ND, 3)
+
+    # ---- bidirectional: one sort (by channel row) for both key types ----
+    slots = rows["bbase"].T.reshape(-1)
+    order = torch.argsort(slots, stable=True)
+    start, end = _segments(slots[order])
+    dir_gather = _dir_interleave_perm(start, end, dirs2[order])
+    dir_tab = {"last_t": tab["blt"], "w": tab["bw"], "ls": tab["bls"],
+               "ss": tab["bss"]}
+    own, dir_writes = stream_pass(dir_tab, 2 * slots + dirs2, ts2, lens2, lam,
+                                  order=order[dir_gather])
+    # the channel pass reads the pre-batch direction tables: store after it
+    bi_feats, ch_writes = channel_pass(tab, slots, dirs2, ts2, lens2, own, lam,
+                                       order, dir_gather, sample=sample2)
+    _store(dir_tab, dir_writes)
+    for w in ch_writes:
+        _store(tab, w)
+
+    feats = torch.cat([uni_feats.reshape(2, m, -1).transpose(0, 1).reshape(m, -1),
+                       bi_feats.reshape(2, m, -1).transpose(0, 1).reshape(m, -1)],
+                      -1)
+    return state, feats
+
+
+def process_parallel(state: Dict, pkts: Dict[str, torch.Tensor]
+                     ) -> Tuple[Dict, torch.Tensor]:
+    """Exact-mode FC by segmented scans: the same I/O as
+    ``process_serial(..., mode="exact")``; ``state`` updated in place."""
+    return _process(state, pkts)
+
+
+def process_parallel_sampled(state: Dict, pkts: Dict[str, torch.Tensor],
+                             sample_idx: torch.Tensor
+                             ) -> Tuple[Dict, torch.Tensor]:
+    """Exact-mode FC emitting only ``sample_idx``'s feature rows.
+
+    The state update covers every packet, as :func:`process_parallel`'s
+    does, and the rows equal ``process_parallel(...)[1][sample_idx]``: the
+    scans are the same and a row's statistics take the same operations.
+    """
+    return _process(state, pkts, sample_idx)

@@ -1,14 +1,22 @@
-"""Serial exact-mode feature computation (port of ``repro.core.pipeline``).
+"""Serial feature computation (port of ``repro.core.pipeline``).
 
 ``process_serial`` applies packets one at a time, in array order, mirroring
 the switch's per-packet MAU pipeline:
 
   decay feature atoms -> update atoms -> compute statistics -> emit features
 
-It is the port's oracle and the plain PyTorch version of the FC kernel
-(``kernels/feature_update.py``): the kernel is held against it on the card,
-and it is held against the JAX package's ``process_serial(mode="exact")``
-in the tests.  It is a Python loop over packets, so it is slow by design.
+Two fidelity modes, as in the JAX package:
+  * ``exact``  — real mul/div/sqrt, all 4 decay instances updated per packet;
+  * ``switch`` — the switch's shift and math-unit arithmetic (``arith``),
+    floored decays, quantised decay, and the round-robin update of one decay
+    instance per packet (``rr`` tables).
+
+In exact mode it is the port's oracle and the plain PyTorch version of the
+FC kernel (``kernels/feature_update.py``): the kernel is held against it on
+the card, and it is held against the JAX package's ``process_serial`` in the
+tests.  Switch mode has no kernel (the JAX package runs it only on its
+serial oracle); it runs here on the state's device.  It is a Python loop
+over packets, so it is slow by design.
 
 Tables are addressed through the row layout of the JAX package's Pallas
 kernel (DESIGN.md §2): every table is viewed as ``(rows, N_DECAY)``; uni key
@@ -64,50 +72,86 @@ def _update(lam, lt, w, ls, ss, t, x):
     return w * delta + 1.0, ls * delta + x, ss * delta + x * x
 
 
-def _stats(w, ls, ss):
+def _update_switch(lam, lt, w, ls, ss, rr, t, x):
+    """One stream's update in switch mode: only decay instance ``rr % 4``
+    is decayed (floored, quantised) and updated this packet, and ``rr``
+    advances (the paper's round-robin, Figure 5).  Returns the new
+    ``(last_t, w, ls, ss, rr)``."""
+    dt = (t - lt).clamp_min(0.0)
+    delta = torch.where(lt < 0.0, torch.zeros_like(dt),
+                        arith.quantized_decay(lam, dt))
+    upd = torch.arange(N_DECAY, device=rr.device) == (rr % N_DECAY)[..., None]
+    w2 = torch.where(upd, torch.floor(w * delta) + 1.0, w)
+    ls2 = torch.where(upd, torch.floor(ls * delta) + x, ls)
+    ss2 = torch.where(upd, torch.floor(ss * delta) + x * x, ss)
+    return torch.where(upd, t, lt), w2, ls2, ss2, rr + 1
+
+
+def _stats(w, ls, ss, mode: str = "exact"):
     """(mu, var, sigma) per decay instance."""
-    mu = arith.div(ls, w)
-    ex2 = arith.div(ss, w)
-    var = torch.abs(ex2 - arith.square(mu))
-    return mu, var, arith.sqrt(var)
+    mu = arith.div(ls, w, mode)
+    ex2 = arith.div(ss, w, mode)
+    var = torch.abs(ex2 - arith.square(mu, mode))
+    return mu, var, arith.sqrt(var, mode)
 
 
-def uni_step(tab, lam, urow, t, x) -> torch.Tensor:
+def uni_step(tab, lam, urow, t, x, mode: str = "exact", rr=None) -> torch.Tensor:
     """Apply one packet to the uni rows ``urow`` (one per key type);
-    returns their features, (len(urow) * N_DECAY * 3,)."""
+    returns their features, (len(urow) * N_DECAY * 3,).  Switch mode also
+    takes the flat round-robin counters ``rr`` (indexed by ``urow``)."""
     lt, w, ls, ss = (tab[k][urow] for k in ("ult", "uw", "uls", "uss"))
-    w2, ls2, ss2 = _update(lam, lt, w, ls, ss, t, x)
-    mu, _, sig = _stats(w2, ls2, ss2)
-    tab["ult"][urow] = t
+    if mode == "switch":
+        lt2, w2, ls2, ss2, rr[urow] = _update_switch(lam, lt, w, ls, ss,
+                                                     rr[urow], t, x)
+    else:
+        lt2 = t
+        w2, ls2, ss2 = _update(lam, lt, w, ls, ss, t, x)
+    mu, _, sig = _stats(w2, ls2, ss2, mode)
+    tab["ult"][urow] = lt2
     tab["uw"][urow] = w2
     tab["uls"][urow] = ls2
     tab["uss"][urow] = ss2
     return torch.stack([w2, mu, sig], -1).reshape(-1)
 
 
-def bi_step(tab, lam, brow_o, brow_p, brow_s, t, x) -> torch.Tensor:
+def bi_step(tab, lam, brow_o, brow_p, brow_s, t, x, mode: str = "exact",
+            rr=None) -> torch.Tensor:
     """Apply one packet to the bi rows (own direction ``brow_o``, opposite
     ``brow_p``, channel-level SR ``brow_s``; one per key type); returns
-    their features, (len(brow_o) * N_DECAY * 7,)."""
+    their features, (len(brow_o) * N_DECAY * 7,).  Switch mode also takes
+    the flat round-robin counters ``rr``, one per channel (``brow_s``):
+    both directions advance the same counter."""
     lt_o, w_o, ls_o, ss_o = (tab[k][brow_o] for k in ("blt", "bw", "bls", "bss"))
-    w_o, ls_o, ss_o = _update(lam, lt_o, w_o, ls_o, ss_o, t, x)
-    mu_o, var_o, sig_o = _stats(w_o, ls_o, ss_o)
-    # opposite-direction stats from the stored values (stale, as on the switch)
+    if mode == "switch":
+        lt_o, w_o, ls_o, ss_o, rr[brow_s] = _update_switch(
+            lam, lt_o, w_o, ls_o, ss_o, rr[brow_s], t, x)
+    else:
+        w_o, ls_o, ss_o = _update(lam, lt_o, w_o, ls_o, ss_o, t, x)
+        lt_o = t
+    # own stats and the opposite direction's from its stored values (stale,
+    # as on the switch), as one stacked call: [0] own, [1] opposite
     w_p = tab["bw"][brow_p]
-    mu_p, var_p, sig_p = _stats(w_p, tab["bls"][brow_p], tab["bss"][brow_p])
+    mu, var, sig = _stats(torch.stack([w_o, w_p]),
+                          torch.stack([ls_o, tab["bls"][brow_p]]),
+                          torch.stack([ss_o, tab["bss"][brow_p]]), mode)
+    mu_o, sig_o, sig_p = mu[0], sig[0], sig[1]
 
-    # SR: decayed sum of cross-direction residual products
+    # SR: decayed sum of cross-direction residual products (every decay
+    # instance, both modes)
     sr, sr_lt = tab["bsr"][brow_s], tab["bslt"][brow_s]
     dsr = torch.where(sr_lt < 0.0, torch.zeros_like(sr),
-                      torch.exp2(-lam * (t - sr_lt).clamp_min(0.0)))
+                      arith.decay(lam, (t - sr_lt).clamp_min(0.0), mode))
     r = x - mu_o
     sr2 = sr * dsr + r * tab["brl"][brow_p]
 
-    mag = arith.sqrt(arith.square(mu_o) + arith.square(mu_p))
-    rad = arith.sqrt(arith.square(var_o) + arith.square(var_p))
-    cov = arith.div(sr2, w_o + w_p)
-    pcc = arith.div(cov, sig_o * sig_p)
-    tab["blt"][brow_o] = t
+    # magnitude and radius: [0] from the means, [1] from the variances
+    sq = arith.square(torch.stack([mu, var]), mode)
+    mag, rad = arith.sqrt(sq[:, 0] + sq[:, 1], mode)
+    cov = arith.div(sr2, w_o + w_p, mode)
+    denom = (arith.shift_mul(sig_o, sig_p) if mode == "switch"
+             else sig_o * sig_p)
+    pcc = arith.div(cov, denom, mode)
+    tab["blt"][brow_o] = lt_o
     tab["bw"][brow_o] = w_o
     tab["bls"][brow_o] = ls_o
     tab["bss"][brow_o] = ss_o
@@ -119,7 +163,8 @@ def bi_step(tab, lam, brow_o, brow_p, brow_s, t, x) -> torch.Tensor:
 
 def process_serial(state: Dict, pkts: Dict[str, torch.Tensor],
                    mode: str = "exact") -> Tuple[Dict, torch.Tensor]:
-    """Sequential per-packet processing in array order.
+    """Sequential per-packet processing in array order, ``mode`` exact or
+    switch.
 
     ``pkts``: ``{ts, src, dst, sport, dport, proto, length}`` tensors of
     shape (n,) on the state's device (``traffic.to_torch``).  Updates
@@ -128,6 +173,9 @@ def process_serial(state: Dict, pkts: Dict[str, torch.Tensor],
     arith.check_mode(mode)
     rows = packet_rows(pkts, state_slots(state))
     tab = flat_tables(state)
+    rr_u = rr_b = None
+    if mode == "switch":
+        rr_u, rr_b = state["uni"]["rr"].view(-1), state["bi"]["rr"].view(-1)
     ts = pkts["ts"].to(torch.float32)
     lens = pkts["length"].to(torch.float32)
     lam = torch.tensor(LAMBDAS, dtype=torch.float32, device=ts.device)
@@ -139,7 +187,8 @@ def process_serial(state: Dict, pkts: Dict[str, torch.Tensor],
                         device=ts.device)
     for i in range(ts.shape[0]):
         t, x = ts[i], lens[i]
-        feats[i] = torch.cat([uni_step(tab, lam, rows["urow"][i], t, x),
+        feats[i] = torch.cat([uni_step(tab, lam, rows["urow"][i], t, x,
+                                       mode, rr_u),
                               bi_step(tab, lam, brow_o[i], brow_p[i],
-                                      brow_s[i], t, x)])
+                                      brow_s[i], t, x, mode, rr_b)])
     return state, feats

@@ -234,6 +234,14 @@ def _sketch_packet_step(tab, lam, age, urow, brow_o, brow_p, brow_s,
     return torch.cat([f_uni, f_bi])
 
 
+def _check_exact(mode: str) -> None:
+    if mode != "exact":
+        raise ValueError("the sketch state backend supports exact "
+                         f"arithmetic only, got mode={mode!r} (switch-mode "
+                         "round-robin decay is tied to the dense rr "
+                         "counters)")
+
+
 def process_sketch(state: Dict, pkts: Dict[str, torch.Tensor],
                    mode: str = "exact") -> Tuple[Dict, torch.Tensor]:
     """Plain sketch update: packets one at a time, in array order.
@@ -241,7 +249,7 @@ def process_sketch(state: Dict, pkts: Dict[str, torch.Tensor],
     Updates ``state`` in place and returns ``(state, feats (n,
     N_FEATURES))``.  The sketch kernel's plain version.
     """
-    arith.check_mode(mode)
+    _check_exact(mode)
     rows = sketch_flat_rows(pkts, sketch_rows(state), sketch_width(state))
     tab = flat_tables(state, SKETCH_TABLES)
     ts = pkts["ts"].to(torch.float32)
@@ -269,11 +277,7 @@ def compute_features_sketch(state: Dict, pkts: Dict[str, torch.Tensor],
                             ) -> Tuple[Dict, torch.Tensor]:
     """Route a sketch-state batch: ``cuda`` → the kernel wrapper,
     ``serial`` → the plain version."""
-    if mode != "exact":
-        raise ValueError("the sketch state backend supports exact "
-                         f"arithmetic only, got mode={mode!r} (switch-mode "
-                         "round-robin decay is tied to the dense rr "
-                         "counters)")
+    _check_exact(mode)
     if fc_backend == "cuda":
         from repro_torch.kernels.sketch_update import sketch_update_full
         return sketch_update_full(state, pkts)

@@ -209,3 +209,11 @@ def train_kitnet(feats_train, seed: int = 0, max_size: int = 10,
                out_loss, Rb, lr, epochs)
     return KitNet(idx=idx, mask=mask, params={**params, **out},
                   norm_min=lo, norm_max=hi, out_min=r_lo, out_max=r_hi)
+
+
+def score_kitnet(net: KitNet, feats) -> np.ndarray:
+    """Anomaly RMSE score per record through the plain einsum path, on the
+    net's device, as a host array (``detection.md_backends.score_records``
+    selects backends by name)."""
+    from repro_torch.detection.md_backends import score_records
+    return score_records(net, feats, backend="einsum")

@@ -1,5 +1,5 @@
-"""Detection metric: AUC as a rank statistic (paper Appendix B).  numpy
-copy of ``repro.detection.metrics.auc``."""
+"""Detection metrics: AUC (rank statistic) and F1 at an FPR-derived
+threshold (paper Appendix B).  numpy copy of ``repro.detection.metrics``."""
 from __future__ import annotations
 
 import numpy as np
@@ -28,3 +28,28 @@ def auc(scores: np.ndarray, labels: np.ndarray) -> float:
         i = j + 1
     u = ranks[labels].sum() - n_pos * (n_pos + 1) / 2.0
     return float(u / (n_pos * n_neg))
+
+
+def threshold_at_fpr(scores_benign: np.ndarray, fpr: float) -> float:
+    """Score threshold with the given false-positive rate on benign scores."""
+    return float(np.quantile(np.asarray(scores_benign, np.float64), 1.0 - fpr))
+
+
+def f1_at_fpr(scores: np.ndarray, labels: np.ndarray, fpr: float) -> float:
+    """F1 of ``scores > threshold_at_fpr(benign scores, fpr)``: NaN when
+    every record is an attack (no benign score to set the threshold), 0.0
+    when none is."""
+    scores = np.asarray(scores)
+    labels = np.asarray(labels).astype(bool)
+    if labels.all():
+        return float("nan")
+    thr = threshold_at_fpr(scores[~labels], fpr)
+    pred = scores > thr
+    tp = int((pred & labels).sum())
+    fp = int((pred & ~labels).sum())
+    fn = int((~pred & labels).sum())
+    prec = tp / max(tp + fp, 1)
+    rec = tp / max(tp + fn, 1)
+    if prec + rec == 0:
+        return 0.0
+    return float(2 * prec * rec / (prec + rec))

@@ -5,16 +5,20 @@ requests.
   PYTHONPATH=src python -m repro_torch.launch.serve --attack mirai
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --n-train 4000 --n-eval 4000 --epoch 64 --n-slots 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --fc-mode switch \
+      --device cpu --n-train 600 --n-eval 400 --epoch 16 --n-slots 256
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --no-reduced
 
 ``--mode detect`` trains on the benign prefix (``observe_stream`` +
 ``fit``), streams the eval window through ``process_stream``, and prints
 one JSON line with the throughput, record and alarm counts, the attack AUC
-and the kernels' launch counts.  ``--mode lm`` serves ``--requests`` random
-prompts of ``--prompt-len`` tokens through ``ServeEngine`` with random
-weights from ``--seed`` and prints one JSON line with the tokens, prefill
-and decode times and the launch counts.  ``--reduced`` (the default, as in
+and the kernels' launch counts; ``--fc-mode switch`` runs the switch's
+arithmetic on the serial FC oracle (a Python loop over packets).
+``--mode lm`` serves ``--requests`` random prompts of ``--prompt-len``
+tokens through ``ServeEngine`` with random weights from ``--seed`` and
+prints one JSON line with the tokens, prefill and decode times and the
+launch counts.  ``--reduced`` (the default, as in
 the JAX launcher) runs the config cut to CPU size; ``--no-reduced`` runs it
 at full width.
 """
@@ -61,6 +65,7 @@ def serve_detect(args) -> dict:
     labels = data["eval"]["label"][idx - eval_start]
     n = len(data["eval"]["ts"])
     return {"device": str(svc.device), "attack": args.attack,
+            "fc_mode": svc.mode, "fc_backend": svc.backend,
             "train_pkts": args.n_train, "train_s": t_fit,
             "threshold": svc.threshold, "eval_pkts": n, "eval_s": dt,
             "eval_pps": n / dt, "records": int(len(scores)),

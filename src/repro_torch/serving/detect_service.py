@@ -8,22 +8,27 @@ across batches, and keeps the flow tables on the device between calls.
 Record indices are global stream positions (DESIGN.md §5).
 
 Both compute stages are selected by name: ``backend=`` the FC
-implementation (``core.backends``: ``cuda`` by default, or ``serial``),
-``md_backend=`` the scoring implementation (``detection.md_backends``:
-``cuda`` by default, or ``einsum``).  On the CPU the ``cuda`` names run the
-plain PyTorch versions.
+implementation (``core.backends``: ``cuda`` by default, ``scan`` or
+``serial``), ``md_backend=`` the scoring implementation
+(``detection.md_backends``: ``cuda`` by default, or ``einsum``).  On the
+CPU the ``cuda`` names run the plain PyTorch versions.
 
-Inference runs the per-chunk step of ``serving/fused.py`` by default (only
-the sampled ``(indices, scores, alarms)`` leave the device), and
-``process_stream`` dispatches chunk k+1 before draining chunk k.  The flow
-state is updated in place (DESIGN.md §8 donation, as PyTorch does it):
-``clone_state(svc.state)`` is the snapshot.
+Exact-mode inference runs the per-chunk step of ``serving/fused.py`` by
+default (only the sampled ``(indices, scores, alarms)`` leave the device),
+and ``process_stream`` dispatches chunk k+1 before draining chunk k.  The
+flow state is updated in place (DESIGN.md §8 donation, as PyTorch does
+it): ``clone_state(svc.state)`` is the snapshot.
 
 ``state_backend=`` picks the flow-table layout: ``dense`` slots (the
 default) or the Count-Min ``sketch``, with ``state_kw`` such as
 ``{"rows": 2, "evict_age": 60.0}`` (``core/sketch.py``); with a sketch
-state the ``cuda`` FC name runs the sketch kernel.  Exact mode only:
-``mode="switch"`` raises ``NotImplementedError``.
+state the ``cuda`` FC name runs the sketch kernel.
+
+``mode="switch"`` selects the switch's shift arithmetic with round-robin
+decay (``core/arith.py``).  Only the ``serial`` FC backend supports it, so
+it is the default there, and inference defaults to the staged path, as in
+the JAX package's service; ``fused=True`` runs the per-chunk step through
+the same backend.
 """
 from __future__ import annotations
 
@@ -32,9 +37,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.arith import check_mode
-from repro_torch.core.backends import (compute_features, default_backend,
-                                       resolve_backend)
+from repro_torch.core.backends import (check_backend_mode, compute_features,
+                                       default_backend, resolve_backend)
 from repro_torch.core.records import epoch_indices
 from repro_torch.core.state import init_state
 from repro_torch.data.pipeline import phv_batches
@@ -56,15 +60,17 @@ class DetectionService:
                  state_backend: str = "dense",
                  state_kw: Optional[Dict] = None,
                  device: DeviceLike = None):
-        check_mode(mode)
         self.device = resolve_device(device)
         self.epoch = epoch
         self.mode = mode
         self.backend = resolve_backend(backend if backend is not None
                                        else default_backend(mode))
+        check_backend_mode(self.backend, mode)
         self.md_backend = resolve_md_backend(
             md_backend if md_backend is not None else default_md_backend())
-        self.fused = True if fused is None else bool(fused)
+        # the per-chunk device step by default wherever the exact batch
+        # pipeline runs; the switch mode's oracle stays on the staged path
+        self.fused = (mode == "exact") if fused is None else bool(fused)
         self.state = init_state(n_slots, state_backend=state_backend,
                                 device=self.device, **(state_kw or {}))
         self.net: Optional[KitNet] = None

@@ -9,8 +9,12 @@
   that needs a restore point clones the state first (``clone_state``).
 * Epoch sampling is the static-shape ``core.records.epoch_gather``: no
   ``nonzero``, no device-to-host sync inside the step.
-* Neither ported FC backend has a record-sampled path, so FC computes the
-  full (n, 80) matrix and the epoch records are gathered on the device.
+* FC runs through ``compute_features_sampled``: the ``scan`` backend's
+  record-sampled path updates the flow state for every packet but computes
+  feature statistics only at the epoch records; the other backends compute
+  the full (n, 80) matrix and the records are gathered on the device.
+* Any registered FC backend and mode it supports: ``mode="switch"`` runs
+  with the ``serial`` backend, as the JAX package's step does.
 * Only ``(idx, scores, alarms)`` (``count`` rows each) need to cross to the
   host, and the step does not wait for them: kernels are queued on the
   current stream, so ``DetectionService.process_stream`` can dispatch chunk
@@ -25,8 +29,9 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.arith import check_mode
-from repro_torch.core.backends import compute_features_sampled, resolve_backend
+from repro_torch.core.backends import (check_backend_mode,
+                                       compute_features_sampled,
+                                       resolve_backend)
 from repro_torch.core.records import epoch_gather
 from repro_torch.detection.md_backends import md_score_fn
 
@@ -42,8 +47,8 @@ def make_fused_step(backend: str = "cuda", mode: str = "exact",
     padding).  ``base_mod`` is the running packet count modulo ``epoch``;
     ``threshold`` is compared in float32 on the device.
     """
-    check_mode(mode)
     backend = resolve_backend(backend)
+    check_backend_mode(backend, mode)
     score = md_score_fn(md_backend)
 
     @torch.no_grad()
@@ -51,7 +56,7 @@ def make_fused_step(backend: str = "cuda", mode: str = "exact",
         n = pkts["ts"].shape[0]
         idx, count = epoch_gather(n, epoch, base_mod, device=pkts["ts"].device)
         state, recs = compute_features_sampled(state, pkts, idx,
-                                               backend=backend)
+                                               backend=backend, mode=mode)
         scores = score(net, recs)
         return state, idx, scores, scores > threshold, count
 

@@ -1,0 +1,205 @@
+"""PyTorch port, the paper's evaluation protocol: ``run_peregrine``,
+``run_kitsune_baseline`` and ``sweep_attack`` (``detection/runner.py``,
+``detection/sweep.py``), with ``metrics.f1_at_fpr`` and
+``kitnet.score_kitnet``, against the JAX package on the same traces.
+
+Tolerances.  With the JAX package's initial KitNET weights carried into the
+port (its ``init_kitnet`` patched inside the test), record indices and
+labels are equal and scores agree to rtol 1e-3, atol 1e-4 (the service's
+tolerance, tests/test_torch_service.py), so AUC is held to 1e-3 and F1 to
+0.01 (measured: AUC within 1.8e-5, F1 equal).  Each runner is compared on
+both attacks and both modes between them.  Exact mode runs the ``scan``
+FC backend on both sides (the JAX package's default exact backend),
+switch mode the serial oracle.  One case is compared by its records only:
+the Kitsune baseline at rate 256 fits on 4 packet-sampled records, where
+the feature map's clustering of 4 rows turns on float noise in the
+features and picks other clusters, hence other initial weights.  With the
+port's own initial weights, AUC is held to the margins of ROADMAP queue 3
+(0.05 on syn_dos, 0.1 on the others) on the mean over three seeds
+(measured gap 0.027 on mirai; single seeds of either package alone spread
+by up to 0.2 there).
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import records as jax_records
+from repro.detection import kitnet as jax_kitnet
+from repro.detection import metrics as jax_metrics
+from repro.detection.runner import run_peregrine as jax_peregrine
+from repro.detection.sweep import sweep_attack as jax_sweep
+from repro.traffic import synth_trace
+
+from repro_torch.detection import (f1_at_fpr, run_kitsune_baseline,
+                                   run_peregrine, score_kitnet)
+from repro_torch.detection import kitnet as port_kitnet
+from repro_torch.detection.metrics import auc, threshold_at_fpr
+from repro_torch.detection.sweep import sweep_attack
+from repro_torch.interop import kitnet_from_arrays
+
+torch.set_num_threads(1)
+
+SCORE_TOL = dict(rtol=1e-3, atol=1e-4)
+AUC_TOL, F1_TOL = 1e-3, 0.01
+MARGIN = {"syn_dos": 0.05, "mirai": 0.1}
+N_SLOTS = 1024
+
+
+def _arrays(net) -> dict:
+    d = {"idx": net.idx, "mask": net.mask, **net.params,
+         "norm_min": net.norm_min, "norm_max": net.norm_max,
+         "out_min": net.out_min, "out_max": net.out_max}
+    return {k: np.array(v) for k, v in d.items()}
+
+
+@pytest.fixture
+def jax_init(monkeypatch):
+    """The port's ``init_kitnet`` replaced by the JAX package's, on the
+    clusters the port's feature map found, carried over as arrays."""
+    def init(generator, clusters, n_features, hidden_ratio=0.75, device=None):
+        net = jax_kitnet.init_kitnet(jax.random.PRNGKey(generator.initial_seed()),
+                                     clusters, n_features, hidden_ratio)
+        return kitnet_from_arrays(_arrays(net), device=device)
+    monkeypatch.setattr(port_kitnet, "init_kitnet", init)
+
+
+def _data(attack: str, n_train: int = 1024, n_eval: int = 1024):
+    return synth_trace(attack, n_train=n_train, n_benign_eval=n_eval // 2,
+                       n_attack=n_eval // 2, seed=0)
+
+
+def _backend(mode: str) -> str:
+    return "scan" if mode == "exact" else "serial"
+
+
+# ---------------------------------------------------------------------------
+# metrics and scoring
+# ---------------------------------------------------------------------------
+def test_metrics_match_jax():
+    rng = np.random.default_rng(0)
+    scores = rng.normal(size=400).astype(np.float32)
+    labels = (rng.uniform(size=400) < 0.3).astype(np.uint8)
+    scores[labels == 1] += 1.0
+    for fpr in (0.01, 0.1, 0.5):
+        assert threshold_at_fpr(scores, fpr) == jax_metrics.threshold_at_fpr(scores, fpr)
+        assert f1_at_fpr(scores, labels, fpr) == jax_metrics.f1_at_fpr(scores, labels, fpr)
+    # every record an attack: no benign score sets the threshold
+    ones = np.ones(8, np.uint8)
+    assert np.isnan(f1_at_fpr(scores[:8], ones, 0.1))
+    assert np.isnan(jax_metrics.f1_at_fpr(scores[:8], ones, 0.1))
+    # no attack at all: F1 is 0.0 in both
+    zeros = np.zeros(8, np.uint8)
+    assert f1_at_fpr(scores[:8], zeros, 0.1) == 0.0
+    assert jax_metrics.f1_at_fpr(scores[:8], zeros, 0.1) == 0.0
+    assert auc(scores, labels) == jax_metrics.auc(scores, labels)
+
+
+def test_score_kitnet_matches_jax():
+    """The einsum scoring path on a net of random arrays, both packages."""
+    rng = np.random.default_rng(1)
+    feats = np.abs(rng.normal(size=(300, 80))).astype(np.float32)
+    idx, mask = jax_kitnet._pad_clusters(jax_kitnet.feature_map(feats, 10))
+    k, m = idx.shape
+    h, kh = int(np.ceil(0.75 * m)), int(np.ceil(0.75 * k))
+    r = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    arrays = {"idx": idx, "mask": mask, "W1": r(k, m, h), "b1": r(k, h),
+              "W2": r(k, h, m), "b2": r(k, m), "V1": r(k, kh), "c1": r(kh),
+              "V2": r(kh, k), "c2": r(k), "norm_min": feats.min(0),
+              "norm_max": feats.max(0),
+              "out_min": rng.uniform(0, 0.1, k).astype(np.float32),
+              "out_max": rng.uniform(0.2, 0.4, k).astype(np.float32)}
+    net = jax_kitnet.KitNet(
+        idx=arrays["idx"], mask=arrays["mask"],
+        params={n: arrays[n] for n in ("W1", "b1", "W2", "b2", "V1", "c1",
+                                       "V2", "c2")},
+        norm_min=arrays["norm_min"], norm_max=arrays["norm_max"],
+        out_min=arrays["out_min"], out_max=arrays["out_max"])
+    want = jax_kitnet.score_kitnet(net, feats)
+    got = score_kitnet(kitnet_from_arrays(arrays, device="cpu"), feats)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the runners and the sweep against JAX, with JAX's initial weights
+# ---------------------------------------------------------------------------
+def test_kitsune_baseline_samples_jax_packets():
+    """The baseline's records are the packets the JAX package's
+    ``epoch_indices`` samples (its scores are compared in the sweep)."""
+    data = _data("syn_dos")
+    n_tr = len(data["train"]["ts"])
+    want = data["eval"]["label"][jax_records.epoch_indices(1024, 16, offset=n_tr)]
+    s_t, l_t = run_kitsune_baseline(data, 16, n_slots=N_SLOTS, device="cpu")
+    assert len(l_t) == 1024 // 16 and s_t.shape == l_t.shape
+    np.testing.assert_array_equal(l_t, want)
+    assert np.isfinite(s_t).all()
+
+
+@pytest.mark.parametrize("attack,mode", [("syn_dos", "switch"),
+                                         ("mirai", "exact")])
+def test_run_peregrine_matches_jax(jax_init, attack, mode):
+    data = _data(attack)
+    kw = dict(n_slots=N_SLOTS, mode=mode, backend=_backend(mode))
+    s_j, l_j = jax_peregrine(data, 16, **kw)
+    s_t, l_t = run_peregrine(data, 16, device="cpu", **kw)
+    assert len(l_t) == 1024 // 16
+    np.testing.assert_array_equal(l_t, l_j)
+    np.testing.assert_allclose(s_t, s_j, **SCORE_TOL)
+    assert abs(auc(s_t, l_t) - auc(s_j, l_j)) <= AUC_TOL
+
+
+@pytest.mark.parametrize("attack,mode", [("syn_dos", "exact"),
+                                         ("mirai", "switch")])
+def test_sweep_matches_jax(jax_init, attack, mode):
+    data = _data(attack)
+    kw = dict(n_slots=N_SLOTS, mode=mode, backend=_backend(mode))
+    want = jax_sweep(data, [1, 256], **kw)
+    got = sweep_attack(data, [1, 256], device="cpu", **kw)
+    for system in ("peregrine", "kitsune"):
+        for rate in (1, 256):
+            g, w = got[system][rate], want[system][rate]
+            assert (g["n_records"], g["n_attack"]) == (w["n_records"], w["n_attack"])
+            if (system, rate) == ("kitsune", 256):
+                continue            # a 4-record fit: see the module docstring
+            assert abs(g["auc"] - w["auc"]) <= AUC_TOL, (system, rate, g, w)
+            for key in ("f1_fpr10", "f1_fpr01"):
+                assert abs(g[key] - w[key]) <= F1_TOL, (system, rate, g, w)
+    # rate 256 leaves 4 Peregrine training records: the min_train_records
+    # rule refits on 16
+    assert got["peregrine"][256]["n_records"] == 1024 // 256
+
+
+# ---------------------------------------------------------------------------
+# the port's own initial weights
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("attack", ["syn_dos", "mirai"])
+def test_own_init_auc_within_margins(attack):
+    """``run_peregrine`` at rate 16 (64 eval records), exact mode, mean AUC
+    over seeds 0-2 on each side: a single initialisation moves mirai's AUC
+    by more than the margin in either package alone."""
+    data = _data(attack)
+    kw = dict(n_slots=N_SLOTS, mode="exact", backend="scan")
+    want = [auc(*jax_peregrine(data, 16, seed=seed, **kw)) for seed in (0, 1, 2)]
+    got = [auc(*run_peregrine(data, 16, seed=seed, device="cpu", **kw))
+           for seed in (0, 1, 2)]
+    assert abs(np.mean(got) - np.mean(want)) <= MARGIN[attack], (want, got)
+
+
+def test_peregrine_beats_kitsune_under_sampling():
+    """The JAX package's property (tests/test_detection.py): the paper's
+    core claim on one attack at an aggressive rate, exact mode."""
+    data = synth_trace("syn_dos", n_train=8000, n_benign_eval=6000,
+                       n_attack=6000, seed=3)
+    res = sweep_attack(data, rates=[256], mode="exact", backend="scan",
+                       device="cpu")
+    p = res["peregrine"][256]["auc"]
+    k = res["kitsune"][256]["auc"]
+    assert p > 0.9, res
+    assert p >= k - 0.01, res
+
+
+def test_md_options_raise():
+    with pytest.raises(TypeError, match="md_kw"):
+        run_peregrine(_data("syn_dos"), 16, device="cpu", md_kw={"bb": 64})
+    with pytest.raises(TypeError, match="md_kw"):
+        sweep_attack(_data("syn_dos"), [16], device="cpu", md_kw={"bb": 64})

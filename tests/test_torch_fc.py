@@ -189,9 +189,10 @@ def test_state_updated_in_place():
 
 
 def test_registry_names_aliases_and_errors():
-    assert available_backends() == ("cuda", "serial")
+    assert available_backends() == ("cuda", "scan", "serial")
     assert resolve_backend("kernel") == "cuda"
     assert resolve_backend("pallas") == "cuda"
+    assert resolve_backend("parallel") == "scan"
     for name in ("oracle", "nope"):
         with pytest.raises(ValueError, match="unknown FC backend"):
             resolve_backend(name)
@@ -199,11 +200,14 @@ def test_registry_names_aliases_and_errors():
     pk = to_torch(_trace("syn_dos"), "cpu")
     with pytest.raises(ValueError, match="unknown FC backend"):
         compute_features(st, pk, backend="nope")
-    for name in ("scan", "bucketed", "sharded"):
+    _, f = compute_features(init_state(64, device="cpu"), pk, backend="scan")
+    assert f.shape == (N_PKTS, N_FEATURES)
+    for name in ("bucketed", "sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             compute_features(st, pk, backend=name)
-    with pytest.raises(NotImplementedError, match="switch"):
-        compute_features(st, pk, backend="serial", mode="switch")
+    for name in ("cuda", "scan"):
+        with pytest.raises(ValueError, match="serial"):
+            compute_features(st, pk, backend=name, mode="switch")
     with pytest.raises(TypeError, match="chunk"):
         compute_features(st, pk, backend="pallas", chunk=64)
 

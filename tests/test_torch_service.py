@@ -119,12 +119,15 @@ def test_service_needs_a_card_by_default():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DetectionService(device="cpu", mode="switch")
+    svc = DetectionService(device="cpu", mode="switch")
+    assert svc.backend == "serial" and not svc.fused
     with pytest.raises(ValueError, match="unknown state backend"):
         DetectionService(device="cpu", state_backend="bloom")
+    assert DetectionService(device="cpu", backend="scan").backend == "scan"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DetectionService(device="cpu", backend="scan")
+        DetectionService(device="cpu", backend="bucketed")
+    with pytest.raises(ValueError, match="serial"):
+        DetectionService(device="cpu", mode="switch", backend="cuda")
     with pytest.raises(TypeError, match="chunk"):
         DetectionService(device="cpu", chunk=64)
     with pytest.raises(TypeError, match="md_kw"):
@@ -136,20 +139,33 @@ def test_unported_options_raise():
         svc.fit()
 
 
-def test_serve_launcher_on_cpu(capsys):
+def _serve(capsys, *args) -> dict:
     import json
     import sys
     from repro_torch.launch import serve
     argv = sys.argv
-    sys.argv = ["serve", "--device", "cpu", "--attack", "syn_dos",
-                "--n-train", "1500", "--n-eval", "1000", "--epoch", "64",
-                "--n-slots", "512", "--chunk", "500"]
+    sys.argv = ["serve", "--device", "cpu", *args]
     try:
         serve.main()
     finally:
         sys.argv = argv
-    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_serve_launcher_on_cpu(capsys):
+    out = _serve(capsys, "--attack", "syn_dos", "--n-train", "1500",
+                 "--n-eval", "1000", "--epoch", "64", "--n-slots", "512",
+                 "--chunk", "500")
     assert out["device"] == "cpu" and out["records"] == 2500 // 64 - 1500 // 64
     assert out["launches"] == {"fc_full": 0, "kitnet_ae": 0, "kitnet_score": 0,
                                "sketch_update": 0, "feature_update": 0,
                                "flash_attention": 0}
+
+
+def test_serve_launcher_switch_mode_on_cpu(capsys):
+    out = _serve(capsys, "--fc-mode", "switch", "--attack", "syn_dos",
+                 "--n-train", "300", "--n-eval", "200", "--epoch", "16",
+                 "--n-slots", "256", "--chunk", "128")
+    assert out["device"] == "cpu" and out["records"] == 500 // 16 - 300 // 16
+    assert out["fc_mode"] == "switch" and np.isfinite(out["auc"])
+    assert set(out["launches"].values()) == {0}
