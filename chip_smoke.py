@@ -111,6 +111,25 @@ back-to-back call, which includes the wrapper's host overhead.
                launch counts zeroed just before and read just after (no
                fc_full, the KitNET kernels as in phase main); eval pps, the
                device's busy share and AUC beside phase main's.
+  engine  — the multi-tenant engine with phase main's net: the
+               tenant-batched fc_full on tenants {0, 2, 3} of a 4-tenant pool
+               at n_slots=8192 (8192-packet eval chunks at three offsets)
+               against its plain version (process_serial lane by lane) and
+               three single launches, bit for bit, features and every pool
+               table; its device ms against the three launches', and the
+               profiler's count of each FC kernel a batched call (once).
+               Then 4 tenants each fed the 262,144 eval packets through
+               DetectionEngine.run (chunk 8192, epoch 1024, queue depth 4),
+               counts zeroed just before and read just after (one fc_full and
+               one kitnet_score launch a batch of 4 lanes), each tenant
+               against its solo process_stream bit for bit (results and end
+               state); aggregate pps, worst-tenant p99, slot collisions,
+               busy share and device launches a batched call (profiler), the
+               single stream's eval pps and the ratio of the two over 3
+               alternating rounds; 4 tenants on syn_dos, ssdp_flood,
+               goldeneye and fuzzing (16,384 packets each) and 2 tenants on
+               the sketch layout (4096 wide, rows 2, phase sketch_main's net),
+               each against its solo service bit for bit.
   eval    — the evaluation protocol, launch counts zeroed just before each
                part and read just after: sweep_attack in exact mode over
                phase main's traffic at rates 64, 256 and 1024 (fc_full and
@@ -1156,6 +1175,272 @@ def phase_scan_main(data, main: dict, main_trace: dict, log) -> None:
          log)
 
 
+# ---------------------------------------------------------------------------
+# the multi-tenant engine
+# ---------------------------------------------------------------------------
+def same_results(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def solo_service(net, threshold: float, **kw):
+    """A service on the card with a fitted net and threshold and fresh
+    tables: a tenant's solo reference."""
+    from repro_torch.serving import DetectionService
+    s = DetectionService(threshold=threshold, **kw)
+    s.net = net
+    return s
+
+
+def engine_fc_case(dev, data) -> dict:
+    """The tenant-batched fc_full on tenants {0, 2, 3} of a 4-tenant pool at
+    n_slots=8192 (each tenant warmed on its own 8192 training packets), each
+    lane an 8192-packet chunk of the eval stream at its own offset: equal to
+    its plain version (process_serial lane by lane) and to three
+    single-state launches, bit for bit, features and every pool table.
+    Device ms of the batched launch against three single launches, and the
+    device kernels a batched call runs (profiler): each of fc_full's six
+    once a call."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.state import init_state_stacked, tenant_view
+    from repro_torch.kernels.feature_update import (feature_update_full,
+                                                    feature_update_full_tenants,
+                                                    feature_update_full_tenants_ref)
+    from repro_torch.traffic import to_torch
+    n_slots, chunk, tids = 8192, 8192, [0, 2, 3]
+    pool = init_state_stacked(4, n_slots, device=dev)
+    for t in range(4):
+        feature_update_full(tenant_view(pool, t), to_torch(
+            {k: v[t * chunk:(t + 1) * chunk] for k, v in data["train"].items()}, dev))
+    offsets = [0, 12 * chunk, 25 * chunk]
+    pk = to_torch({k: np.stack([v[o:o + chunk] for o in offsets])
+                   for k, v in data["eval"].items()}, dev)
+
+    def copy(p):
+        return {g: {k: v.clone() for k, v in p[g].items()} for g in p}
+
+    p_k, p_p, p_s = copy(pool), copy(pool), copy(pool)
+    _, f_k = feature_update_full_tenants(p_k, tids, pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, f_p = feature_update_full_tenants_ref(p_p, tids, pk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    lanes = [{k: v[lane] for k, v in pk.items()} for lane in range(len(tids))]
+    f_s = torch.stack([feature_update_full(tenant_view(p_s, t), lanes[lane])[1]
+                       for lane, t in enumerate(tids)])
+    tables = [(g, k) for g in ("uni", "bi") for k in pool[g]]
+    err = max([max_abs(f_k, f_p)] + [max_abs(p_k[g][k], p_p[g][k]) for g, k in tables])
+    if not (torch.equal(f_k, f_p) and all(torch.equal(p_k[g][k], p_p[g][k])
+                                          for g, k in tables)):
+        raise RuntimeError(f"engine: tenant-batched fc_full differs from its plain "
+                           f"version (max abs err {err})")
+    if not (torch.equal(f_k, f_s) and all(torch.equal(p_k[g][k], p_s[g][k])
+                                          for g, k in tables)):
+        raise RuntimeError("engine: tenant-batched fc_full differs from single launches")
+    if not all(torch.equal(p_k[g][k][1], pool[g][k][1]) for g, k in tables):
+        raise RuntimeError("engine: tenant-batched fc_full wrote a tenant outside the batch")
+
+    def batched():
+        feature_update_full_tenants(p_k, tids, pk)
+
+    def singles():
+        for lane, t in enumerate(tids):
+            feature_update_full(tenant_view(p_s, t), lanes[lane])
+
+    reps = 50
+    single = timed(singles, reps, FC_NAMES)
+    # the profiler's ms is per launch of each kernel, three launches a call
+    single["three_ms"] = single["ms"] * (3 if single["ms_from"] == "profiler" else 1)
+    batched()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            batched()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    per_call = {name: sum(c for key, (_, c) in events.items() if name in key) / reps
+                for name in FC_NAMES}
+    if any(v != 1 for v in per_call.values()):
+        raise RuntimeError(f"engine: a batched fc_full call ran {per_call} of the FC "
+                           "kernels, not each once")
+    return {"tenants": 4, "lanes": tids, "packets_per_lane": chunk, "n_slots": n_slots,
+            "offsets": offsets, "bitwise_plain": True, "bitwise_single_launches": True,
+            "max_abs_err": err, "plain_ms": plain_ms,
+            "batched": timed(batched, reps, FC_NAMES),
+            "three_single": single,
+            "batched_device": device_ms_per_call(batched, reps),
+            "three_single_device": device_ms_per_call(singles, reps),
+            "fc_kernels_per_batched_call": per_call,
+            "device_launches_per_batched_call": sum(c for _, c in events.values()) / reps}
+
+
+def engine_run(svc, traces: dict, **kw):
+    """A fresh engine from ``svc`` (4 tenants, chunk 8192, queue depth 4
+    unless ``kw`` says otherwise), one tenant a trace, through ``run``;
+    returns the engine, its tenants and the wall seconds of the whole."""
+    from repro_torch.serving import DetectionEngine
+    cfg = dict(n_tenants=4, chunk=8192, queue_depth=4)
+    cfg.update(kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = DetectionEngine.from_service(svc, **cfg)
+    tids = [eng.add_tenant() for _ in traces]
+    eng.run(dict(zip(tids, traces)))
+    torch.cuda.synchronize()
+    return eng, tids, time.perf_counter() - t0
+
+
+def check_tenants(eng, tids, traces, solo_kw: dict, what: str) -> None:
+    """Each tenant's results and end state equal its own solo service's
+    process_stream on the card, bit for bit (fresh tables both times)."""
+    solos = {}
+    for t, tr in zip(tids, traces):
+        key = id(tr)
+        if key not in solos:
+            s = solo_service(**solo_kw)
+            solos[key] = (s.process_stream(tr, chunk=eng.chunk), s.state)
+        want, end = solos[key]
+        if not same_results(eng.results(t), want):
+            raise RuntimeError(f"engine {what}: tenant {t}'s results differ from "
+                               "its solo process_stream")
+        got = eng.pool.read(t)
+        if not (states_equal(got, end)
+                and torch.equal(got.get("evict_age", torch.zeros(())).cpu(),
+                                end.get("evict_age", torch.zeros(())).cpu())):
+            raise RuntimeError(f"engine {what}: tenant {t}'s end state differs from "
+                               "its solo process_stream")
+
+
+def phase_engine(dev, data, svc, sketch_svc, log) -> dict:
+    """The multi-tenant engine on the card with phase main's fitted net (and
+    phase sketch_main's for the sketch pool): the tenant-batched fc_full
+    against its plain version and single launches; 4 tenants each fed the
+    dense cell's 262,144 eval packets through run (chunk 8192, epoch 1024,
+    n_slots 8192, queue depth 4), counts zeroed just before and read just
+    after (one fc_full and one kitnet_score launch a batch of 4 lanes),
+    each tenant equal to its solo process_stream bit for bit; aggregate
+    pps, worst-tenant p99, slot collisions, the device's busy share and
+    launches a batched call (profiler), the single stream's eval pps and
+    the ratio of the two over alternating rounds; 4 tenants on 4 attacks
+    (16,384 packets each) and 2 tenants on the sketch cell's layout, each
+    equal to its solo run bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.state import slot_collisions
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.traffic import synth_trace, to_torch
+    fc_case = engine_fc_case(dev, data)
+    ev = {k: v for k, v in data["eval"].items() if k != "label"}
+    n_eval = len(ev["ts"])
+    dense_kw = dict(net=svc.net, threshold=svc.threshold)
+
+    # ---- 4 tenants on the dense cell's eval stream ----
+    engine_run(svc, [ev] * 4)                                   # warm-up
+    reset_launch_counts()
+    eng, tids, wall = engine_run(svc, [ev] * 4)
+    launches = launch_counts()
+    batches = -(-n_eval // 8192)                # each a batch of 4 lanes
+    if launches["fc_full"] != batches or launches["kitnet_score"] != batches:
+        raise RuntimeError(f"engine: {launches} for {batches} batches of 4 lanes; "
+                           "each batch must be one fc_full and one kitnet_score launch")
+    check_tenants(eng, tids, [ev] * 4, dense_kw, "dense")
+    stats = eng.stats()
+    per = stats["tenants"]
+    collisions = sum(v["slot_collisions"] for v in per.values())
+
+    solo = solo_service(**dense_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo.process_stream(ev, chunk=8192)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    te, ts = [], []
+    for _ in range(3):
+        te.append(engine_run(svc, [ev] * 4)[2])
+        s = solo_service(**dense_kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.process_stream(ev, chunk=8192)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    ratio = (4 * n_eval / min(te)) / (n_eval / min(ts))
+    # the host's share of a batch: the collision telemetry of its 4 lanes
+    # (numpy) and the staging of its packets (np.stack, to_torch)
+    chunks = [{k: v[i:i + 8192] for k, v in ev.items()} for i in range(0, n_eval, 8192)]
+    t0 = time.perf_counter()
+    for c in chunks:
+        slot_collisions(c, 8192)
+    collisions_ms = (time.perf_counter() - t0) / len(chunks) * 1e3
+    t0 = time.perf_counter()
+    for c in chunks:
+        to_torch({k: np.stack([v] * 4) for k, v in c.items()}, dev)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) / len(chunks) * 1e3
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = engine_run(svc, [ev] * 4)[2]
+    events = device_events(prof)
+    busy_s = sum(us for us, _ in events.values()) * 1e-6
+    launched = sum(c for _, c in events.values())
+
+    # ---- 4 tenants on 4 attacks ----
+    attacks = ("syn_dos", "ssdp_flood", "goldeneye", "fuzzing")
+    iso = [{k: v for k, v in synth_trace(a, n_train=64, n_benign_eval=8192,
+                                         n_attack=8192, seed=20 + i)["eval"].items()
+            if k != "label"} for i, a in enumerate(attacks)]
+    eng_i, tids_i, _ = engine_run(svc, iso)
+    check_tenants(eng_i, tids_i, iso, dense_kw, "isolation")
+
+    # ---- 2 tenants on the sketch cell's layout ----
+    reset_launch_counts()
+    sk_traces = [{k: v[o:o + 16384] for k, v in ev.items()} for o in (0, 131072)]
+    eng_s, tids_s, _ = engine_run(sketch_svc, sk_traces, n_tenants=2)
+    sk_launches = launch_counts()
+    if sk_launches["sketch_update"] != 2 * 2 or sk_launches["fc_full"]:
+        raise RuntimeError(f"engine sketch: {sk_launches}; the sketch pool runs "
+                           "sketch_update once a lane a batch")
+    check_tenants(eng_s, tids_s, sk_traces,
+                  dict(net=sketch_svc.net, threshold=sketch_svc.threshold,
+                       n_slots=4096, state_backend="sketch", state_kw={"rows": 2}),
+                  "sketch")
+    rec = {"phase": "engine", "fc_tenants": fc_case,
+           "run": {"tenants": 4, "eval_pkts_per_tenant": n_eval, "chunk": 8192,
+                   "epoch": svc.epoch, "n_slots": 8192, "queue_depth": 4,
+                   "pool_mib": sum(t.numel() * t.element_size()
+                                   for g in ("uni", "bi")
+                                   for t in eng.pool.stacked[g].values()) / 2 ** 20,
+                   "wall_s": wall, "agg_pps": 4 * n_eval / min(te),
+                   "agg_pps_first_run": 4 * n_eval / wall,
+                   "agg_pps_stats": stats["aggregate"]["pps"],
+                   "agg_pps_rounds": [4 * n_eval / t for t in te],
+                   "host_ms_per_batch": {"wall": min(te) / batches * 1e3,
+                                         "slot_collisions_4_lanes": 4 * collisions_ms,
+                                         "stage_4_lanes": stage_ms},
+                   "worst_p99_ms": max(v["p99_ms"] for v in per.values()),
+                   "p50_ms": {t: v["p50_ms"] for t, v in per.items()},
+                   "slot_collisions": collisions, "records": {
+                       t: v["records"] for t, v in per.items()},
+                   "alarms": {t: v["alarms"] for t, v in per.items()},
+                   "launches": launches, "batches": batches, "bitwise_solo": True},
+           "single_stream": {"eval_s": single_s, "eval_pps": n_eval / min(ts),
+                             "eval_pps_first_run": n_eval / single_s,
+                             "eval_pps_rounds": [n_eval / t for t in ts],
+                             "wall_ms_per_chunk": min(ts) / batches * 1e3},
+           "interleaved_engine_ratio": ratio,
+           "trace": {"traced_s": traced, "device_busy_s": busy_s,
+                     "busy_share_traced": busy_s / traced,
+                     "busy_share_untraced": busy_s / min(te),
+                     "device_launches": launched,
+                     "device_launches_per_batched_call": launched / batches,
+                     "top_device_us": dict(sorted(((k, us) for k, (us, _) in events.items()),
+                                                  key=lambda kv: -kv[1])[:10])},
+           "isolation": {"attacks": attacks, "packets_each": 16384, "bitwise_solo": True},
+           "sketch_pool": {"tenants": 2, "n_slots": 4096, "rows": 2,
+                           "packets_each": 16384, "launches": sk_launches,
+                           "bitwise_solo": True}}
+    emit(rec, log)
+    return rec
+
+
 def phase_eval(data, net, log) -> None:
     """The paper's evaluation protocol on the card, launch counts zeroed
     just before each part and read just after: sweep_attack in exact mode
@@ -1801,6 +2086,7 @@ def main() -> int:
     phase_switch(dev, log)
     phase_scan(dev, pk, log)
     phase_scan_main(data, main, main_trace, log)
+    engine = phase_engine(dev, data, svc, sketch_svc, log)
     phase_eval(data, net, log)
 
     # ---- 7. LM serving of gemma2-2b at full width, traced, against plain ----
@@ -1813,10 +2099,13 @@ def main() -> int:
     ens["launches"] = launches["kitnet_ae"]
     score["launches"] = launches["kitnet_score"]
     sk["launches"] = sketch_launches["sketch_update"]
+    fc["tenant_axis"] = {"lanes": 3, "batched_ms": engine["fc_tenants"]["batched"]["ms"],
+                         "three_single_ms": engine["fc_tenants"]["three_single"]["three_ms"],
+                         "engine_launches": engine["run"]["launches"]["fc_full"]}
     single["launches"] = single_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("bf16", "chain_floor_ms", "computes")
+    extra = ("bf16", "chain_floor_ms", "computes", "tenant_axis")
     table = {"kernels": [{**{key: kern[key] for key in keys},
                           **{key: kern[key] for key in extra if key in kern}}
                          for kern in (fc, ens, score, sk, single, flash)]}

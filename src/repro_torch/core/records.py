@@ -5,7 +5,7 @@ per epoch of ``epoch`` packets for the ML detector (DESIGN.md §5).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,3 +39,18 @@ def epoch_gather(n_packets: int, epoch: int, offset_mod: int,
                                        device=device)
     idx = torch.where(idx < n_packets, idx, torch.zeros_like(idx))
     return idx, count
+
+
+def epoch_gather_lanes(n_packets: int, epoch: int, offset_mods: Sequence[int],
+                       device=None) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """:func:`epoch_gather` for L lanes of ``n_packets`` each, lane l at
+    running count residue ``offset_mods[l]``, in one set of tensor ops.
+    Returns ``(idx, counts)``: ``idx`` (L, ceil(n/epoch)) int64 within-lane
+    record positions, zero-padded past ``counts[l]`` (host ints)."""
+    max_rec = max(1, -(-n_packets // epoch))
+    first = [(epoch - 1 - int(m)) % epoch for m in offset_mods]
+    counts = tuple(0 if f >= n_packets else (n_packets - 1 - f) // epoch + 1
+                   for f in first)
+    idx = (torch.tensor(first, dtype=torch.int64).to(device)[:, None]
+           + epoch * torch.arange(max_rec, dtype=torch.int64, device=device))
+    return torch.where(idx < n_packets, idx, torch.zeros_like(idx)), counts

@@ -9,6 +9,11 @@ feature step updates these tensors in place; that takes the place of the
 JAX package's buffer donation (DESIGN.md §8): a caller that needs a restore
 point clones the tensors (``clone_state``) before the step.
 
+The multi-tenant engine keeps N tenants' tables as one pool
+(``init_state_stacked``, :class:`StatePool`): every table gains a leading
+tenant axis, so tenant t's state is the contiguous view ``pool[g][k][t]``
+(``tenant_view``) and the tenant-batched FC kernel writes the pool in place.
+
 The layout is pluggable (DESIGN.md §11): ``init_state(n, state_backend=...)``
 selects a registered :class:`StateBackend`, ``dense`` (the direct-indexed
 slot tables below, the default) or ``sketch`` (Count-Min rows with
@@ -23,8 +28,9 @@ the slot mapping bit-identical to the JAX package's uint32 arithmetic.
 from __future__ import annotations
 
 import importlib
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
@@ -191,8 +197,157 @@ def state_device(state: Dict) -> torch.device:
 def clone_state(state: Dict) -> Dict:
     """A copy of every table (and of the sketch's ``evict_age``): the
     restore point for an in-place step."""
-    return {g: ({k: t.clone() for k, t in v.items()} if isinstance(v, dict)
-                else v.clone()) for g, v in state.items()}
+    return _map_state(torch.Tensor.clone, state)
+
+
+def _leaves(state: Dict):
+    """(group, key, tensor) of every table, and of a sketch's ``evict_age``
+    (group ``None``), in a fixed order."""
+    for g, v in state.items():
+        if isinstance(v, dict):
+            for k, t in v.items():
+                yield g, k, t
+        else:
+            yield None, g, v
+
+
+def _map_state(fn, state: Dict) -> Dict:
+    return {g: ({k: fn(t) for k, t in v.items()} if isinstance(v, dict)
+                else fn(v)) for g, v in state.items()}
+
+
+def init_state_stacked(n_tenants: int, n_slots: int,
+                       state_backend: str = "dense", device: DeviceLike = None,
+                       **state_kw) -> Dict:
+    """N fresh flow-table states as ONE stacked dict (a leading tenant axis
+    on every table, and on a sketch's ``evict_age``): the single-allocation
+    layout :class:`StatePool` manages.  Dense: ``uni/*`` (T, N_UNI, n_slots,
+    N_DECAY), ``bi/*`` (T, N_BI, n_slots, 2, N_DECAY)."""
+    one = init_state(n_slots, state_backend=state_backend, device=device,
+                     **state_kw)
+    return _map_state(lambda t: t[None].expand((n_tenants,) + t.shape).clone(),
+                      one)
+
+
+def tenant_view(pool: Dict, tid: int) -> Dict:
+    """Tenant ``tid``'s state in a stacked pool as views (same storage): a
+    step on it updates the pool in place."""
+    return _map_state(lambda t: t[tid], pool)
+
+
+class StatePool:
+    """Bounded pool of per-tenant flow-table states, stacked on the device.
+
+    The pool owns ``n_tenants`` tenant slots stored as one stacked dict
+    (``init_state_stacked``): each table carries a leading tenant axis, so
+    the whole pool is a single allocation per table, not N, and the
+    tenant-batched step (serving/fused.py) advances any subset of tenant
+    states in place without the states ever mixing.
+
+    Lifecycle: ``alloc()`` claims a free slot (its state is freshly
+    reset), ``free(tid)`` releases it, ``reset(tid)`` zeroes a live
+    tenant's tables in place (a new capture on the same slot).  The stacked
+    dict lives at ``pool.stacked``; a step updates it in place.
+    """
+
+    def __init__(self, n_tenants: int, n_slots: int,
+                 state_backend: str = "dense", device: DeviceLike = None,
+                 **state_kw):
+        if n_tenants < 1:
+            raise ValueError(f"need at least one tenant slot, got {n_tenants}")
+        self.n_tenants = int(n_tenants)
+        self.n_slots = int(n_slots)
+        self.device = resolve_device(device)
+        self.state_backend = resolve_state_backend(state_backend).name
+        self.state_kw = dict(state_kw)
+        self.stacked = init_state_stacked(n_tenants, n_slots,
+                                          state_backend=self.state_backend,
+                                          device=self.device, **self.state_kw)
+        self._live: List[bool] = [False] * n_tenants
+        # one fresh single-tenant state kept as the reset template so
+        # reset() never rebuilds it per call
+        self._fresh = init_state(n_slots, state_backend=self.state_backend,
+                                 device=self.device, **self.state_kw)
+        # pristine[t] <=> slot t is known to hold a fresh state, letting
+        # alloc() skip the copy a reset costs; anything that writes a slot
+        # outside reset() must clear the flag (write() and the engine's
+        # dispatch do: mark_dirty)
+        self._pristine: List[bool] = [True] * n_tenants
+
+    # ---- slot lifecycle ----
+    @property
+    def live(self) -> Tuple[int, ...]:
+        """Currently allocated tenant ids, ascending."""
+        return tuple(t for t, on in enumerate(self._live) if on)
+
+    @property
+    def free_slots(self) -> int:
+        return self.n_tenants - len(self.live)
+
+    def alloc(self) -> int:
+        """Claim the lowest free tenant slot (freshly reset); raises
+        ``RuntimeError`` when the pool is exhausted: the caller decides
+        whether that means shed, queue, or grow a new pool."""
+        for t, on in enumerate(self._live):
+            if not on:
+                self._live[t] = True
+                if not self._pristine[t]:
+                    self.reset(t)
+                return t
+        raise RuntimeError(
+            f"StatePool exhausted: all {self.n_tenants} tenant slots live")
+
+    def free(self, tid: int) -> None:
+        """Release a tenant slot.  The table reset is deferred to the next
+        ``alloc`` of the slot (pristine tracking), so detach is O(1) and a
+        later alloc still always starts clean."""
+        self._check(tid)
+        self._live[tid] = False
+
+    def reset(self, tid: int) -> None:
+        """Zero tenant ``tid``'s flow tables in place (fresh capture)."""
+        if not 0 <= tid < self.n_tenants:
+            raise IndexError(f"tenant {tid} out of range 0..{self.n_tenants - 1}")
+        self._install(tid, self._fresh)
+        self._pristine[tid] = True
+
+    def mark_dirty(self, tids) -> None:
+        """Record that ``tids``' slots no longer hold fresh state.  Callers
+        that step ``pool.stacked`` directly (the engine's dispatch does)
+        must call this so a freed slot's next alloc knows to reset it."""
+        for t in tids:
+            self._pristine[int(t)] = False
+
+    def _check(self, tid: int) -> None:
+        if not 0 <= tid < self.n_tenants:
+            raise IndexError(f"tenant {tid} out of range 0..{self.n_tenants - 1}")
+        if not self._live[tid]:
+            raise KeyError(f"tenant {tid} is not allocated")
+
+    def _install(self, tid: int, state: Dict) -> None:
+        pairs = []
+        for g, k, dst in _leaves(self.stacked):
+            src = (state.get(g, {}) if g is not None else state).get(k)
+            if src is None or tuple(src.shape) != tuple(dst.shape[1:]):
+                raise ValueError(
+                    f"state does not match the pool's layout at {g}/{k} "
+                    f"({self.state_backend}, {self.n_slots} slots)")
+            pairs.append((dst, src))
+        for dst, src in pairs:
+            dst[tid].copy_(src)
+
+    # ---- state access ----
+    def read(self, tid: int) -> Dict:
+        """A standalone COPY of tenant ``tid``'s state (safe to keep across
+        later steps of the pool)."""
+        self._check(tid)
+        return _map_state(lambda t: t[tid].clone(), self.stacked)
+
+    def write(self, tid: int, state: Dict) -> None:
+        """Install a copy of a single-tenant state into slot ``tid``."""
+        self._check(tid)
+        self._install(tid, state)
+        self._pristine[tid] = False
 
 
 # ---------------------------------------------------------------------------
@@ -253,4 +408,64 @@ def packet_slots(pkts: Dict[str, torch.Tensor],
     out = {k: hash_fields(f, KEY_SALTS[k]) % n_slots
            for k, f in fields.items()}
     out["dir"] = dirb
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Dense-path slot-collision telemetry (host-side numpy twin of the hash)
+# ---------------------------------------------------------------------------
+# salt for the collision fingerprint: independent of every table salt
+# (KEY_SALTS and the sketch row salts), so two flows sharing a slot almost
+# never share a fingerprint
+_FP_SALT = 0x7F4A7C15
+
+
+def np_hash_fields(fields, salt: int) -> np.ndarray:
+    """Numpy twin of :func:`hash_fields` on uint32 values, bit for bit, so
+    per-chunk telemetry never touches the device."""
+    h = np.full(np.shape(fields[0]), np.uint32((salt ^ _FNV) & _MASK32), np.uint32)
+    for f in fields:
+        h = (h ^ np.asarray(f, np.uint32)) * np.uint32(_GOLDEN)
+        h = h ^ (h >> np.uint32(15))
+    return h
+
+
+def _np_key_fields(pkts) -> Dict[str, Tuple]:
+    src = np.asarray(pkts["src"])
+    dst = np.asarray(pkts["dst"])
+    sport = np.asarray(pkts["sport"])
+    dport = np.asarray(pkts["dport"])
+    lo_is_src = (src < dst) | ((src == dst) & (sport <= dport))
+    ip_lo = np.where(lo_is_src, src, dst)
+    ip_hi = np.where(lo_is_src, dst, src)
+    p_lo = np.where(lo_is_src, sport, dport)
+    p_hi = np.where(lo_is_src, dport, sport)
+    return {
+        "src_mac_ip": (src,),
+        "src_ip": (src,),
+        "channel": (ip_lo, ip_hi),
+        "socket": (ip_lo, ip_hi, p_lo, p_hi, np.asarray(pkts["proto"])),
+    }
+
+
+def slot_collisions(pkts: Dict[str, np.ndarray],
+                    n_slots: int) -> Dict[str, int]:
+    """Distinct flow keys aliased onto an occupied slot in this chunk.
+
+    Per key type: hash every packet to its dense slot, fingerprint the flow
+    key with an independent salt, and count ``distinct (slot, key) pairs -
+    distinct slots``, i.e. how many distinct flows merged into a slot some
+    other flow already claims.  0 everywhere <=> the chunk was
+    collision-free.  Pure numpy on the host.
+    """
+    out = {}
+    total = 0
+    for name, f in _np_key_fields(pkts).items():
+        slot = np_hash_fields(f, KEY_SALTS[name]) % np.uint32(n_slots)
+        fp = np_hash_fields(f, _FP_SALT)
+        pair = slot.astype(np.uint64) << np.uint64(32) | fp.astype(np.uint64)
+        c = int(np.unique(pair).size - np.unique(slot).size)
+        out[name] = c
+        total += c
+    out["total"] = total
     return out

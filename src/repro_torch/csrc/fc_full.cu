@@ -10,8 +10,16 @@
 // packets that share its row; a bi key type's segment is the packets that
 // share its channel/socket slot, both directions together.  The wrapper
 // stable-sorts the 4n (key type, packet) pairs by combined key
-// kt*n_slots + slot, so each segment is a run of equal keys in array
-// order.  Inside a segment only three things are recurrences: the affine
+// (t*4 + kt)*n_slots + slot, so each segment is a run of equal keys in
+// array order.
+//
+// Tenants.  The tables may be a pool of T tenants' tables stacked on a
+// leading axis (init_state_stacked), and one launch may take L tenants'
+// chunks, lane-major: t is the packet's tenant in the pool (0 for a single
+// state).  Tenants share no key, so each lane's segments, and its bits, are
+// those of a launch of that lane alone.  A key's uni row is
+// (t*N_UNI + kt)*n_slots + slot and its bi base row
+// (t*N_BI + kt - 2)*n_slots + slot (key_row).  Inside a segment only three things are recurrences: the affine
 // atom updates w*delta + 1, ls*delta + x, ss*delta + x^2 per (direction,
 // decay); for bi key types the SR update sr*dsr + r*rl_opp; and the stored
 // last residual.  Everything else is arithmetic per packet on values the
@@ -105,6 +113,17 @@ struct Scratch {
   int32_t *agg0, *agg1, *aggh;      // (tiles): each tile's last scan values
 };
 
+// A combined key (t*4 + kt)*n_slots + slot: its key type and its table row,
+// the uni row (t*N_UNI + kt)*n_slots + slot or the bi base row
+// (t*N_BI + kt - 2)*n_slots + slot (N_UNI = N_BI = 2).  At t = 0 these are
+// key and key - 2*n_slots.
+__device__ __forceinline__ int key_type(int key, int n_slots) { return (key / n_slots) & 3; }
+
+__device__ __forceinline__ size_t key_row(int key, int n_slots) {
+  const int ks = key / n_slots;
+  return static_cast<size_t>((ks >> 2) * 2 + (ks & 1)) * n_slots + (key - ks * n_slots);
+}
+
 __host__ __device__ inline int64_t n_tiles(int64_t N) { return (N + TILE - 1) / TILE; }
 
 __host__ __device__ inline Scratch scratch_of(float* base, int64_t N) {
@@ -169,7 +188,7 @@ fc_scan_kernel(const int64_t* __restrict__ perm, const int32_t* __restrict__ ske
   int v0 = -1, v1 = -1, vh = -1;
   if (valid) {
     const int key = skey[p];
-    const int kt = key / n_slots;
+    const int kt = key_type(key, n_slots);
     const int i = static_cast<int>(perm[p] - static_cast<int64_t>(kt) * n);
     const int dir = kt >= 2 ? dirb[i] : 0;
     s.t[p] = ts[i];
@@ -215,18 +234,19 @@ fc_prelude_kernel(const int32_t* __restrict__ skey, Tables tab, Scratch s, int n
   if (pp >= N) return;
   const int p = static_cast<int>(pp);
   const int key = skey[p];
-  const int kt = key / n_slots;
+  const int kt = key_type(key, n_slots);
+  const size_t row = key_row(key, n_slots);
   const float t = s.t[p];
   int h = s.lhead[p];
   for (int u = p / TILE - 1; h < 0; --u) h = s.aggh[u];
   if (p + 1 == N || skey[p + 1] != key) s.send[h] = p;
   float d[ND];
   if (kt < 2) {
-    const float* lt = tab.ult + static_cast<size_t>(key) * ND;
+    const float* lt = tab.ult + row * ND;
 #pragma unroll
     for (int q = 0; q < ND; ++q) d[q] = fc::decay(p > h ? s.t[p - 1] : lt[q], t, q);
   } else {
-    const size_t base = static_cast<size_t>(key) - 2 * static_cast<size_t>(n_slots);
+    const size_t base = row;
     const int dir = s.meta[p] & 1;
     const int ps = last_before(s, p, h, dir);
     s.popp[p] = last_before(s, p, h, 1 - dir);
@@ -294,11 +314,12 @@ fc_chain_kernel(const int32_t* __restrict__ skey, Tables tab, Scratch s, int n,
   if (p >= N) return;
   const int key = skey[p];
   if (!is_head(skey, p, key)) return;
-  const int kt = key / n_slots;
+  const int kt = key_type(key, n_slots);
+  const size_t row = key_row(key, n_slots);
   const int64_t end = static_cast<int64_t>(s.send[p]) + 1;
 
   if (kt < 2) {
-    const size_t e = static_cast<size_t>(key) * ND + q;
+    const size_t e = row * ND + q;
     float w = tab.uw[e], ls = tab.uls[e], ss = tab.uss[e];
     fc::uni_chain(s.delta, s.x, p, end, q, w, ls, ss, s.pw, s.pls, s.pss);
     tab.ult[e] = s.t[end - 1];
@@ -308,7 +329,7 @@ fc_chain_kernel(const int32_t* __restrict__ skey, Tables tab, Scratch s, int n,
 
   // bi: both directions' atoms in registers; the rows are stored back by
   // fc_sr_kernel, after fc_residual_kernel has read them as stored
-  const size_t base = static_cast<size_t>(key) - 2 * static_cast<size_t>(n_slots);
+  const size_t base = row;
   const size_t e0 = base * 2 * ND + q, e1 = (base * 2 + 1) * ND + q;
   float w[2] = {tab.bw[e0], tab.bw[e1]}, ls[2] = {tab.bls[e0], tab.bls[e1]},
         ss[2] = {tab.bss[e0], tab.bss[e1]};
@@ -346,8 +367,7 @@ fc_residual_kernel(const int32_t* __restrict__ skey, Tables tab, Scratch s, int 
   const int q = static_cast<int>(g & 3);
   if (p >= N) return;
   const int key = skey[p];
-  const int kt = key / n_slots;
-  if (kt < 2) return;
+  if (key_type(key, n_slots) < 2) return;
   const int64_t e = p * ND + q;
   const float r = s.x[p] - fc::safe_div(s.pls[e], s.pw[e]);
   const int po = s.popp[p];
@@ -357,7 +377,7 @@ fc_residual_kernel(const int32_t* __restrict__ skey, Tables tab, Scratch s, int 
     wp = s.pw[eo]; lsp = s.pls[eo]; ssp = s.pss[eo];
     rl = s.x[po] - fc::safe_div(lsp, wp);
   } else {
-    const size_t base = static_cast<size_t>(key) - 2 * static_cast<size_t>(n_slots);
+    const size_t base = key_row(key, n_slots);
     const size_t et = (base * 2 + 1 - (s.meta[p] & 1)) * ND + q;
     wp = tab.bw[et]; lsp = tab.bls[et]; ssp = tab.bss[et]; rl = tab.brl[et];
   }
@@ -375,10 +395,9 @@ fc_sr_kernel(const int32_t* __restrict__ skey, Tables tab, Scratch s, int n,
   const int q = static_cast<int>(g & 3);
   if (p >= N) return;
   const int key = skey[p];
-  const int kt = key / n_slots;
-  if (kt < 2 || !is_head(skey, p, key)) return;
+  if (key_type(key, n_slots) < 2 || !is_head(skey, p, key)) return;
   const int64_t end = static_cast<int64_t>(s.send[p]) + 1;
-  const size_t base = static_cast<size_t>(key) - 2 * static_cast<size_t>(n_slots);
+  const size_t base = key_row(key, n_slots);
   const size_t es = base * ND + q;
   float sr = tab.bsr[es];
   int64_t last0 = -1, last1 = -1;
@@ -429,7 +448,7 @@ fc_features_kernel(const int32_t* __restrict__ skey, Scratch s,
   const int64_t p = g >> 2;
   const int q = static_cast<int>(g & 3);
   if (p >= N) return;
-  const int kt = skey[p] / n_slots;
+  const int kt = key_type(skey[p], n_slots);
   const int64_t e = p * ND + q;
   float* f = feats + static_cast<size_t>(s.meta[p] >> 1) * NF;
   const float w_o = s.pw[e];
@@ -464,7 +483,9 @@ unsigned blocks(int64_t items, int per) { return static_cast<unsigned>((items + 
 }  // namespace
 
 // perm: (4n,) int64 stable sort permutation of the kt-major (4, n) key
-// matrix; skey: (4n,) int32 sorted keys kt*n_slots + slot; dirb: (n,) int32;
+// matrix; skey: (4n,) int32 sorted keys (t*4 + kt)*n_slots + slot, t the
+// packet's tenant (0 for a single state); dirb: (n,) int32; the tables
+// (T*rows, 4), T >= 1 tenants stacked with 4*T*n_slots < 2^31;
 // scratch: (NF_ARR * ND + 8) * (4n + CHAIN_PAD) + 3 * tiles float32 words
 // (kernels/feature_update.py fc_scratch_words), 16-byte aligned.
 extern "C" int fc_full_launch(const void* perm, const void* skey, const void* dirb,

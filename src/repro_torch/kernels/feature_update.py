@@ -22,6 +22,14 @@ What bounds it on the card: bytes, about 1.1 KB per packet (touched rows
 read and written once, 320 B of features); in practice the longest
 segment's chain of dependent multiply-adds and the launches.
 
+The tenant axis (:func:`feature_update_full_tenants`): the multi-tenant
+engine keeps T tenants' tables stacked on a leading axis and advances L of
+them in one launch.  The combined key becomes ``(t*4 + kt)*n_slots + slot``
+with t the packet's pool tenant, so one stable sort over every lane's keys
+gives each lane the segments of a solo launch, and the kernels address the
+pool's rows in place (``fc_full.cu``'s ``key_row``, :func:`fc_key_rows`).
+``feature_update_full`` is its one-tenant case, with today's keys.
+
 ``feature_update`` replaces ``repro/kernels/feature_update.py::
 feature_update`` (``_fc_kernel``), the JAX package's public single-key entry
 point ``kernels/ops.feature_update``: one key type's atom update over an
@@ -38,7 +46,7 @@ against the plain versions in the tests.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,7 +54,7 @@ from repro_torch.core import arith
 from repro_torch.core.pipeline import (_stats, flat_tables, packet_rows,
                                        process_serial)
 from repro_torch.core.state import (LAMBDAS, N_DECAY, N_FEATURES, N_UNI,
-                                    state_device, state_slots)
+                                    state_device, state_slots, tenant_view)
 from repro_torch.kernels.build import INT, VOIDP, CudaKernel
 
 FC_FULL = CudaKernel("fc_full.cu", "fc_full_launch",
@@ -72,12 +80,20 @@ def check_tables(tab: Dict[str, torch.Tensor], device) -> None:
                              f"on {t.device}")
 
 
-def fc_segments(rows: Dict[str, torch.Tensor],
-                n_slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def fc_segments(rows: Dict[str, torch.Tensor], n_slots: int,
+                lane_keys: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sorted combined keys ``kt*n_slots + slot`` (int32, length 4n) and the
     stable sort permutation into the kt-major (4, n) key matrix (int64).
-    Stability keeps each segment in array order, the oracle's order."""
+    Stability keeps each segment in array order, the oracle's order.
+
+    ``lane_keys``: for packets of L equal lanes (lane-major), each lane's key
+    offset ``t*4*n_slots``, t its tenant in a stacked pool; the keys become
+    ``(t*4 + kt)*n_slots + slot``, so lanes share no segment."""
     keys = torch.cat([rows["urow"].T, rows["bbase"].T + N_UNI * n_slots])
+    if lane_keys is not None:
+        keys = (keys.view(4, lane_keys.numel(), -1)
+                + lane_keys[None, :, None]).view(4, -1)
     skey, perm = torch.sort(keys.reshape(-1).to(torch.int32), stable=True)
     return skey, perm
 
@@ -92,24 +108,27 @@ def fc_scratch_words(n: int) -> int:
     return (11 * N_DECAY + 8) * (N + CHAIN_PAD) + 3 * -(-N // SCAN_TILE)
 
 
-def feature_update_full(state: Dict, pkts: Dict[str, torch.Tensor]
-                        ) -> Tuple[Dict, torch.Tensor]:
-    """All 80 Peregrine features for one packet batch, state updated in place.
+def _as_pool(state: Dict) -> Dict:
+    """A dense state as a one-tenant pool (views, same storage)."""
+    return {g: {k: t[None] for k, t in state[g].items()} for g in ("uni", "bi")}
 
-    ``state``: a dense ``init_state`` dict (the ``rr`` counters pass through
-    untouched); ``pkts``: ``to_torch`` packet tensors on the state's device.
-    Returns ``(state, feats (n, N_FEATURES))`` matching
-    ``process_serial(mode="exact")``.
-    """
-    device = state_device(state)
-    if device.type == "cpu":
-        return process_serial(state, pkts)
+
+def _check_launch(device: torch.device, n_tenants: int, n_slots: int) -> None:
     if device.type != "cuda":
         raise ValueError(f"feature_update_full runs on cpu or cuda, not {device}")
-    n_slots = state_slots(state)
-    if 4 * n_slots >= 2 ** 31:
-        raise ValueError(f"n_slots={n_slots} overflows the int32 row keys")
-    tab = flat_tables(state)
+    if 4 * n_tenants * n_slots >= 2 ** 31:
+        raise ValueError(f"{n_tenants} tenant(s) of n_slots={n_slots} overflow "
+                         "the int32 row keys")
+
+
+def _fc_full_launch(tab: Dict[str, torch.Tensor], n_slots: int,
+                    pkts: Dict[str, torch.Tensor],
+                    lane_keys: Optional[torch.Tensor]) -> torch.Tensor:
+    """One ``fc_full`` launch over (n,) packets, lane-major when
+    ``lane_keys`` gives each lane's key offset (:func:`fc_segments`), on the
+    flat tables ``tab`` of one state or a stacked pool; returns the
+    (n, N_FEATURES) features."""
+    device = tab["uw"].device
     check_tables(tab, device)
     if any(v.device != device for v in pkts.values()):
         raise ValueError(f"packet tensors must lie on the state's device {device}")
@@ -121,9 +140,9 @@ def feature_update_full(state: Dict, pkts: Dict[str, torch.Tensor]
                          f"{tuple(ts.shape)} and {tuple(lens.shape)}")
     feats = torch.empty((n, N_FEATURES), dtype=torch.float32, device=device)
     if n == 0:
-        return state, feats
+        return feats
     rows = packet_rows(pkts, n_slots)
-    skey, perm = fc_segments(rows, n_slots)
+    skey, perm = fc_segments(rows, n_slots, lane_keys)
     dirb = rows["dir"].to(torch.int32)
     scratch = torch.empty(fc_scratch_words(n), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -131,7 +150,71 @@ def feature_update_full(state: Dict, pkts: Dict[str, torch.Tensor]
                    ts.data_ptr(), lens.data_ptr(),
                    *(tab[k].data_ptr() for k in _TABLE_ORDER),
                    feats.data_ptr(), scratch.data_ptr(), n, n_slots, stream)
-    return state, feats
+    return feats
+
+
+def feature_update_full(state: Dict, pkts: Dict[str, torch.Tensor]
+                        ) -> Tuple[Dict, torch.Tensor]:
+    """All 80 Peregrine features for one packet batch, state updated in place.
+
+    ``state``: a dense ``init_state`` dict (the ``rr`` counters pass through
+    untouched); ``pkts``: ``to_torch`` packet tensors on the state's device.
+    Returns ``(state, feats (n, N_FEATURES))`` matching
+    ``process_serial(mode="exact")``.  The one-tenant case of
+    :func:`feature_update_full_tenants`: the same launch, with keys
+    ``kt*n_slots + slot``.
+    """
+    device = state_device(state)
+    if device.type == "cpu":
+        return process_serial(state, pkts)
+    n_slots = state_slots(state)
+    _check_launch(device, 1, n_slots)
+    return state, _fc_full_launch(flat_tables(state), n_slots, pkts, None)
+
+
+def feature_update_full_tenants_ref(pool: Dict, tenant_ids: Sequence[int],
+                                    pkts: Dict[str, torch.Tensor]
+                                    ) -> Tuple[Dict, torch.Tensor]:
+    """Plain version of :func:`feature_update_full_tenants`:
+    ``process_serial`` lane by lane on each tenant's view of the pool."""
+    feats = [process_serial(tenant_view(pool, t),
+                            {k: v[lane] for k, v in pkts.items()})[1]
+             for lane, t in enumerate(tenant_ids)]
+    return pool, torch.stack(feats)
+
+
+def feature_update_full_tenants(pool: Dict, tenant_ids: Sequence[int],
+                                pkts: Dict[str, torch.Tensor]
+                                ) -> Tuple[Dict, torch.Tensor]:
+    """:func:`feature_update_full` for L tenants of a stacked dense pool in
+    one launch, the pool updated in place.
+
+    ``pool``: ``init_state_stacked(T, n_slots)`` (tables with a leading
+    tenant axis); ``tenant_ids``: L distinct pool tenants (host ints);
+    ``pkts``: ``(L, chunk)`` packet tensors, lane l for tenant
+    ``tenant_ids[l]``.  Returns ``(pool, feats (L, chunk, N_FEATURES))``;
+    each lane equals ``process_serial`` on its tenant's state bit for bit,
+    as a launch of that lane alone does: tenants share no key, so each
+    lane's segments are those of a solo launch.
+    """
+    tids = [int(t) for t in tenant_ids]
+    uw = pool["uni"]["w"]
+    if uw.dim() != 4 or "rr" not in pool["uni"]:
+        raise ValueError("pool must be a stacked dense state (init_state_stacked)")
+    device = uw.device
+    T, n_slots = uw.shape[0], uw.shape[2]
+    if not tids or len(set(tids)) != len(tids) or not all(0 <= t < T for t in tids):
+        raise ValueError(f"tenant_ids must be distinct tenants in [0, {T}), got {tids}")
+    L = len(tids)
+    if any(v.dim() != 2 or v.shape[0] != L for v in pkts.values()):
+        raise ValueError(f"packet tensors must be (L={L}, chunk)")
+    if device.type == "cpu":
+        return feature_update_full_tenants_ref(pool, tids, pkts)
+    _check_launch(device, T, n_slots)
+    lane_keys = torch.tensor(tids, dtype=torch.int64).mul_(4 * n_slots).to(device)
+    feats = _fc_full_launch(flat_tables(pool), n_slots,
+                            {k: v.reshape(-1) for k, v in pkts.items()}, lane_keys)
+    return pool, feats.view(L, -1, N_FEATURES)
 
 
 def _exp2_decay(lt: torch.Tensor, t: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
@@ -159,10 +242,35 @@ def _decay_in_groups(lt: torch.Tensor, t: torch.Tensor, lam: torch.Tensor,
     return out
 
 
+def fc_key_rows(skey: torch.Tensor, n_slots: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fc_full.cu``'s ``key_type`` and ``key_row`` of combined keys
+    ``(t*4 + kt)*n_slots + slot``: the key type, and the uni row
+    ``(t*N_UNI + kt)*n_slots + slot`` or the bi base row
+    ``(t*N_BI + kt - 2)*n_slots + slot`` of the pool's flat tables."""
+    key = skey.long()
+    ks = key // n_slots
+    return ks & 3, ((ks >> 2) * 2 + (ks & 1)) * n_slots + key - ks * n_slots
+
+
 def fc_phases_ref(state: Dict, pkts: Dict[str, torch.Tensor]
                   ) -> Tuple[Dict, torch.Tensor]:
     """Plain twin of ``fc_full.cu``'s phases, in PyTorch, state updated in
     place; returns ``(state, feats)`` like :func:`feature_update_full`.
+    The one-tenant case of :func:`fc_phases_tenants_ref`."""
+    _, feats = fc_phases_tenants_ref(_as_pool(state), [0],
+                                     {k: v[None] for k, v in pkts.items()})
+    return state, feats[0]
+
+
+def fc_phases_tenants_ref(pool: Dict, tenant_ids: Sequence[int],
+                          pkts: Dict[str, torch.Tensor]
+                          ) -> Tuple[Dict, torch.Tensor]:
+    """Plain twin of ``fc_full.cu``'s phases on L tenants' lanes of a
+    stacked dense pool, with the kernel's combined keys and rows
+    (:func:`fc_segments`, :func:`fc_key_rows`), the pool updated in place;
+    returns ``(pool, feats (L, chunk, N_FEATURES))`` like
+    :func:`feature_update_full_tenants`.
 
     1. prelude, per sorted position: the segment head, the latest earlier
        position of the own and of the opposite direction in the segment
@@ -178,20 +286,24 @@ def fc_phases_ref(state: Dict, pkts: Dict[str, torch.Tensor]
     5. features from the parked values, and the tables as the oracle
        leaves them.
     """
-    n_slots = state_slots(state)
-    tab = flat_tables(state)
-    rows = packet_rows(pkts, n_slots)
-    skey, perm = fc_segments(rows, n_slots)
-    ts = pkts["ts"].to(torch.float32)
-    lens = pkts["length"].to(torch.float32)
+    n_slots = pool["uni"]["w"].shape[2]
+    tab = flat_tables(pool)
+    L = len(tenant_ids)
+    flat = {k: v.reshape(-1) for k, v in pkts.items()}
+    rows = packet_rows(flat, n_slots)
+    lane_keys = torch.tensor([int(t) for t in tenant_ids], dtype=torch.int64,
+                             device=rows["dir"].device) * (4 * n_slots)
+    skey, perm = fc_segments(rows, n_slots, lane_keys)
+    ts = flat["ts"].to(torch.float32)
+    lens = flat["length"].to(torch.float32)
     n = ts.shape[0]
     N = 4 * n
     feats = torch.empty((n, N_FEATURES), dtype=torch.float32, device=ts.device)
     if n == 0:
-        return state, feats
+        return pool, feats.view(L, 0, N_FEATURES)
     lam = torch.tensor(LAMBDAS, dtype=torch.float32, device=ts.device)
     key = skey.long()
-    kt = key // n_slots
+    kt, row_of = fc_key_rows(skey, n_slots)
     idx = perm - kt * n
     bi = kt >= N_UNI
     dirb = torch.where(bi, rows["dir"][idx], 0)
@@ -212,8 +324,8 @@ def fc_phases_ref(state: Dict, pkts: Dict[str, torch.Tensor]
     same = torch.where(dirb == 0, last0, last1)
     popp = torch.where(dirb == 0, last1, last0)
     prev = torch.where(head, -1, pos - 1)
-    uidx = torch.where(bi, 0, key)
-    base = torch.where(bi, key - N_UNI * n_slots, 0)
+    uidx = torch.where(bi, 0, row_of)
+    base = torch.where(bi, row_of, 0)
     own_row, opp_row = 2 * base + dirb, 2 * base + 1 - dirb
     prev_own = torch.where(bi, same, prev)
     lt = torch.where(bi[:, None], tab["blt"][own_row], tab["ult"][uidx])
@@ -230,13 +342,12 @@ def fc_phases_ref(state: Dict, pkts: Dict[str, torch.Tensor]
     atoms = {}
     last = {}
     for p in range(N):
-        k, d = int(key[p]), int(dirb[p])
+        k, d, r_p = int(key[p]), int(dirb[p]), int(row_of[p])
         if bool(head[p]):
-            if k < N_UNI * n_slots:
-                atoms = {0: [tab[f][k].clone() for f in ("uw", "uls", "uss")]}
+            if not bool(bi[p]):
+                atoms = {0: [tab[f][r_p].clone() for f in ("uw", "uls", "uss")]}
             else:
-                b = k - N_UNI * n_slots
-                atoms = {e: [tab[f][2 * b + e].clone() for f in ("bw", "bls", "bss")]
+                atoms = {e: [tab[f][2 * r_p + e].clone() for f in ("bw", "bls", "bss")]
                          for e in (0, 1)}
         w, ls, ss = atoms[d]
         w, ls, ss = w * delta[p] + 1.0, ls * delta[p] + x[p], ss * delta[p] + x[p] * x[p]
@@ -268,12 +379,12 @@ def fc_phases_ref(state: Dict, pkts: Dict[str, torch.Tensor]
 
     # 5. the tables as the oracle leaves them, and the features
     for (k, d), p in last.items():
-        if k < N_UNI * n_slots:
-            tab["ult"][k] = t[p]
+        if not bool(bi[p]):
+            tab["ult"][row_of[p]] = t[p]
             for j, f in enumerate(("uw", "uls", "uss")):
-                tab[f][k] = park[p, j]
+                tab[f][row_of[p]] = park[p, j]
         else:
-            row = 2 * (k - N_UNI * n_slots) + d
+            row = 2 * int(row_of[p]) + d
             tab["blt"][row] = t[p]
             for j, f in enumerate(("bw", "bls", "bss")):
                 tab[f][row] = park[p, j]
@@ -292,7 +403,7 @@ def fc_phases_ref(state: Dict, pkts: Dict[str, torch.Tensor]
     bcol = (24 + (kt[b] - N_UNI) * 28)[:, None] + q * 7
     for j, v in enumerate((park[:, 0], mu_o, sig_o, mag, rad, cov, pcc)):
         feats[idx[b][:, None], bcol + j] = v[b]
-    return state, feats
+    return pool, feats.view(L, -1, N_FEATURES)
 
 
 # ---------------------------------------------------------------------------

@@ -20,20 +20,32 @@
   current stream, so ``DetectionService.process_stream`` can dispatch chunk
   k+1 before it drains chunk k.
 
-PyTorch runs eagerly, so the step is a plain function; there is no
-compilation cache and no placement token.
+The same per-chunk core serves the multi-tenant ``DetectionEngine``
+(``make_tenant_step``, DESIGN.md §10): T tenants' chunks advance in one
+step over a stacked state pool, tenant ids carried with every lane so
+states and epoch counters never mix.  On a dense pool with the ``cuda``
+backend that step is one ``fc_full`` launch over every lane and one
+``kitnet_score`` launch over every lane's records; other backends and the
+sketch layout run the single-stream step lane by lane on each tenant's view
+of the pool.
+
+PyTorch runs eagerly, so each step is a plain function; there is no
+compilation cache and no placement token (the JAX package's mesh placement
+of tenants, ``_tenant_sharding``, is not ported: ROADMAP queue 2).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
 from repro_torch.core.backends import (check_backend_mode,
                                        compute_features_sampled,
                                        resolve_backend)
-from repro_torch.core.records import epoch_gather
+from repro_torch.core.records import epoch_gather, epoch_gather_lanes
+from repro_torch.core.state import state_backend_of, tenant_view
 from repro_torch.detection.md_backends import md_score_fn
+from repro_torch.kernels.feature_update import feature_update_full_tenants
 
 
 def make_fused_step(backend: str = "cuda", mode: str = "exact",
@@ -59,5 +71,59 @@ def make_fused_step(backend: str = "cuda", mode: str = "exact",
                                                backend=backend, mode=mode)
         scores = score(net, recs)
         return state, idx, scores, scores > threshold, count
+
+    return step
+
+
+def make_tenant_step(backend: str = "cuda", mode: str = "exact",
+                     md_backend: str = "cuda", epoch: int = 1024) -> Callable:
+    """Build the TENANT-BATCHED per-chunk step.
+
+    Returns ``step(pool, tenant_ids, net, threshold, base_mods, pkts)`` →
+    ``(pool, idx, scores, alarms, counts)``: the per-chunk core of
+    :func:`make_fused_step` over a leading lane axis.  ``pool`` is a stacked
+    state (``core.state.init_state_stacked`` / ``StatePool.stacked``),
+    updated in place; ``tenant_ids`` the L pool tenants of the lanes (host
+    ints, no repeats); ``base_mods`` each lane's running packet count modulo
+    ``epoch``; ``pkts`` packet tensors stacked to ``(L, chunk)``.  ``idx``,
+    ``scores`` and ``alarms`` are (L, ceil(chunk/epoch)) device tensors,
+    padded past ``counts`` (host ints).  Each lane's results and end state
+    are those of the single-stream step on that tenant alone, bit for bit.
+    ``net``/``threshold`` are shared: one fitted detector, many streams.
+
+    A dense pool with the ``cuda`` backend runs one batched step: the
+    records' positions of every lane at once, hashing once on the stacked
+    packets, one ``fc_full`` launch over all lanes
+    (``kernels/feature_update.feature_update_full_tenants``), the records
+    gathered and scored in one ``kitnet_score`` launch, the threshold
+    compared on the device.  Everything else (``scan``, ``serial``, sketch
+    pools, switch mode) runs :func:`make_fused_step` lane by lane.
+    """
+    backend = resolve_backend(backend)
+    check_backend_mode(backend, mode)
+    score = md_score_fn(md_backend)
+    lane_step = make_fused_step(backend, mode, md_backend, epoch)
+
+    @torch.no_grad()
+    def step(pool, tenant_ids: Sequence[int], net, threshold: float,
+             base_mods: Sequence[int], pkts):
+        tids = [int(t) for t in tenant_ids]
+        if len(set(tids)) != len(tids):
+            raise ValueError(f"tenant_ids must not repeat a tenant, got {tids}")
+        L, n = pkts["ts"].shape
+        if backend == "cuda" and mode == "exact" and state_backend_of(pool) == "dense":
+            dev = pkts["ts"].device
+            idx, counts = epoch_gather_lanes(n, epoch, base_mods, device=dev)
+            pool, feats = feature_update_full_tenants(pool, tids, pkts)
+            lane0 = torch.arange(L, dtype=torch.int64, device=dev)[:, None] * n
+            recs = feats.reshape(L * n, -1)[(idx + lane0).reshape(-1)]
+            scores = score(net, recs).view(idx.shape)
+            return pool, idx, scores, scores > threshold, counts
+        outs = [lane_step(tenant_view(pool, t), net, threshold, int(bm),
+                          {k: v[lane] for k, v in pkts.items()})
+                for lane, (t, bm) in enumerate(zip(tids, base_mods))]
+        idx, scores, alarms = (torch.stack([o[j] for o in outs])
+                               for j in (1, 2, 3))
+        return pool, idx, scores, alarms, tuple(o[4] for o in outs)
 
     return step

@@ -584,3 +584,116 @@ def test_flash_kernel_padded_head_dims(dev, D, dtype):
     qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
     torch.testing.assert_close(flash_attention(qt, kt, vt, **kw).float(), got.float(),
                                rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the tenant axis: fc_full over L tenants' lanes of a stacked pool, the engine
+# ---------------------------------------------------------------------------
+def _tenant_pool(dev, T, n_slots, warm):
+    """A T-tenant pool, tenant t warmed on ``warm[t]`` (each a different
+    state), through the single-state kernel."""
+    from repro_torch.core.state import init_state_stacked, tenant_view
+    pool = init_state_stacked(T, n_slots, device=dev)
+    for t, tr in enumerate(warm):
+        feature_update_full(tenant_view(pool, t), to_torch(tr, dev))
+    return pool
+
+
+def _clone_pool(pool):
+    return {g: {k: v.clone() for k, v in pool[g].items()} for g in pool}
+
+
+@pytest.mark.parametrize("tids", [[0, 2, 3], [3, 1], [0]])
+def test_fc_tenants_matches_plain_and_single_launches(dev, tids):
+    """One tenant-batched fc_full launch over the lanes of ``tids`` equals
+    its plain version (process_serial lane by lane on each tenant's view)
+    and one single-state launch a lane, bit for bit, features and every
+    pool table; the tenants outside the batch are untouched."""
+    from repro_torch.core.state import tenant_view
+    from repro_torch.kernels.feature_update import (
+        feature_update_full_tenants, feature_update_full_tenants_ref)
+    attacks = ["mirai", "syn_dos", "os_scan", "ssdp_flood"]
+    warm = [synth_trace(a, n_train=64, n_benign_eval=200, n_attack=200,
+                        seed=t)["eval"] for t, a in enumerate(attacks)]
+    T = 1 if tids == [0] else 4
+    pool = _tenant_pool(dev, T, 512, warm[:T])
+    lanes = [synth_trace(attacks[(t + 1) % 4], n_train=64, n_benign_eval=300,
+                         n_attack=300, seed=10 + t)["eval"] for t in tids]
+    pk = to_torch({k: np.stack([tr[k] for tr in lanes]) for k in lanes[0]}, dev)
+    p_k, p_p, p_s = _clone_pool(pool), _clone_pool(pool), _clone_pool(pool)
+    reset_launch_counts()
+    _, f_k = feature_update_full_tenants(p_k, tids, pk)
+    assert launch_counts()["fc_full"] == 1
+    _, f_p = feature_update_full_tenants_ref(p_p, tids, pk)
+    f_s = torch.stack([feature_update_full(tenant_view(p_s, t),
+                                           {k: v[lane] for k, v in pk.items()})[1]
+                       for lane, t in enumerate(tids)])
+    assert torch.equal(f_k, f_p) and torch.equal(f_k, f_s)
+    for g in pool:
+        for k in pool[g]:
+            assert torch.equal(p_k[g][k], p_p[g][k]), (g, k)
+            assert torch.equal(p_k[g][k], p_s[g][k]), (g, k)
+            for t in set(range(T)) - set(tids):
+                assert torch.equal(p_k[g][k][t], pool[g][k][t]), (g, k, t)
+
+
+def test_fc_tenants_rejects_bad_inputs(dev):
+    from repro_torch.core.state import init_state_stacked
+    from repro_torch.kernels.feature_update import feature_update_full_tenants
+    pool = init_state_stacked(2, 64, device=dev)
+    pk = to_torch({k: np.stack([v[:32], v[:32]]) for k, v in synth_trace(
+        "mirai", n_train=16, n_benign_eval=16, n_attack=16, seed=0)["eval"].items()},
+        dev)
+    with pytest.raises(ValueError, match="distinct"):
+        feature_update_full_tenants(pool, [1, 1], pk)
+    with pytest.raises(ValueError, match="distinct"):
+        feature_update_full_tenants(pool, [0, 2], pk)
+    with pytest.raises(ValueError, match=r"\(L=1, chunk\)"):
+        feature_update_full_tenants(pool, [0], pk)
+    with pytest.raises(ValueError, match="overflow"):
+        feature_update_full_tenants(_big_pool(dev), [0], {k: v[:1] for k, v in pk.items()})
+
+
+def _big_pool(dev):
+    """A pool whose combined keys pass int32, 4*T*n_slots = 2^31, its
+    tables one element expanded (only the shapes are read)."""
+    T, n_slots = 2 ** 14, 2 ** 15
+
+    def t(*shape, dtype=torch.float32):
+        return torch.zeros(1, dtype=dtype, device=dev).expand(shape)
+    return {"uni": {"last_t": t(T, 2, n_slots, 4), "w": t(T, 2, n_slots, 4),
+                    "ls": t(T, 2, n_slots, 4), "ss": t(T, 2, n_slots, 4),
+                    "rr": t(T, 2, n_slots, dtype=torch.int32)},
+            "bi": {"w": t(T, 2, n_slots, 2, 4)}}
+
+
+def test_engine_on_the_card_matches_solo_service(dev):
+    """Three tenants on three attacks through the engine on the card, each
+    equal to its own solo service bit for bit (results and end state); each
+    batch of three lanes is one fc_full and one kitnet_score launch."""
+    from repro_torch.serving import DetectionEngine, DetectionService
+    data = synth_trace("syn_dos", n_train=2048, n_benign_eval=512,
+                       n_attack=512, seed=0)
+    svc = DetectionService(epoch=64, n_slots=1024, device=dev)
+    svc.observe_stream(data["train"], chunk=512)
+    svc.fit(fpr=0.05)
+    traces = [synth_trace(a, n_train=64, n_benign_eval=600, n_attack=600,
+                          seed=5)["eval"] for a in ("mirai", "goldeneye", "fuzzing")]
+    eng = DetectionEngine.from_service(svc, n_tenants=4, chunk=512, queue_depth=2)
+    tids = [eng.add_tenant() for _ in traces]
+    reset_launch_counts()
+    out = eng.run(dict(zip(tids, traces)))
+    batches = -(-1200 // 512)
+    assert launch_counts()["fc_full"] == batches
+    assert launch_counts()["kitnet_score"] == batches
+    for t, tr in zip(tids, traces):
+        solo = DetectionService(epoch=64, n_slots=1024, device=dev,
+                                threshold=svc.threshold)
+        solo.net = svc.net
+        want = solo.process_stream(tr, chunk=512)
+        for w, g in zip(want, out[t]):
+            np.testing.assert_array_equal(w, g)
+        got = eng.pool.read(t)
+        for g in ("uni", "bi"):
+            for k in got[g]:
+                assert torch.equal(got[g][k], solo.state[g][k]), (t, g, k)
