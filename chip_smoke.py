@@ -123,8 +123,9 @@ back-to-back call, which includes the wrapper's host overhead.
                counts zeroed just before and read just after (one fc_full and
                one kitnet_score launch a batch of 4 lanes), each tenant
                against its solo process_stream bit for bit (results and end
-               state); aggregate pps, worst-tenant p99, slot collisions,
-               busy share and device launches a batched call (profiler), the
+               state); aggregate pps, worst-tenant p99, slot collisions
+               (the engine's device count against the host count of each
+               chunk, equal, and the two timed), busy share and device launches a batched call (profiler), the
                single stream's eval pps and the ratio of the two over 3
                alternating rounds; 4 tenants on syn_dos, ssdp_flood,
                goldeneye and fuzzing (16,384 packets each) and 2 tenants on
@@ -1319,13 +1320,14 @@ def phase_engine(dev, data, svc, sketch_svc, log) -> dict:
     n_slots 8192, queue depth 4), counts zeroed just before and read just
     after (one fc_full and one kitnet_score launch a batch of 4 lanes),
     each tenant equal to its solo process_stream bit for bit; aggregate
-    pps, worst-tenant p99, slot collisions, the device's busy share and
+    pps, worst-tenant p99, slot collisions (the device count equal to the
+    host count of each chunk; both timed), the device's busy share and
     launches a batched call (profiler), the single stream's eval pps and
     the ratio of the two over alternating rounds; 4 tenants on 4 attacks
     (16,384 packets each) and 2 tenants on the sketch cell's layout, each
     equal to its solo run bit for bit."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.state import slot_collisions
+    from repro_torch.core.state import slot_collisions, slot_collisions_lanes
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.traffic import synth_trace, to_torch
     fc_case = engine_fc_case(dev, data)
@@ -1363,18 +1365,25 @@ def phase_engine(dev, data, svc, sketch_svc, log) -> dict:
         torch.cuda.synchronize()
         ts.append(time.perf_counter() - t0)
     ratio = (4 * n_eval / min(te)) / (n_eval / min(ts))
-    # the host's share of a batch: the collision telemetry of its 4 lanes
-    # (numpy) and the staging of its packets (np.stack, to_torch)
+    # the collision telemetry: the engine's device count of a batch's 4
+    # lanes against the host count (numpy, JAX's design) of each lane,
+    # equal per tenant and timed; and the staging of a batch's packets
     chunks = [{k: v[i:i + 8192] for k, v in ev.items()} for i in range(0, n_eval, 8192)]
     t0 = time.perf_counter()
-    for c in chunks:
-        slot_collisions(c, 8192)
-    collisions_ms = (time.perf_counter() - t0) / len(chunks) * 1e3
+    host_counts = [slot_collisions(c, 8192)["total"] for c in chunks]
+    host_collisions_ms = (time.perf_counter() - t0) / len(chunks) * 1e3
+    if any(v["slot_collisions"] != sum(host_counts) for v in per.values()):
+        raise RuntimeError(f"engine: device slot collisions {collisions} differ from "
+                           f"the host count, {sum(host_counts)} a tenant")
     t0 = time.perf_counter()
-    for c in chunks:
-        to_torch({k: np.stack([v] * 4) for k, v in c.items()}, dev)
+    staged = [to_torch({k: np.stack([v] * 4) for k, v in c.items()}, dev) for c in chunks]
     torch.cuda.synchronize()
     stage_ms = (time.perf_counter() - t0) / len(chunks) * 1e3
+    t0 = time.perf_counter()
+    for pk in staged:
+        slot_collisions_lanes(pk, 8192)
+    torch.cuda.synchronize()
+    collisions_ms = (time.perf_counter() - t0) / len(chunks) * 1e3
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced = engine_run(svc, [ev] * 4)[2]
@@ -1413,7 +1422,9 @@ def phase_engine(dev, data, svc, sketch_svc, log) -> dict:
                    "agg_pps_stats": stats["aggregate"]["pps"],
                    "agg_pps_rounds": [4 * n_eval / t for t in te],
                    "host_ms_per_batch": {"wall": min(te) / batches * 1e3,
-                                         "slot_collisions_4_lanes": 4 * collisions_ms,
+                                         "slot_collisions_device_4_lanes": collisions_ms,
+                                         "slot_collisions_host_4_lanes":
+                                             4 * host_collisions_ms,
                                          "stage_4_lanes": stage_ms},
                    "worst_p99_ms": max(v["p99_ms"] for v in per.values()),
                    "p50_ms": {t: v["p50_ms"] for t, v in per.items()},

@@ -365,10 +365,15 @@ def _mix(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 15)
 
 
-def hash_fields(fields, salt: int) -> torch.Tensor:
+def hash_fields(fields, salt) -> torch.Tensor:
     """uint32 multiply-xorshift hash of a tuple of uint32 fields (held in
-    int64 tensors); returns int64 values in [0, 2^32)."""
-    h = torch.full_like(fields[0], (salt ^ _FNV) & _MASK32, dtype=torch.int64)
+    int64 tensors); returns int64 values in [0, 2^32).  ``salt`` is an int,
+    or a sequence of S ints: then the S hashes come from one pass over the
+    fields, stacked on a new leading axis."""
+    one = isinstance(salt, int)
+    inits = [torch.full_like(fields[0], (s ^ _FNV) & _MASK32, dtype=torch.int64)
+             for s in ((salt,) if one else salt)]
+    h = inits[0] if one else torch.stack(inits)
     for f in fields:
         h = _mix(h, f.to(torch.int64) & _MASK32)
     return h
@@ -412,7 +417,8 @@ def packet_slots(pkts: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# Dense-path slot-collision telemetry (host-side numpy twin of the hash)
+# Dense-path slot-collision telemetry: the host count (numpy, as in the JAX
+# package) and the device count the engine runs, equal lane by lane
 # ---------------------------------------------------------------------------
 # salt for the collision fingerprint: independent of every table salt
 # (KEY_SALTS and the sketch row salts), so two flows sharing a slot almost
@@ -421,8 +427,8 @@ _FP_SALT = 0x7F4A7C15
 
 
 def np_hash_fields(fields, salt: int) -> np.ndarray:
-    """Numpy twin of :func:`hash_fields` on uint32 values, bit for bit, so
-    per-chunk telemetry never touches the device."""
+    """Numpy twin of :func:`hash_fields` on uint32 values, bit for bit: the
+    host count :func:`slot_collisions` hashes with it."""
     h = np.full(np.shape(fields[0]), np.uint32((salt ^ _FNV) & _MASK32), np.uint32)
     for f in fields:
         h = (h ^ np.asarray(f, np.uint32)) * np.uint32(_GOLDEN)
@@ -469,3 +475,21 @@ def slot_collisions(pkts: Dict[str, np.ndarray],
         total += c
     out["total"] = total
     return out
+
+
+def slot_collisions_lanes(pkts: Dict[str, torch.Tensor],
+                          n_slots: int) -> torch.Tensor:
+    """:func:`slot_collisions`' ``total`` for every lane of ``(L, chunk)``
+    packet tensors at once, on their device: an int64 ``(L,)`` tensor, and
+    no host sync.  Each key type's ``(slot, fingerprint)`` pairs (both
+    hashes from one pass, ``slot << 32 | fp``) are sorted within the lane,
+    all key types in one sort; a flow key aliased onto a claimed slot is
+    an adjacent pair that differs while its slot does not."""
+    fields, _ = key_fields(pkts)
+    pairs = []
+    for name, f in fields.items():
+        slot, fp = hash_fields(f, (KEY_SALTS[name], _FP_SALT))
+        pairs.append(((slot % n_slots) << 32) | fp)
+    s = torch.stack(pairs).sort(dim=-1).values
+    merged = (s[..., 1:] != s[..., :-1]) & ((s[..., 1:] >> 32) == (s[..., :-1] >> 32))
+    return merged.sum(dim=(0, -1))

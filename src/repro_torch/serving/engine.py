@@ -26,7 +26,10 @@ detector.  ``DetectionEngine`` multiplexes them (DESIGN.md §10):
   flight.
 * **Operational surface.**  Per-tenant p50/p99 chunk latency, aggregate
   pps, per-tenant drop/record/alarm/slot-collision counters (``stats()``),
-  and a per-tenant CSV or JSONL alarm log (``alarm_dir=``).
+  and a per-tenant CSV or JSONL alarm log (``alarm_dir=``).  Slot
+  collisions are counted on the device for every lane of a batch at once
+  (``core.state.slot_collisions_lanes``) and drained with its records; the
+  JAX package counts them on the host, a lane at a time.
 
 One fitted detector (net + threshold) serves every tenant; isolation is
 state isolation, not model isolation.
@@ -42,7 +45,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.backends import default_backend, resolve_backend
-from repro_torch.core.state import (StatePool, slot_collisions,
+from repro_torch.core.state import (StatePool, slot_collisions_lanes,
                                     state_backend_of, state_config,
                                     state_device, state_slots)
 from repro_torch.detection.md_backends import (default_md_backend,
@@ -275,13 +278,6 @@ class DetectionEngine:
         tenant-batched step.  Returns with the batch queued on the device;
         the pool is updated in place."""
         chunks = [self._pop(t, size) for t in tids]
-        if self.state_backend == "dense":
-            # dense-mode aliasing telemetry: distinct flow keys whose slots
-            # collide inside this chunk (host-side numpy twin of the hash).
-            # Sketch pools absorb collisions by design and keep it at zero.
-            for t, c in zip(tids, chunks):
-                self._counters[t]["slot_collisions"] += \
-                    slot_collisions(c, self.n_slots)["total"]
         pk = to_torch({k: np.stack([c[k] for c in chunks]) for k in chunks[0]},
                       self.device)
         base_mods = [self._pkt_count[t] % self.epoch for t in tids]
@@ -290,20 +286,27 @@ class DetectionEngine:
                          base_mods, pk)
         self.pool.stacked = out[0]
         self.pool.mark_dirty(tids)
+        # dense-mode aliasing telemetry: distinct flow keys whose slots
+        # collide inside each lane's chunk, counted on the device beside the
+        # step and drained with its records.  Sketch pools absorb
+        # collisions by design and keep it at zero.
+        coll = (slot_collisions_lanes(pk, self.n_slots)
+                if self.state_backend == "dense" else None)
         bases = [self._pkt_count[t] for t in tids]
         for t in tids:
             self._pkt_count[t] += size
         if self._t_first is None:
             self._t_first = t0
-        self._inflight.append((tids, bases, out[1:], t0, size))
+        self._inflight.append((tids, bases, out[1:], coll, t0, size))
 
     def _drain_one(self) -> None:
         """Wait for the OLDEST in-flight batch; only the O(records) sampled
         outputs cross to the host."""
-        tids, bases, (idx, scores, alarms, counts), t0, size = \
+        tids, bases, (idx, scores, alarms, counts), coll, t0, size = \
             self._inflight.popleft()
         idx, scores = idx.cpu().numpy(), scores.cpu().numpy()
         alarms = alarms.cpu().numpy()
+        coll = coll.cpu().numpy() if coll is not None else np.zeros(len(tids))
         now = time.perf_counter()
         self._t_last = now
         for lane, tid in enumerate(tids):
@@ -318,6 +321,7 @@ class DetectionEngine:
             cnt = self._counters[tid]
             cnt["pkts_processed"] += size
             cnt["records"] += c
+            cnt["slot_collisions"] += int(coll[lane])
             n_al = int(al.sum())
             cnt["alarms"] += n_al
             if n_al and self.alarm_dir is not None:

@@ -670,7 +670,10 @@ def _big_pool(dev):
 def test_engine_on_the_card_matches_solo_service(dev):
     """Three tenants on three attacks through the engine on the card, each
     equal to its own solo service bit for bit (results and end state); each
-    batch of three lanes is one fc_full and one kitnet_score launch."""
+    batch of three lanes is one fc_full and one kitnet_score launch; each
+    tenant's slot collisions, counted on the card, equal the host count of
+    its chunks."""
+    from repro_torch.core.state import slot_collisions
     from repro_torch.serving import DetectionEngine, DetectionService
     data = synth_trace("syn_dos", n_train=2048, n_benign_eval=512,
                        n_attack=512, seed=0)
@@ -697,3 +700,6 @@ def test_engine_on_the_card_matches_solo_service(dev):
         for g in ("uni", "bi"):
             for k in got[g]:
                 assert torch.equal(got[g][k], solo.state[g][k]), (t, g, k)
+        assert eng.stats()["tenants"][t]["slot_collisions"] == sum(
+            slot_collisions({k: v[i:i + 512] for k, v in tr.items()}, 1024)["total"]
+            for i in range(0, len(tr["ts"]), 512))

@@ -7,12 +7,14 @@ the engine equals ``DetectionService.process_stream`` bit for bit (results
 and end state), N tenants each equal their solo runs, epoch counters stay
 per tenant, shedding and backpressure, the pool's lifecycle, slot reuse,
 alarm logs and the import graph.  Added: the sketch pool (lane by lane), the
-tenant-batched FC on a tenant subset (its plain version and the kernel's
-phase twin with the combined keys) against ``process_serial`` lane by lane
-bit for bit, the host hash and collision counts against the JAX package's
-bit for bit, and a single-tenant engine with a JAX net carried across
-against JAX's own engine on the serial backend (indices equal, scores within
-``SCORE_TOL``, the envelope of ``tests/test_torch_service.py``).
+tenant-batched FC on a tenant subset (the kernel's phase twin with the
+combined keys) against ``process_serial`` lane by lane bit for bit, the
+host hash and collision counts against the JAX package's bit for bit and
+the engine's device collision counter against them lane by lane, each of
+4 co-tenants against the JAX package's single-stream ``process_stream``,
+and a single-tenant engine with a JAX net carried across against JAX's own
+engine on the serial backend (indices equal, scores within ``SCORE_TOL``,
+the envelope of ``tests/test_torch_service.py``).
 """
 import subprocess
 import sys
@@ -28,10 +30,11 @@ from repro.serving import DetectionEngine as JaxEngine
 from repro.serving import DetectionService as JaxService
 
 from repro_torch.core import clone_state, epoch_gather, init_state, process_serial
-from repro_torch.core.records import epoch_gather_lanes
+from repro_torch.core.records import epoch_gather_lanes, epoch_indices
 from repro_torch.core.state import (KEY_SALTS, StatePool, _np_key_fields,
                                     hash_fields, init_state_stacked, key_fields,
-                                    np_hash_fields, slot_collisions, tenant_view)
+                                    np_hash_fields, slot_collisions,
+                                    slot_collisions_lanes, tenant_view)
 from repro_torch.interop import kitnet_from_arrays, state_from_arrays
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.feature_update import (fc_phases_tenants_ref,
@@ -107,22 +110,39 @@ def test_single_tenant_engine_matches_process_stream(svc, attack, backend):
 # ---------------------------------------------------------------------------
 # N-tenant isolation
 # ---------------------------------------------------------------------------
-def test_tenant_isolation_results_and_states(svc):
+def test_tenant_isolation_results_and_states(jax_fitted):
     """Each tenant's engine output equals that tenant run ALONE through the
-    service (fresh tables both times): co-tenancy in the batched step leaks
-    no state, records or epoch accounting across lanes."""
+    port's service (fresh tables both times) bit for bit: co-tenancy in the
+    batched step leaks no state, records or epoch accounting across lanes.
+    With the JAX-fitted net carried across, each tenant also agrees with
+    the JAX package's single-stream ``process_stream`` on its trace alone
+    (serial FC; indices equal, scores within SCORE_TOL), and its slot
+    collision count equals the host count of its chunks."""
+    _, js, net = jax_fitted
     attacks = ["syn_dos", "ssdp_flood", "goldeneye", "fuzzing"]
     traces = {k: _eval_trace(a, seed=20 + k) for k, a in enumerate(attacks)}
-    eng = DetectionEngine.from_service(svc, n_tenants=4, chunk=CHUNK,
-                                       queue_depth=4)
+    eng = DetectionEngine(net, js.threshold, epoch=EPOCH, n_slots=N_SLOTS,
+                          n_tenants=4, chunk=CHUNK, queue_depth=4, device="cpu")
     tids = [eng.add_tenant() for _ in range(4)]
     together = eng.run({tid: traces[k] for k, tid in enumerate(tids)})
     for k, tid in enumerate(tids):
-        solo = _solo(svc)
+        solo = DetectionService(epoch=EPOCH, n_slots=N_SLOTS, device="cpu",
+                                threshold=js.threshold)
+        solo.net = net
         alone = solo.process_stream(traces[k], chunk=CHUNK)
         for a, b in zip(together[tid], alone):
             np.testing.assert_array_equal(a, b)
         assert _states_equal(eng.pool.read(tid), solo.state)
+        tr, n = traces[k], len(traces[k]["ts"])
+        assert eng.stats()["tenants"][tid]["slot_collisions"] == sum(
+            slot_collisions({f: v[i:i + CHUNK] for f, v in tr.items()},
+                            N_SLOTS)["total"] for i in range(0, n, CHUNK))
+        j_solo = JaxService(epoch=EPOCH, n_slots=N_SLOTS, backend="serial",
+                            threshold=js.threshold)
+        j_solo.net = js.net
+        _assert_within_jax_envelope(together[tid],
+                                    j_solo.process_stream(tr, chunk=CHUNK),
+                                    js.threshold)
 
 
 def test_tenant_epoch_counters_never_mix(svc):
@@ -147,10 +167,18 @@ def test_tenant_epoch_counters_never_mix(svc):
 
 
 def test_epoch_gather_lanes_equals_epoch_gather_per_lane():
-    idx, counts = epoch_gather_lanes(200, 32, [0, 7, 31, 5])
-    for lane, m in enumerate([0, 7, 31, 5]):
-        want, c = epoch_gather(200, 32, m)
-        assert torch.equal(idx[lane], want) and counts[lane] == c
+    """Each lane's positions are the host's ``epoch_indices`` at that lane's
+    running count (zero-padded), and ``epoch_gather`` is lane 0."""
+    mods = [0, 7, 31, 5, 24]
+    idx, counts = epoch_gather_lanes(200, 32, mods)
+    assert idx.shape == (len(mods), 7)
+    for lane, m in enumerate(mods):
+        want = epoch_indices(200, 32, m)
+        assert counts[lane] == len(want)
+        np.testing.assert_array_equal(idx[lane, :counts[lane]].numpy(), want)
+        assert not idx[lane, counts[lane]:].any()
+        one, c = epoch_gather(200, 32, m)
+        assert torch.equal(idx[lane], one) and counts[lane] == c
 
 
 # ---------------------------------------------------------------------------
@@ -349,10 +377,11 @@ def test_sketch_pool_lane_by_lane(svc):
 
 def test_tenant_batched_fc_plain_matches_process_serial():
     """The tenant-batched FC on tenants {3, 0, 2} of a 4-tenant pool, each
-    from a different state and trace: its plain version and the kernel's
-    phase twin with the combined keys (``fc_phases_tenants_ref``) equal
-    ``process_serial`` lane by lane bit for bit, features and every pool
-    table; tenant 1 is untouched.  No kernel launches on the CPU."""
+    from a different state and trace: the kernel's phase twin with the
+    combined keys (``fc_phases_tenants_ref``) equals ``process_serial``
+    lane by lane bit for bit, features and every pool table; tenant 1 is
+    untouched.  No kernel launches on the CPU.  The wrapper rejects
+    repeated and out-of-pool tenants."""
     tids = [3, 0, 2]
     pool = init_state_stacked(4, 128, device="cpu")
     for t, attack in enumerate(["mirai", "syn_dos", "os_scan", "slowloris"]):
@@ -365,16 +394,14 @@ def test_tenant_batched_fc_plain_matches_process_serial():
                            {k: v[lane] for k, v in pk.items()})
             for lane, t in enumerate(tids)]
     untouched = clone_state(tenant_view(pool, 1))
-    for fn in (feature_update_full_tenants, fc_phases_tenants_ref):
-        p = {g: {k: v.clone() for k, v in pool[g].items()} for g in pool}
-        reset_launch_counts()
-        _, feats = fn(p, tids, pk)
-        assert set(launch_counts().values()) == {0}
-        assert feats.shape == (3, 96, 80)
-        for lane, t in enumerate(tids):
-            assert torch.equal(feats[lane], want[lane][1]), (fn.__name__, lane)
-            assert _states_equal(tenant_view(p, t), want[lane][0]), (fn.__name__, t)
-        assert _states_equal(tenant_view(p, 1), untouched)
+    reset_launch_counts()
+    _, feats = fc_phases_tenants_ref(pool, tids, pk)
+    assert set(launch_counts().values()) == {0}
+    assert feats.shape == (3, 96, 80)
+    for lane, t in enumerate(tids):
+        assert torch.equal(feats[lane], want[lane][1]), lane
+        assert _states_equal(tenant_view(pool, t), want[lane][0]), t
+    assert _states_equal(tenant_view(pool, 1), untouched)
     with pytest.raises(ValueError, match="distinct"):
         feature_update_full_tenants(pool, [0, 0, 2], pk)
     with pytest.raises(ValueError, match="distinct"):
@@ -397,6 +424,24 @@ def test_np_hash_and_slot_collisions_match_jax(attack):
             np.testing.assert_array_equal(got, jax_np_hash_fields(fields, salt))
             np.testing.assert_array_equal(
                 got.astype(np.int64), hash_fields(t_fields[name], salt).numpy())
+        both = hash_fields(t_fields[name], (KEY_SALTS[name], 0x7F4A7C15))
+        for h, salt in zip(both, (KEY_SALTS[name], 0x7F4A7C15)):
+            assert torch.equal(h, hash_fields(t_fields[name], salt))
+
+
+@pytest.mark.parametrize("attack", ["mirai", "syn_dos", "video_injection"])
+def test_slot_collisions_lanes_match_host_count(attack):
+    """The engine's device collision counter, every lane of a batch in one
+    pass, equals the JAX package's host ``slot_collisions`` lane by lane
+    (and the port's numpy copy on one lane)."""
+    lanes = [_eval_trace(attack, seed=s, n=128) for s in (3, 4, 5)]
+    pk = to_torch({k: np.stack([tr[k] for tr in lanes]) for k in lanes[0]}, "cpu")
+    for n_slots in (16, 64, 512):
+        want = [jax_slot_collisions(tr, n_slots)["total"] for tr in lanes]
+        assert slot_collisions_lanes(pk, n_slots).tolist() == want
+    assert min(jax_slot_collisions(tr, 16)["total"] for tr in lanes) > 0
+    one = slot_collisions_lanes(to_torch(lanes[0], "cpu"), 64)
+    assert one.dim() == 0 and int(one) == slot_collisions(lanes[0], 64)["total"]
 
 
 # ---------------------------------------------------------------------------
@@ -409,16 +454,36 @@ def _net_arrays(net):
     return {k: np.array(v) for k, v in d.items()}
 
 
-def test_single_tenant_engine_matches_jax_engine():
-    """A JAX service's net, threshold, tables and stream position carried
-    into a one-tenant port engine: its results against JAX's one-tenant
-    engine on the serial backend, indices equal and scores within
-    SCORE_TOL (alarms equal off the threshold)."""
+@pytest.fixture(scope="module")
+def jax_fitted():
+    """A JAX service (scan FC) fitted on a mirai trace, and its net carried
+    into the port."""
     data = synth_trace("mirai", n_train=1024, n_benign_eval=192, n_attack=192,
                        seed=4)
     js = JaxService(epoch=EPOCH, n_slots=N_SLOTS, backend="scan")
     js.observe_stream(data["train"], chunk=256)
     js.fit(fpr=0.05)
+    return data, js, kitnet_from_arrays(_net_arrays(js.net), device="cpu")
+
+
+def _assert_within_jax_envelope(got, want, threshold):
+    """Indices equal, scores within SCORE_TOL, alarms equal off the
+    threshold: ``tests/test_torch_service.py``'s envelope."""
+    (idx, scores, alarms), (j_idx, j_scores, j_alarms) = got, want
+    assert len(idx) > 0
+    np.testing.assert_array_equal(idx, j_idx)
+    np.testing.assert_allclose(scores, j_scores, **SCORE_TOL)
+    near = np.abs(j_scores - threshold) <= (
+        SCORE_TOL["atol"] + SCORE_TOL["rtol"] * np.abs(j_scores))
+    np.testing.assert_array_equal(alarms[~near], j_alarms[~near])
+
+
+def test_single_tenant_engine_matches_jax_engine(jax_fitted):
+    """A JAX service's net, threshold, tables and stream position carried
+    into a one-tenant port engine: its results against JAX's one-tenant
+    engine on the serial backend, indices equal and scores within
+    SCORE_TOL (alarms equal off the threshold)."""
+    data, js, net = jax_fitted
     state = jax.tree_util.tree_map(np.array, js.state)
     ev = {k: v for k, v in data["eval"].items() if k != "label"}
     je = JaxEngine.from_service(js, backend="serial", n_tenants=1, chunk=CHUNK,
@@ -427,18 +492,13 @@ def test_single_tenant_engine_matches_jax_engine():
     je.seed_tenant(jt, js.state, js.pkt_count)
     j_idx, j_scores, j_alarms = je.run({jt: ev})[jt]
 
-    eng = DetectionEngine(kitnet_from_arrays(_net_arrays(js.net), device="cpu"),
-                          js.threshold, epoch=EPOCH, n_slots=N_SLOTS,
+    eng = DetectionEngine(net, js.threshold, epoch=EPOCH, n_slots=N_SLOTS,
                           n_tenants=1, chunk=CHUNK, queue_depth=4, device="cpu")
     t = eng.add_tenant()
     eng.seed_tenant(t, state_from_arrays(state, device="cpu"), js.pkt_count)
-    idx, scores, alarms = eng.run({t: ev})[t]
-    assert len(idx) == len(ev["ts"]) // EPOCH
-    np.testing.assert_array_equal(idx, j_idx)
-    np.testing.assert_allclose(scores, j_scores, **SCORE_TOL)
-    near = np.abs(j_scores - js.threshold) <= (
-        SCORE_TOL["atol"] + SCORE_TOL["rtol"] * np.abs(j_scores))
-    np.testing.assert_array_equal(alarms[~near], j_alarms[~near])
+    got = eng.run({t: ev})[t]
+    assert len(got[0]) == len(ev["ts"]) // EPOCH
+    _assert_within_jax_envelope(got, (j_idx, j_scores, j_alarms), js.threshold)
 
 
 # ---------------------------------------------------------------------------
