@@ -111,6 +111,18 @@ back-to-back call, which includes the wrapper's host overhead.
                launch counts zeroed just before and read just after (no
                fc_full, the KitNET kernels as in phase main); eval pps, the
                device's busy share and AUC beside phase main's.
+  partition — the partitioned FC backends: the service on
+               backend="bucketed" at buckets=4 and 16 over phase main's
+               traffic, launch counts zeroed just before and read just after
+               (no fc_full, the KitNET kernels as on the main path; record
+               indices the epoch closers, finite scores), eval pps, device
+               launches a chunk (profiler, first 8 eval chunks) and AUC
+               beside phase main's; bucketed on
+               phase fc's chunk against fc_full in the scan envelope, device
+               ms and sorts a call; backend="sharded" on phase switch's 2048
+               packets, exact mode at shards=4 and 16 against the card's
+               serial oracle and switch mode at shards=4 against the CPU's,
+               features and every table bit for bit, card ms a packet.
   engine  — the multi-tenant engine with phase main's net: the
                tenant-batched fc_full on tenants {0, 2, 3} of a 4-tenant pool
                at n_slots=8192 (8192-packet eval chunks at three offsets)
@@ -1026,11 +1038,12 @@ def switch_op_diffs(dev) -> dict:
     return out
 
 
-def phase_switch(dev, log) -> None:
+def phase_switch(dev, log):
     """process_serial(mode="switch") on the card against the same call on the
     CPU: 2048 packets of a mirai trace at n_slots=8192, features and every
     table (round-robin counters included) bit for bit; the card's ms a
-    packet; each switch function on the card against the CPU."""
+    packet; each switch function on the card against the CPU.  Returns the
+    trace and the CPU's (state, features) for phase partition."""
     from repro_torch.core import init_state, process_serial
     from repro_torch.traffic import synth_trace, to_torch
     tr = synth_trace("mirai", n_train=64, n_benign_eval=1024, n_attack=1024,
@@ -1061,6 +1074,7 @@ def phase_switch(dev, log) -> None:
         torch.equal(st_g[g][k].cpu(), st_c[g][k]) for g in ("uni", "bi") for k in st_c[g])
     if not bitwise or any(ops.values()):
         raise RuntimeError(f"switch: card and CPU differ: {diffs}; ops {ops}")
+    return tr, out["cpu"]
 
 
 def device_ms_per_call(fn, reps: int) -> dict:
@@ -1174,6 +1188,126 @@ def phase_scan_main(data, main: dict, main_trace: dict, log) -> None:
                    "busy_share_untraced": main_trace["busy_share_untraced"],
                    "device_launches_per_chunk": main_trace["device_launches_per_chunk"]}},
          log)
+
+
+def phase_partition(dev, data, pk, main: dict, main_trace: dict, switch_tr,
+                    switch_cpu, log) -> None:
+    """The partitioned FC backends.  The service on backend="bucketed" at 4
+    and 16 buckets over the dense main path's traffic, launch counts zeroed
+    just before and read just after (no fc_full, the KitNET kernels as on
+    the main path): record indices the epoch closers, finite scores, AUC,
+    eval pps, and device launches a chunk over the first 8 eval chunks,
+    beside phase main's; bucketed on
+    phase fc's chunk against fc_full in the JAX package's scan envelope, its
+    device ms and sorts a call.  Then backend="sharded" on phase switch's
+    2048 mirai packets at n_slots=8192: exact mode at 4 and 16 shards
+    against the card's serial oracle, switch mode at 4 shards against the
+    CPU's serial oracle (phase switch's run), features and every table bit
+    for bit; card ms a packet of each."""
+    from repro_torch.core import (clone_state, compute_features, init_state,
+                                  process_serial)
+    from repro_torch.core.state import FEATURE_NAMES
+    from repro_torch.detection.metrics import auc
+    from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from repro_torch.serving import DetectionService
+    from repro_torch.traffic import to_torch
+    rec = {"phase": "partition", "main": {
+        "eval_pps": main["eval_pps"], "auc": main["auc"],
+        "device_launches_per_chunk": main_trace["device_launches_per_chunk"]}}
+    n_eval = len(data["eval"]["ts"])
+    chunks = -(-n_eval // 8192)
+    st0 = init_state(8192, device=dev)
+    _, f_k = compute_features(clone_state(st0), pk, backend="cuda")
+    pcc = torch.tensor([n.endswith(":pcc") for n in FEATURE_NAMES], device=dev)
+    for S in (4, 16):
+        t_part = time.perf_counter()
+        svc = DetectionService(backend="bucketed", buckets=S, device=dev)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.observe_stream(data["train"], chunk=8192)
+        svc.fit(seed=0, fpr=0.01)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        eval_start = svc.pkt_count
+        t0 = time.perf_counter()
+        idx, scores, alarms = svc.process_stream(data["eval"], chunk=8192)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = launch_counts()
+        if launches["fc_full"] != 0:
+            raise RuntimeError(f"bucketed S={S} launched fc_full")
+        check_kitnet_launches(launches, chunks, f"bucketed S={S}")
+        want_idx = np.arange(svc.epoch - 1 - eval_start % svc.epoch, n_eval,
+                             svc.epoch) + eval_start
+        if not np.array_equal(idx, want_idx):
+            raise RuntimeError(f"bucketed S={S}: record indices are not the epoch closers")
+        if not (np.isfinite(scores).all() and scores.shape == idx.shape):
+            raise RuntimeError(f"bucketed S={S}: scores not finite or misshapen")
+        labels = data["eval"]["label"][idx - eval_start]
+        more = eval_passes(svc, data["eval"])
+        # the profiler's own cost grows with the events it keeps (about
+        # 1,000 launches a chunk here): trace the first 8 chunks only,
+        # against their own untraced time
+        sub = {k: v[:8 * 8192] for k, v in data["eval"].items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.process_stream(sub, chunk=8192)
+        torch.cuda.synchronize()
+        trace = trace_eval(svc, sub, time.perf_counter() - t0, KERNELS)
+        st_b, f_b = compute_features(clone_state(st0), pk, backend="bucketed", buckets=S)
+        want, got = f_k.double(), f_b.double()
+        ok = (got - want).abs() <= 1.0 + 1e-3 * want.abs()
+        st_w = clone_state(st0)
+        rec[f"bucketed_{S}"] = {
+            "observe_fit_s": fit_s, "eval_s": eval_s, "eval_pps": n_eval / eval_s,
+            "eval_pps_more_passes": more,
+            "auc": auc(scores, labels), "records": int(len(scores)),
+            "alarms": int(alarms.sum()), "launches": launches,
+            "busy_share_untraced": trace["busy_share_untraced"],
+            "device_launches_per_chunk": trace["device_launches_per_chunk"],
+            "traced_chunks": trace["chunks"], "top_device_us": trace["top_device_us"],
+            "fc_chunk": {"envelope_share": float(ok.double().mean()),
+                         "non_pcc_in_envelope": bool(ok[:, ~pcc].all()),
+                         **device_ms_per_call(lambda: compute_features(
+                             st_w, pk, backend="bucketed", buckets=S), 10)},
+            "seconds": time.perf_counter() - t_part}
+        if not (rec[f"bucketed_{S}"]["fc_chunk"]["non_pcc_in_envelope"]
+                and rec[f"bucketed_{S}"]["fc_chunk"]["envelope_share"] >= 0.995):
+            raise RuntimeError(f"bucketed S={S}: outside the scan envelope against "
+                               f"fc_full: {rec[f'bucketed_{S}']['fc_chunk']}")
+
+    def run(where, backend, mode, **kw):
+        st = init_state(8192, device=where)
+        p = to_torch(switch_tr, where)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, f = compute_features(st, p, backend=backend, mode=mode, **kw)
+        torch.cuda.synchronize()
+        return st, f, (time.perf_counter() - t0) / len(switch_tr["ts"]) * 1e3
+
+    def same(a, b):
+        (st_a, f_a), (st_b, f_b) = a, b
+        return torch.equal(f_a.cpu(), f_b.cpu()) and all(
+            torch.equal(st_a[g][k].cpu(), st_b[g][k].cpu())
+            for g in ("uni", "bi") for k in st_b[g])
+
+    t_part = time.perf_counter()
+    st_s, f_s, ms = run(dev, "serial", "exact")
+    sharded = {"packets": len(switch_tr["ts"]), "n_slots": 8192,
+               "serial_exact_card_ms_per_packet": ms}
+    checks = {}
+    for S in (4, 16):
+        st_h, f_h, ms = run(dev, "sharded", "exact", shards=S)
+        sharded[f"exact_{S}_card_ms_per_packet"] = ms
+        checks[f"exact_{S}_bitwise_card_serial"] = same((st_h, f_h), (st_s, f_s))
+    st_h, f_h, ms = run(dev, "sharded", "switch", shards=4)
+    sharded["switch_4_card_ms_per_packet"] = ms
+    checks["switch_4_bitwise_cpu_serial"] = same((st_h, f_h), switch_cpu)
+    rec["sharded"] = {**sharded, **checks, "seconds": time.perf_counter() - t_part}
+    emit(rec, log)
+    if not all(checks.values()):
+        raise RuntimeError(f"sharded: not bit for bit: {checks}")
 
 
 # ---------------------------------------------------------------------------
@@ -2093,10 +2227,12 @@ def main() -> int:
     # ---- 6b. the sketch service on the card against the CPU ----
     phase_sketch_reference(kitnet_to_arrays(sketch_svc.net), sketch_svc.threshold, log)
 
-    # ---- 6c. switch arithmetic, the scan backend, the evaluation protocol ----
-    phase_switch(dev, log)
+    # ---- 6c. switch arithmetic, the scan, bucketed and sharded backends,
+    # the engine, the evaluation protocol ----
+    switch_tr, switch_cpu = phase_switch(dev, log)
     phase_scan(dev, pk, log)
     phase_scan_main(data, main, main_trace, log)
+    phase_partition(dev, data, pk, main, main_trace, switch_tr, switch_cpu, log)
     engine = phase_engine(dev, data, svc, sketch_svc, log)
     phase_eval(data, net, log)
 

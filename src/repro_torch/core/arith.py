@@ -124,9 +124,10 @@ def quantized_decay(lam: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
     return _pow2(-k.to(torch.int32))
 
 
-def exact_decay(lam: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
-    """``delta = 2^(-lam * dt)`` (Equation 1)."""
-    return torch.exp2(-lam * dt.clamp_min(0.0))
+def exact_decay(lam: torch.Tensor, dt: torch.Tensor,
+                exp2=torch.exp2) -> torch.Tensor:
+    """``delta = 2^(-lam * dt)`` (Equation 1), through ``exp2``."""
+    return exp2(-lam * dt.clamp_min(0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +152,10 @@ def square(x: torch.Tensor, mode: str = "exact") -> torch.Tensor:
     return x * x
 
 
-def decay(lam: torch.Tensor, dt: torch.Tensor, mode: str = "exact") -> torch.Tensor:
+def decay(lam: torch.Tensor, dt: torch.Tensor, mode: str = "exact",
+          exp2=torch.exp2) -> torch.Tensor:
+    """The decay factor of ``dt``; exact mode evaluates it through ``exp2``
+    (switch mode evaluates no transcendental)."""
     if mode == "switch":
         return quantized_decay(lam, dt)
-    return exact_decay(lam, dt)
+    return exact_decay(lam, dt, exp2)

@@ -15,49 +15,59 @@ state dict in place):
   * ``scan``   — segmented scans over a sorted batch (core/parallel.py),
     plain torch ops on either device; alias ``parallel``.  Exact mode only.
     It also has a record-sampled path (``compute_features_sampled``).
+  * ``bucketed`` — the scan backend's two-level form (core/bucketed.py):
+    each key type's flow-sorted batch cut into ``buckets=S`` equal buckets,
+    scanned apart and joined by a combine over the bucket tails.  Exact
+    mode only; record-sampled path too.  Bit for bit ``scan`` at S=1.
+  * ``sharded`` — hash-partitioned flow tables (core/sharded.py):
+    ``shards=S`` shards, each replaying the serial step.  Both modes, bit
+    for bit ``serial``.
 
-A switch-mode request to an exact-only backend raises ``ValueError``
-naming ``serial``, as in the JAX package.
+Options reach the backend as keywords (``compute_features(..., backend=
+"bucketed", buckets=8)``).  Each backend declares the options it takes, and
+any other raises ``TypeError``, so a misspelt option never measures the
+default.  A switch-mode request to an exact-only backend raises
+``ValueError`` naming ``serial`` and ``sharded``, as in the JAX package.
 
 A state whose layout carries its own update (the Count-Min ``sketch``,
 ``core/sketch.py``) is routed to it before the registry is consulted; the
 backend name then only picks the implementation (``cuda`` → the sketch
-kernel, anything else → its plain version).  Naming ``sketch`` with a dense
-state raises ``ValueError``.
-
-The JAX package's ``bucketed`` and ``sharded`` backends are not ported yet
-(ROADMAP queue 1 item 10b); naming one raises ``NotImplementedError``.
+kernel, anything else → its plain version), and it takes the partition
+options ``buckets``/``shards`` and ignores them.  Naming ``sketch`` with a
+dense state raises ``ValueError``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.core.arith import check_mode
 from repro_torch.core.state import state_spec_of
 
-# name -> (fn(state, pkts, mode) -> (state, feats), supported modes)
-_REGISTRY: Dict[str, Tuple[Callable, Tuple[str, ...]]] = {}
 
-# name -> fn(state, pkts, sample_idx) -> (state, feats[sample_idx]): backends
-# that emit ONLY the sampled feature rows (the state update still covers
-# every packet), exact mode
+class _Backend(NamedTuple):
+    fn: Callable               # fn(state, pkts, mode, **options) -> (state, feats)
+    modes: Tuple[str, ...]     # arithmetic modes it supports
+    options: frozenset         # keyword options it takes
+
+
+_REGISTRY: Dict[str, _Backend] = {}
+
+# name -> fn(state, pkts, sample_idx, **options) -> (state, feats[sample_idx]):
+# backends that emit ONLY the sampled feature rows (the state update still
+# covers every packet), exact mode
 _SAMPLED: Dict[str, Callable] = {}
 
 _ALIASES = {"pallas": "cuda", "kernel": "cuda", "parallel": "scan"}
 
-# JAX-package backends that later slices port
-_NOT_PORTED = {
-    "bucketed": "queue 1 item 10b (partitioned FC)",
-    "sharded": "queue 1 item 10b (partitioned FC)",
-}
 
-
-def register_backend(name: str, modes: Tuple[str, ...] = ("exact",)):
-    """Register ``fn(state, pkts, mode) -> (state, feats)`` as ``name``."""
+def register_backend(name: str, modes: Tuple[str, ...] = ("exact",),
+                     options: Tuple[str, ...] = ()):
+    """Register ``fn(state, pkts, mode, **options) -> (state, feats)`` as
+    ``name``; ``options`` names the keyword options it takes."""
     def deco(fn):
-        _REGISTRY[name] = (fn, modes)
+        _REGISTRY[name] = _Backend(fn, modes, frozenset(options))
         return fn
     return deco
 
@@ -69,9 +79,6 @@ def available_backends() -> Tuple[str, ...]:
 def resolve_backend(name: str) -> str:
     """Canonical backend name (alias-aware); raises on unknown names."""
     name = _ALIASES.get(name, name)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"FC backend {name!r} is not ported yet (ROADMAP {_NOT_PORTED[name]})")
     if name not in _REGISTRY:
         raise ValueError(f"unknown FC backend {name!r}; "
                          f"available: {available_backends()}")
@@ -89,11 +96,22 @@ def check_backend_mode(name: str, mode: str) -> None:
     """Raise ``ValueError`` unless the (canonical) dense backend ``name``
     supports the arithmetic ``mode``."""
     check_mode(mode)
-    modes = _REGISTRY[name][1]
+    modes = _REGISTRY[name].modes
     if mode not in modes:
         raise ValueError(
             f"FC backend {name!r} does not support mode {mode!r} "
-            f"(supports {modes}); use backend='serial' for switch mode")
+            f"(supports {modes}); use backend='serial' or 'sharded' for "
+            "switch mode")
+
+
+def check_backend_options(name: str, kw: Dict) -> None:
+    """Raise ``TypeError`` for any option the (canonical) dense backend
+    ``name`` does not take."""
+    unknown = set(kw) - _REGISTRY[name].options
+    if unknown:
+        raise TypeError(
+            f"FC backend {name!r} got unexpected options {sorted(unknown)}; "
+            f"accepted: {sorted(_REGISTRY[name].options)}")
 
 
 @register_backend("serial", modes=("exact", "switch"))
@@ -114,29 +132,50 @@ def _scan(state, pkts, mode):
     return process_parallel(state, pkts)
 
 
+@register_backend("bucketed", options=("buckets",))
+def _bucketed(state, pkts, mode, buckets: int = 4):
+    from repro_torch.core.bucketed import process_bucketed
+    return process_bucketed(state, pkts, buckets=buckets, mode=mode)
+
+
+@register_backend("sharded", modes=("exact", "switch"), options=("shards",))
+def _sharded(state, pkts, mode, shards: int = 4):
+    from repro_torch.core.sharded import process_sharded
+    return process_sharded(state, pkts, shards=shards, mode=mode)
+
+
 def _scan_sampled(state, pkts, sample_idx):
     from repro_torch.core.parallel import process_parallel_sampled
     return process_parallel_sampled(state, pkts, sample_idx)
 
 
+def _bucketed_sampled(state, pkts, sample_idx, buckets: int = 4):
+    from repro_torch.core.bucketed import process_bucketed_sampled
+    return process_bucketed_sampled(state, pkts, sample_idx, buckets=buckets)
+
+
 def register_sampled_backend(name: str, fn: Callable) -> None:
     """Register a record-sampled FC path for an existing backend:
-    ``fn(state, pkts, sample_idx) -> (state, feats (m, N_FEATURES))``."""
+    ``fn(state, pkts, sample_idx, **options) -> (state, feats (m,
+    N_FEATURES))``, taking the backend's options."""
     _SAMPLED[resolve_backend(name)] = fn
 
 
 register_sampled_backend("scan", _scan_sampled)
+register_sampled_backend("bucketed", _bucketed_sampled)
 
 
 def compute_features(state: Dict, pkts: Dict[str, torch.Tensor],
-                     backend: str = "cuda", mode: str = "exact"
+                     backend: str = "cuda", mode: str = "exact", **kw
                      ) -> Tuple[Dict, torch.Tensor]:
     """Run one packet batch through the selected FC backend.
 
     ``state``: an ``init_state`` dict, updated IN PLACE (this replaces the
     JAX package's donation contract, DESIGN.md §8: clone the state first if
     a restore point is needed).  ``pkts``: ``to_torch`` packet tensors on
-    the state's device.  Returns ``(state, feats (n, N_FEATURES))``.
+    the state's device.  ``kw``: the backend's options (``buckets=`` for
+    ``bucketed``, ``shards=`` for ``sharded``).  Returns ``(state, feats
+    (n, N_FEATURES))``.
     """
     spec = state_spec_of(state)
     if backend == "sketch" and spec.compute is None:
@@ -146,25 +185,28 @@ def compute_features(state: Dict, pkts: Dict[str, torch.Tensor],
             f"passed here is {spec.name!r}")
     name = resolve_backend(backend)
     if spec.compute is not None:
-        return spec.compute(state, pkts, mode=mode, fc_backend=name)
+        return spec.compute(state, pkts, mode=mode, fc_backend=name, **kw)
     check_backend_mode(name, mode)
-    return _REGISTRY[name][0](state, pkts, mode)
+    check_backend_options(name, kw)
+    return _REGISTRY[name].fn(state, pkts, mode, **kw)
 
 
 def compute_features_sampled(state: Dict, pkts: Dict[str, torch.Tensor],
                              sample_idx: torch.Tensor, backend: str = "cuda",
-                             mode: str = "exact"
+                             mode: str = "exact", **kw
                              ) -> Tuple[Dict, torch.Tensor]:
     """One batch through the FC backend, returning only the sampled rows.
 
     The state is updated as by :func:`compute_features` and the rows equal
     ``compute_features(...)[1][sample_idx]``.  A backend with a
-    record-sampled path (``scan``) never materialises the unsampled rows in
-    exact mode; everything else computes the full (n, N_FEATURES) matrix and
-    gathers ``sample_idx`` on the device.
+    record-sampled path (``scan``, ``bucketed``) never materialises the
+    unsampled rows in exact mode; everything else computes the full (n,
+    N_FEATURES) matrix and gathers ``sample_idx`` on the device.
     """
-    fn = _SAMPLED.get(resolve_backend(backend))
+    name = resolve_backend(backend)
+    fn = _SAMPLED.get(name)
     if fn is not None and mode == "exact" and state_spec_of(state).compute is None:
-        return fn(state, pkts, sample_idx)
-    state, feats = compute_features(state, pkts, backend=backend, mode=mode)
+        check_backend_options(name, kw)
+        return fn(state, pkts, sample_idx, **kw)
+    state, feats = compute_features(state, pkts, backend=backend, mode=mode, **kw)
     return state, feats[sample_idx]

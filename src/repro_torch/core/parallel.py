@@ -32,8 +32,13 @@ no Pallas kernel, so there is no kernel to port):
 packets (the fused serving step's records); the flow-state update always
 covers every packet.  The state is updated in place.
 
-The JAX module's two-level chunked form (``chunks=``/``shard=``, the
-bucketed backend's) belongs to ROADMAP item 10b and is not ported here.
+Both scans also run in the JAX module's two-level form (``chunks=S``, the
+``bucketed`` backend's, core/bucketed.py): S local scans over equal slices
+of the sorted array, an exclusive combine over the S slice tails, and an
+elementwise fix-up.  The linear scan reassociates once more (bit for bit
+the flat scan at S=1); the latest-value scan stays exact.  Only the
+unplaced form is ported: the JAX module's ``shard=`` (the slices placed
+over a device mesh) is not (ROADMAP queue 1 item 10c).
 
 Requires ``pkts["ts"]`` sorted ascending (streams are time-ordered).
 """
@@ -56,8 +61,50 @@ def _expand(a: torch.Tensor, ndim: int) -> torch.Tensor:
     return a.reshape(a.shape + (1,) * (ndim - a.ndim))
 
 
+def _cut(t: torch.Tensor, chunks: int, fill: float) -> torch.Tensor:
+    """(n, ...) -> (chunks, ceil(n/chunks), ...): equal slices, the last
+    padded at its tail with ``fill`` (inclusive scans carry nothing
+    backwards, so the padding never reaches a real element)."""
+    n = t.shape[0]
+    pad = -n % chunks
+    if pad:
+        t = torch.cat([t, t.new_full((pad,) + t.shape[1:], fill)])
+    return t.reshape((chunks, (n + pad) // chunks) + t.shape[1:])
+
+
+def _odd_even(s: torch.Tensor, a: torch.Tensor, dim: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of ``(s, a)`` along ``dim`` by the combine ``(sl * sr,
+    al * sr + ar)``, in ``jax.lax.associative_scan``'s odd-even tree: pairs
+    combined, the pairs scanned, then each even element combined with the
+    odd prefix before it.  Returns new tensors: ``a`` inclusive and ``s``
+    each element's whole prefix product."""
+    n = a.shape[dim]
+    if n < 2:
+        return s, a
+    lead = (slice(None),) * dim
+
+    def every2(t, start, stop=None):
+        return t[lead + (slice(start, stop, 2),)]
+
+    s_r, a_r = every2(s, 1), every2(a, 1)
+    ps, pa = _odd_even(every2(s, 0, n - 1) * s_r,
+                       every2(a, 0, n - 1) * s_r + a_r, dim)
+    k = (n - 1) // 2                    # even elements past the first
+    s_e, a_e = every2(s, 2), every2(a, 2)
+    out = []
+    for t, odd, even in ((s, ps, ps.narrow(dim, 0, k) * s_e),
+                         (a, pa, pa.narrow(dim, 0, k) * s_e + a_e)):
+        o = torch.empty_like(t)
+        o.narrow(dim, 0, 1).copy_(t.narrow(dim, 0, 1))
+        every2(o, 1).copy_(odd)
+        every2(o, 2).copy_(even)
+        out.append(o)
+    return out[0], out[1]
+
+
 def seg_linear_scan(seg_start: torch.Tensor, delta: torch.Tensor,
-                    x: torch.Tensor) -> torch.Tensor:
+                    x: torch.Tensor, chunks: int = 1) -> torch.Tensor:
     """Segmented ``A_i = delta_i * A_{i-1} + x_i`` (A resets at segment
     starts), inclusive, as a Hillis-Steele doubling scan.
 
@@ -69,21 +116,52 @@ def seg_linear_scan(seg_start: torch.Tensor, delta: torch.Tensor,
     segment start's decay is 0, so a product that spans a start is 0 and
     nothing before the start reaches past it (the flagged combine's
     values, for finite inputs, without the flags).
+
+    ``chunks=S`` runs the JAX module's two-level form: S local scans over
+    equal slices (a ragged last slice padded with decay-0, zero-increment
+    elements), an exclusive scan of the slice tails ``(prefix product,
+    A)``, and the fix-up ``A = carry * prefix product + local A``, where a
+    segment start's 0 in the prefix product kills the carry.  The local
+    and tail scans take ``jax.lax.associative_scan``'s odd-even tree, the
+    JAX module's association, so the two packages' chunked scans differ by
+    XLA's rounding of ``exp2`` and of contracted multiply-adds only (SR
+    sums cancel in float32, and in another order they drift further from
+    JAX's).  ``chunks=1`` is the flat scan.
     """
     n = x.shape[0]
     s = torch.where(_expand(seg_start, delta.ndim), 0.0, delta)
-    a = x.clone()
-    off = 1
-    while off < n:
-        a[off:] += a[:-off] * s[off:]
-        if 2 * off < n:
-            s[off:] = s[:-off] * s[off:]
-        off *= 2
-    return a
+    if chunks <= 1:
+        a = x.clone()
+        off = 1
+        while off < n:
+            a[off:] += a[:-off] * s[off:]
+            if 2 * off < n:
+                s[off:] = s[:-off] * s[off:]
+            off *= 2
+        return a
+    ls, la = _odd_even(_cut(s, chunks, 0.0), _cut(x, chunks, 0.0), 1)
+    _, ta = _odd_even(ls[:, -1], la[:, -1], 0)          # inclusive over tails
+    carry = torch.cat([torch.zeros_like(ta[:1]), ta[:-1]])
+    a = carry[:, None] * ls + la
+    return a.reshape((-1,) + a.shape[2:])[:n]
+
+
+def _cummax(v: torch.Tensor, chunks: int = 1) -> torch.Tensor:
+    """Running max along dim 1 of a (K, n) index array, flat or in the
+    two-level form (local maxima, an exclusive max over the slice tails,
+    the max of the two): the same values either way."""
+    if chunks <= 1:
+        return torch.cummax(v, 1).values
+    n = v.shape[1]
+    loc = torch.cummax(_cut(v.T, chunks, -1).permute(2, 0, 1), 2).values
+    tails = torch.cummax(loc[..., -1], 1).values                 # (K, S)
+    carry = torch.cat([torch.full_like(tails[:, :1], -1), tails[:, :-1]], 1)
+    return torch.maximum(loc, carry[..., None]).reshape(v.shape[0], -1)[:, :n]
 
 
 def seg_last_scan(seg_start: torch.Tensor, valid: torch.Tensor,
-                  value: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                  value: torch.Tensor, chunks: int = 1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segmented latest valid value (inclusive), per column.
 
     ``valid``: (n, K) bool; ``value``: (n, K, ...).  Returns ``(found,
@@ -91,12 +169,13 @@ def seg_last_scan(seg_start: torch.Tensor, valid: torch.Tensor,
     yet in the row's segment, and ``last`` the value at the latest valid
     row (zeros where not found).  An index ``cummax`` reset at segment
     starts (along the contiguous dimension, where the card's scan is
-    parallel): values are gathered, never combined, so this is exact.
+    parallel), in ``chunks`` slices as :func:`seg_linear_scan`: values are
+    gathered, never combined, so this is exact at any ``chunks``.
     """
     n, k = valid.shape
     ar = torch.arange(n, device=valid.device)
     first = _seg_first(seg_start)
-    last = torch.cummax(torch.where(valid.T, ar, -1), 1).values.T
+    last = _cummax(torch.where(valid.T, ar, -1), chunks).T
     found = last >= first[:, None]
     val = value[last.clamp_min(0), torch.arange(k, device=valid.device)]
     return found, torch.where(_expand(found, val.ndim), val, 0.0)
@@ -174,7 +253,7 @@ def _store(tab: Dict[str, torch.Tensor], writes) -> None:
 def stream_pass(tab: Dict[str, torch.Tensor], stream_ids: torch.Tensor,
                 ts: torch.Tensor, lens: torch.Tensor, lam: torch.Tensor,
                 order: Optional[torch.Tensor] = None,
-                sample: Optional[torch.Tensor] = None):
+                sample: Optional[torch.Tensor] = None, chunks: int = 1):
     """Decayed-atom update of one table of streams.
 
     ``tab``: ``{"last_t", "w", "ls", "ss"}`` flat (rows, N_DECAY) tables;
@@ -183,7 +262,8 @@ def stream_pass(tab: Dict[str, torch.Tensor], stream_ids: torch.Tensor,
     order, at ``sample``'s rows if given, and the store-back (each
     stream's last row) for :func:`_store`, which the caller applies once
     every pass that reads the pre-batch table is done.  ``order`` is the
-    stable sort by stream id, when already known.
+    stable sort by stream id, when already known; ``chunks`` cuts the scan
+    (:func:`seg_linear_scan`).
     """
     if order is None:
         order = torch.argsort(stream_ids, stable=True)
@@ -202,7 +282,7 @@ def stream_pass(tab: Dict[str, torch.Tensor], stream_ids: torch.Tensor,
                       (x * x)[:, None].expand(n, N_DECAY)], -1)   # (n, ND, 3)
     tab_a = torch.stack([tab["w"][sid], tab["ls"][sid], tab["ss"][sid]], -1)
     x0 = torch.where(start[:, None, None], xs + delta[..., None] * tab_a, xs)
-    atoms = seg_linear_scan(start, delta[..., None], x0)
+    atoms = seg_linear_scan(start, delta[..., None], x0, chunks)
     last = _seg_last(end)
     at_end = atoms[last]
     writes = (sid, {"last_t": t[last][:, None].expand(-1, N_DECAY),
@@ -233,7 +313,7 @@ def channel_pass(tab: Dict[str, torch.Tensor], slots: torch.Tensor,
                  dirs: torch.Tensor, ts: torch.Tensor, lens: torch.Tensor,
                  own_atoms: torch.Tensor, lam: torch.Tensor,
                  order: torch.Tensor, dir_gather: torch.Tensor,
-                 sample: Optional[torch.Tensor] = None):
+                 sample: Optional[torch.Tensor] = None, chunks: int = 1):
     """Cross-direction state of the bi streams.
 
     ``tab``: the flat bi tables, still holding their pre-batch values
@@ -243,7 +323,8 @@ def channel_pass(tab: Dict[str, torch.Tensor], slots: torch.Tensor,
     width).  ``order`` is the stable sort by slot and ``dir_gather`` its
     directional permutation.  Returns ``(features (n|m, ND, 7), writes)``;
     ``sample`` restricts the emitted rows (the scans and store-backs always
-    cover every packet, and a row's statistics are the same either way).
+    cover every packet, and a row's statistics are the same either way);
+    ``chunks`` cuts both scans.
     """
     inv = arith.invert_perm(order)
     sid = slots[order]
@@ -260,7 +341,8 @@ def channel_pass(tab: Dict[str, torch.Tensor], slots: torch.Tensor,
     n = sid.shape[0]
     lanes = torch.cat([own, r[..., None]], -1)               # (n, ND, 4)
     found, latest = seg_last_scan(start, torch.stack([d == 0, d == 1], 1),
-                                  lanes[:, None].expand(n, 2, N_DECAY, 4))
+                                  lanes[:, None].expand(n, 2, N_DECAY, 4),
+                                  chunks)
     res = [torch.where(found[:, X, None], latest[:, X, :, 3],
                        tab["brl"][2 * sid + X]) for X in (0, 1)]
     r_opp = torch.where((d == 0)[:, None], res[1], res[0])
@@ -269,7 +351,7 @@ def channel_pass(tab: Dict[str, torch.Tensor], slots: torch.Tensor,
     dsr = _decay(lam, start, t, tab["bslt"][sid])
     x_sr = r * r_opp
     x_sr = torch.where(start[:, None], x_sr + dsr * tab["bsr"][sid], x_sr)
-    sr = seg_linear_scan(start, dsr, x_sr)
+    sr = seg_linear_scan(start, dsr, x_sr, chunks)
 
     # statistics, emitted at the requested rows only
     rows = inv if sample is None else inv[sample]
@@ -296,15 +378,28 @@ def channel_pass(tab: Dict[str, torch.Tensor], slots: torch.Tensor,
 # the whole batch
 # ---------------------------------------------------------------------------
 def _process(state: Dict, pkts: Dict[str, torch.Tensor],
-             sample_idx: Optional[torch.Tensor] = None
+             sample_idx: Optional[torch.Tensor] = None, chunks: int = 1
              ) -> Tuple[Dict, torch.Tensor]:
+    """One batch, every row or ``sample_idx``'s; ``chunks=S`` cuts each key
+    type's sorted run into S buckets (the ``bucketed`` backend).
+
+    Both key types of a group lie end to end in one sorted array of 2n
+    positions (rows of key type 0 sort first), so S buckets a key type are
+    2S equal cuts of that array, the JAX module's cuts when S divides n.
+    A ragged batch is padded to a multiple of S at the sorted array's tail,
+    after every real row of both key types, rather than with sentinel
+    packets: the padding needs no table row (torch raises on an
+    out-of-range index, where JAX drops the store), is never stored and is
+    never emitted.  Key type 0's cuts are then JAX's; key type 1's fall
+    ``-n % S`` positions later in its run, another legal reassociation.
+    """
     ts = pkts["ts"].to(torch.float32)
     lens = pkts["length"].to(torch.float32)
     n = ts.shape[0]
     m = n if sample_idx is None else sample_idx.shape[0]
     if n == 0 or m == 0:
         if n:
-            _process(state, pkts)      # the state still takes every packet
+            _process(state, pkts, chunks=chunks)   # the state takes every packet
         return state, torch.empty((m, N_FEATURES), dtype=torch.float32,
                                   device=ts.device)
     n_slots = state_slots(state)
@@ -317,12 +412,13 @@ def _process(state: Dict, pkts: Dict[str, torch.Tensor],
     dirs2 = rows["dir"].repeat(2)
     sample2 = (None if sample_idx is None else
                torch.cat([sample_idx, sample_idx + n]))
+    cuts = 2 * chunks if chunks > 1 else 1
 
     # ---- unidirectional: one sort for both key types ----
     uni_tab = {"last_t": tab["ult"], "w": tab["uw"], "ls": tab["uls"],
                "ss": tab["uss"]}
     atoms, writes = stream_pass(uni_tab, rows["urow"].T.reshape(-1), ts2, lens2,
-                                lam, sample=sample2)
+                                lam, sample=sample2, chunks=cuts)
     _store(uni_tab, writes)
     mu, _, sig = _stats(atoms[..., 0], atoms[..., 1], atoms[..., 2])
     uni_feats = torch.stack([atoms[..., 0], mu, sig], -1)       # (2m, ND, 3)
@@ -335,10 +431,11 @@ def _process(state: Dict, pkts: Dict[str, torch.Tensor],
     dir_tab = {"last_t": tab["blt"], "w": tab["bw"], "ls": tab["bls"],
                "ss": tab["bss"]}
     own, dir_writes = stream_pass(dir_tab, 2 * slots + dirs2, ts2, lens2, lam,
-                                  order=order[dir_gather])
+                                  order=order[dir_gather], chunks=cuts)
     # the channel pass reads the pre-batch direction tables: store after it
     bi_feats, ch_writes = channel_pass(tab, slots, dirs2, ts2, lens2, own, lam,
-                                       order, dir_gather, sample=sample2)
+                                       order, dir_gather, sample=sample2,
+                                       chunks=cuts)
     _store(dir_tab, dir_writes)
     for w in ch_writes:
         _store(tab, w)

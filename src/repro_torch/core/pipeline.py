@@ -64,11 +64,10 @@ def packet_rows(pkts: Dict[str, torch.Tensor],
     return {"urow": urow, "bbase": bbase, "dir": sl["dir"]}
 
 
-def _update(lam, lt, w, ls, ss, t, x):
+def _update(lam, lt, w, ls, ss, t, x, exp2=torch.exp2):
     """One stream's decay + atom update (exact mode)."""
     dt = (t - lt).clamp_min(0.0)
-    delta = torch.where(lt < 0.0, torch.zeros_like(dt),
-                        torch.exp2(-lam * dt))
+    delta = torch.where(lt < 0.0, torch.zeros_like(dt), exp2(-lam * dt))
     return w * delta + 1.0, ls * delta + x, ss * delta + x * x
 
 
@@ -95,17 +94,20 @@ def _stats(w, ls, ss, mode: str = "exact"):
     return mu, var, arith.sqrt(var, mode)
 
 
-def uni_step(tab, lam, urow, t, x, mode: str = "exact", rr=None) -> torch.Tensor:
+def uni_step(tab, lam, urow, t, x, mode: str = "exact", rr=None,
+             exp2=torch.exp2) -> torch.Tensor:
     """Apply one packet to the uni rows ``urow`` (one per key type);
     returns their features, (len(urow) * N_DECAY * 3,).  Switch mode also
-    takes the flat round-robin counters ``rr`` (indexed by ``urow``)."""
+    takes the flat round-robin counters ``rr`` (indexed by ``urow``).
+    Exact mode's decays go through ``exp2`` (core/sharded.py evaluates
+    them at the owning rows only)."""
     lt, w, ls, ss = (tab[k][urow] for k in ("ult", "uw", "uls", "uss"))
     if mode == "switch":
         lt2, w2, ls2, ss2, rr[urow] = _update_switch(lam, lt, w, ls, ss,
                                                      rr[urow], t, x)
     else:
         lt2 = t
-        w2, ls2, ss2 = _update(lam, lt, w, ls, ss, t, x)
+        w2, ls2, ss2 = _update(lam, lt, w, ls, ss, t, x, exp2)
     mu, _, sig = _stats(w2, ls2, ss2, mode)
     tab["ult"][urow] = lt2
     tab["uw"][urow] = w2
@@ -115,18 +117,19 @@ def uni_step(tab, lam, urow, t, x, mode: str = "exact", rr=None) -> torch.Tensor
 
 
 def bi_step(tab, lam, brow_o, brow_p, brow_s, t, x, mode: str = "exact",
-            rr=None) -> torch.Tensor:
+            rr=None, exp2=torch.exp2) -> torch.Tensor:
     """Apply one packet to the bi rows (own direction ``brow_o``, opposite
     ``brow_p``, channel-level SR ``brow_s``; one per key type); returns
     their features, (len(brow_o) * N_DECAY * 7,).  Switch mode also takes
     the flat round-robin counters ``rr``, one per channel (``brow_s``):
-    both directions advance the same counter."""
+    both directions advance the same counter.  ``exp2`` as in
+    :func:`uni_step`."""
     lt_o, w_o, ls_o, ss_o = (tab[k][brow_o] for k in ("blt", "bw", "bls", "bss"))
     if mode == "switch":
         lt_o, w_o, ls_o, ss_o, rr[brow_s] = _update_switch(
             lam, lt_o, w_o, ls_o, ss_o, rr[brow_s], t, x)
     else:
-        w_o, ls_o, ss_o = _update(lam, lt_o, w_o, ls_o, ss_o, t, x)
+        w_o, ls_o, ss_o = _update(lam, lt_o, w_o, ls_o, ss_o, t, x, exp2)
         lt_o = t
     # own stats and the opposite direction's from its stored values (stale,
     # as on the switch), as one stacked call: [0] own, [1] opposite
@@ -140,7 +143,7 @@ def bi_step(tab, lam, brow_o, brow_p, brow_s, t, x, mode: str = "exact",
     # instance, both modes)
     sr, sr_lt = tab["bsr"][brow_s], tab["bslt"][brow_s]
     dsr = torch.where(sr_lt < 0.0, torch.zeros_like(sr),
-                      arith.decay(lam, (t - sr_lt).clamp_min(0.0), mode))
+                      arith.decay(lam, (t - sr_lt).clamp_min(0.0), mode, exp2))
     r = x - mu_o
     sr2 = sr * dsr + r * tab["brl"][brow_p]
 

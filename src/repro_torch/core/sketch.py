@@ -36,7 +36,7 @@ kernel wrapper, ``serial`` the plain version.  Exact arithmetic only.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -273,10 +273,14 @@ def process_sketch(state: Dict, pkts: Dict[str, torch.Tensor],
 # compute dispatch + layout registration
 # ---------------------------------------------------------------------------
 def compute_features_sketch(state: Dict, pkts: Dict[str, torch.Tensor],
-                            mode: str = "exact", fc_backend: str = "cuda"
+                            mode: str = "exact", fc_backend: str = "cuda",
+                            buckets: Optional[int] = None,
+                            shards: Optional[int] = None
                             ) -> Tuple[Dict, torch.Tensor]:
-    """Route a sketch-state batch: ``cuda`` → the kernel wrapper,
-    ``serial`` → the plain version."""
+    """Route a sketch-state batch: ``cuda`` → the kernel wrapper, anything
+    else → the plain version.  The dense backends' partition options
+    (``buckets``/``shards``) are taken and ignored, as in the JAX package:
+    partitioning belongs to the dense slot layout."""
     _check_exact(mode)
     if fc_backend == "cuda":
         from repro_torch.kernels.sketch_update import sketch_update_full

@@ -159,15 +159,23 @@ def _sgd(params: Dict[str, torch.Tensor], loss_fn, batches: torch.Tensor,
 def train_kitnet(feats_train, seed: int = 0, max_size: int = 10,
                  lr: float = 0.05, batch: int = 256, epochs: int = 4,
                  md_backend: str = "einsum", device: DeviceLike = None,
-                 init: Optional[KitNet] = None) -> KitNet:
+                 init: Optional[KitNet] = None,
+                 md_kw: Optional[Dict] = None) -> KitNet:
     """Fit FM + normalisation on the benign training records, then SGD.
 
     ``feats_train``: (n, F) records, numpy or a tensor (whose device is the
     default).  ``md_backend`` runs the training-set ensemble-RMSE pass (which
     fixes the output AE's normalisation and training data) through the
-    backend used later for scoring.  ``init`` supplies the feature map and
-    initial weights instead of ``feature_map`` + ``init_kitnet(seed)``.
+    backend used later for scoring, with its ensemble options ``md_kw``
+    (e.g. ``{"design": "pair"}`` for ``cuda``).  ``init`` supplies the
+    feature map and initial weights instead of ``feature_map`` +
+    ``init_kitnet(seed)``.  SGD itself runs on the plain einsum graph (it
+    needs gradients).
     """
+    from repro_torch.detection.md_backends import (ensemble_rmse_records,
+                                                   validate_md_options)
+    md_kw = dict(md_kw or {})
+    validate_md_options(md_backend, md_kw, stage="ensemble")
     if device is None and isinstance(feats_train, torch.Tensor):
         device = feats_train.device
     dev = resolve_device(device)
@@ -193,9 +201,8 @@ def train_kitnet(feats_train, seed: int = 0, max_size: int = 10,
                ens_loss, Xb, lr, epochs)
     params = {**init.params, **ens}
 
-    from repro_torch.detection.md_backends import ensemble_rmse_records
     r_train = ensemble_rmse_records(params, idx, mask, _normalize(X, lo, hi),
-                                    backend=md_backend)
+                                    backend=md_backend, **md_kw)
     r_lo, r_hi = r_train.min(0).values, r_train.max(0).values
     rn = _normalize(r_train, r_lo, r_hi)
     Rb = rn[:nb * batch].reshape(nb, batch, rn.shape[1])

@@ -17,6 +17,16 @@ Each backend supplies the ensemble stage ``fn(params, idx, mask, xn) ->
 (B, k)`` and a full scoring function, by default the plain stages built
 around its ensemble; ``train_kitnet`` runs its training-set RMSE pass
 through the same backend it scores with (DESIGN.md §3).
+
+Options reach a backend as keywords (``md_kw`` in the service, the engine
+and the runners).  A backend declares the options its scoring path takes
+and those its ensemble stage takes, only the ones that reach its kernels;
+any other raises ``TypeError``, so a misspelt option never measures the
+default.  The ``cuda`` ensemble takes ``design=`` (``kitnet_ensemble``'s
+``"tile"`` or ``"pair"``); its scoring kernel takes none, so ``design``
+is refused wherever scoring would drop it.  The JAX package's Pallas
+options ``bb`` and ``interpret`` have no counterpart here and are refused
+like any unknown option.
 """
 from __future__ import annotations
 
@@ -30,8 +40,10 @@ from repro_torch.kernels import kitnet_ae
 
 
 class _MDBackend(NamedTuple):
-    score: Callable      # fn(net, X (B,F) tensor) -> (B,) scores
-    ensemble: Callable   # fn(params, idx, mask, xn (B,F)) -> (B,k) RMSE
+    score: Callable      # fn(net, X (B,F) tensor, **options) -> (B,) scores
+    ensemble: Callable   # fn(params, idx, mask, xn (B,F), **options) -> (B,k)
+    options: frozenset   # options the scoring path takes
+    ensemble_options: frozenset   # options the ensemble stage takes
 
 
 _REGISTRY: Dict[str, _MDBackend] = {}
@@ -42,19 +54,43 @@ _ALIASES = {"pallas": "cuda", "kernel": "cuda"}
 def _scorer(ensemble: Callable) -> Callable:
     """The full scoring path around one ensemble stage: normalise, the
     ensemble RMSEs, normalise those, then the output AE."""
-    def score(net, X):
+    def score(net, X, **kw):
         xn = _normalize(X, net.norm_min, net.norm_max)
-        r = ensemble(net.params, net.idx, net.mask, xn)
+        r = ensemble(net.params, net.idx, net.mask, xn, **kw)
         return output_rmse(net.params, _normalize(r, net.out_min, net.out_max))
     return score
 
 
 def register_md_backend(name: str, *, ensemble: Callable,
-                        score: Optional[Callable] = None):
+                        score: Optional[Callable] = None,
+                        options: Tuple[str, ...] = (),
+                        ensemble_options: Optional[Tuple[str, ...]] = None):
     """Register an MD backend by its ensemble stage and, optionally, its own
-    scoring function (else the plain stages around the ensemble)."""
-    _REGISTRY[name] = _MDBackend(score=score or _scorer(ensemble),
-                                 ensemble=ensemble)
+    scoring function (else the plain stages around the ensemble).
+
+    ``options`` names the keyword options the scoring path takes,
+    ``ensemble_options`` those the ensemble stage takes (by default the
+    same); anything else passed raises ``TypeError``.
+    """
+    _REGISTRY[name] = _MDBackend(
+        score=score or _scorer(ensemble), ensemble=ensemble,
+        options=frozenset(options),
+        ensemble_options=frozenset(options if ensemble_options is None
+                                   else ensemble_options))
+
+
+def validate_md_options(backend: str, kw: Dict, stage: str = "score") -> str:
+    """Resolve ``backend`` and reject options its ``stage`` (``score``, the
+    whole scoring path, or ``ensemble``) does not take."""
+    name = resolve_md_backend(backend)
+    b = _REGISTRY[name]
+    accepted = b.options if stage == "score" else b.ensemble_options
+    unknown = set(kw) - accepted
+    if unknown:
+        raise TypeError(
+            f"MD backend {name!r} got unexpected {stage} options "
+            f"{sorted(unknown)}; accepted: {sorted(accepted)}")
+    return name
 
 
 def available_md_backends() -> Tuple[str, ...]:
@@ -78,9 +114,10 @@ def _ensemble_einsum(params, idx, mask, xn):
     return ensemble_rmse(params, idx, mask, xn)
 
 
-def _ensemble_cuda(params, idx, mask, xn):
+def _ensemble_cuda(params, idx, mask, xn, design: str = "auto"):
     return kitnet_ae.kitnet_ensemble(xn[:, idx], params["W1"], params["b1"],
-                                     params["W2"], params["b2"], mask)
+                                     params["W2"], params["b2"], mask,
+                                     design=design)
 
 
 def _score_cuda(net, X):
@@ -92,26 +129,31 @@ def _score_cuda(net, X):
 
 
 register_md_backend("einsum", ensemble=_ensemble_einsum)
-register_md_backend("cuda", ensemble=_ensemble_cuda, score=_score_cuda)
+register_md_backend("cuda", ensemble=_ensemble_cuda, score=_score_cuda,
+                    ensemble_options=("design",))
 
 
-def md_score_fn(backend: str = "cuda") -> Callable:
+def md_score_fn(backend: str = "cuda", **kw) -> Callable:
     """The selected backend's scoring callable ``fn(net, X) -> (B,)``, with
-    ``X`` a (B, F) tensor on the net's device; the result stays there."""
-    return _REGISTRY[resolve_md_backend(backend)].score
+    ``X`` a (B, F) tensor on the net's device; the result stays there.
+    ``kw``: the backend's scoring options."""
+    score = _REGISTRY[validate_md_options(backend, kw)].score
+    return (lambda net, X: score(net, X, **kw)) if kw else score
 
 
-def score_records(net, feats, backend: str = "cuda") -> np.ndarray:
+def score_records(net, feats, backend: str = "cuda", **kw) -> np.ndarray:
     """Anomaly RMSE per feature record through the selected MD backend, as
     a host array.  Per-record scores do not depend on the batch."""
+    score = md_score_fn(backend, **kw)
     X = torch.as_tensor(feats, dtype=torch.float32).to(net.device)
     with torch.no_grad():
-        return md_score_fn(backend)(net, X).cpu().numpy()
+        return score(net, X).cpu().numpy()
 
 
-def ensemble_rmse_records(params, idx, mask, xn,
-                          backend: str = "cuda") -> torch.Tensor:
-    """The ensemble stage alone: normalised records (B, F) -> (B, k) RMSE."""
+def ensemble_rmse_records(params, idx, mask, xn, backend: str = "cuda",
+                          **kw) -> torch.Tensor:
+    """The ensemble stage alone: normalised records (B, F) -> (B, k) RMSE.
+    ``kw``: the backend's ensemble options (``design=`` for ``cuda``)."""
+    name = validate_md_options(backend, kw, stage="ensemble")
     with torch.no_grad():
-        return _REGISTRY[resolve_md_backend(backend)].ensemble(params, idx,
-                                                               mask, xn)
+        return _REGISTRY[name].ensemble(params, idx, mask, xn, **kw)

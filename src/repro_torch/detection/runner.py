@@ -47,12 +47,14 @@ def run_peregrine(data: Dict, sampling: int, n_slots: int = 8192,
                   mode: str = "switch", train_epoch: int = 1,
                   seed: int = 0, backend: Optional[str] = None,
                   chunk: int = 8192, md_backend: Optional[str] = None,
-                  device: DeviceLike = None) -> Tuple[np.ndarray, np.ndarray]:
+                  md_kw: Optional[Dict] = None, device: DeviceLike = None
+                  ) -> Tuple[np.ndarray, np.ndarray]:
     """Returns (scores, labels) per sampled feature record of the eval set.
 
-    ``backend`` selects the FC implementation by name (serial/scan/cuda);
-    the default follows the arithmetic mode.  ``md_backend`` selects the
-    KitNET scoring implementation (einsum/cuda).  The trace is streamed
+    ``backend`` selects the FC implementation by name
+    (serial/scan/cuda/bucketed/sharded); the default follows the arithmetic
+    mode.  ``md_backend`` selects the KitNET scoring implementation
+    (einsum/cuda), ``md_kw`` its options.  The trace is streamed
     through ``DetectionService`` in ``chunk``-sized batches: flow state and
     epoch accounting carry across chunks and each chunk's records are
     scored as they arrive.
@@ -61,7 +63,7 @@ def run_peregrine(data: Dict, sampling: int, n_slots: int = 8192,
     from repro_torch.serving.detect_service import DetectionService
     svc = DetectionService(epoch=train_epoch, n_slots=n_slots, mode=mode,
                            backend=backend, md_backend=md_backend,
-                           device=device)
+                           md_kw=md_kw, device=device)
     svc.observe_stream(data["train"], chunk=chunk)
     svc.fit(seed=seed)
     # eval is a fresh capture: restart epoch accounting at the sampling rate

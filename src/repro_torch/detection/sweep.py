@@ -19,7 +19,9 @@ from repro_torch.core.backends import compute_features, default_backend
 from repro_torch.core.records import epoch_indices
 from repro_torch.core.state import init_state, state_device
 from repro_torch.detection.kitnet import train_kitnet
-from repro_torch.detection.md_backends import default_md_backend, score_records
+from repro_torch.detection.md_backends import (default_md_backend,
+                                               score_records,
+                                               validate_md_options)
 from repro_torch.detection.metrics import auc, f1_at_fpr
 from repro_torch.detection.runner import take
 from repro_torch.device import DeviceLike
@@ -42,6 +44,7 @@ def sweep_attack(data: Dict, rates: Iterable[int], n_slots: int = 8192,
                  mode: str = "switch", seed: int = 0,
                  min_train_records: int = 16, backend: Optional[str] = None,
                  md_backend: Optional[str] = None,
+                 md_kw: Optional[Dict] = None,
                  state_backend: str = "dense",
                  state_kw: Optional[Dict] = None,
                  device: DeviceLike = None) -> Dict[str, Dict[int, Dict]]:
@@ -49,14 +52,16 @@ def sweep_attack(data: Dict, rates: Iterable[int], n_slots: int = 8192,
     n_attack}}}.
 
     ``backend`` names the Peregrine FC implementation (serial/scan/cuda);
-    ``md_backend`` the KitNET scoring implementation (einsum/cuda), used
-    for both systems.  ``state_backend``/``state_kw`` pick the Peregrine
+    ``md_backend`` the KitNET scoring implementation (einsum/cuda), with
+    options in ``md_kw``, used for both systems.  ``state_backend``/``state_kw`` pick the Peregrine
     flow-table layout (dense slots or the Count-Min sketch); the Kitsune
     baseline always computes exact features over dense state, so a sketch
     sweep measures the accuracy cost of the compressed flow tables alone.
     """
     if md_backend is None:
         md_backend = default_md_backend()
+    md_kw = dict(md_kw or {})
+    validate_md_options(md_backend, md_kw)   # before any FC or training
     out = {"peregrine": {}, "kitsune": {}}
 
     # ---------------- Peregrine: FC over ALL packets, once ----------------
@@ -71,9 +76,10 @@ def sweep_attack(data: Dict, rates: Iterable[int], n_slots: int = 8192,
             tr_idx = epoch_indices(len(f_train), max(1, len(f_train) //
                                                      min_train_records))
         net = train_kitnet(take(f_train, tr_idx), seed=seed,
-                           md_backend=md_backend)
+                           md_backend=md_backend, md_kw=md_kw)
         ev_idx = epoch_indices(len(f_eval), rate)
-        scores = score_records(net, take(f_eval, ev_idx), backend=md_backend)
+        scores = score_records(net, take(f_eval, ev_idx), backend=md_backend,
+                               **md_kw)
         out["peregrine"][rate] = _metrics(scores, ev_labels[ev_idx])
 
     # ---------------- Kitsune baseline: packet sampling -------------------
@@ -89,9 +95,10 @@ def sweep_attack(data: Dict, rates: Iterable[int], n_slots: int = 8192,
                 np.zeros(max(len(ev_idx), 1)), ev_s["label"]
                 if len(ev_idx) else np.array([0, 1], np.uint8))
             continue
-        net = train_kitnet(f_tr, seed=seed, md_backend=md_backend)
+        net = train_kitnet(f_tr, seed=seed, md_backend=md_backend,
+                           md_kw=md_kw)
         _, f_ev = _fc(ev_s, n_slots, "exact", state=st)
-        scores = score_records(net, f_ev, backend=md_backend)
+        scores = score_records(net, f_ev, backend=md_backend, **md_kw)
         out["kitsune"][rate] = _metrics(scores, ev_s["label"])
     return out
 

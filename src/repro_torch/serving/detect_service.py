@@ -8,10 +8,14 @@ across batches, and keeps the flow tables on the device between calls.
 Record indices are global stream positions (DESIGN.md §5).
 
 Both compute stages are selected by name: ``backend=`` the FC
-implementation (``core.backends``: ``cuda`` by default, ``scan`` or
-``serial``), ``md_backend=`` the scoring implementation
-(``detection.md_backends``: ``cuda`` by default, or ``einsum``).  On the
-CPU the ``cuda`` names run the plain PyTorch versions.
+implementation (``core.backends``: ``cuda`` by default, ``scan``,
+``bucketed``, ``sharded`` or ``serial``), ``md_backend=`` the scoring
+implementation (``detection.md_backends``: ``cuda`` by default, or
+``einsum``).  On the CPU the ``cuda`` names run the plain PyTorch versions.
+The FC backend's options are the service's remaining keywords (e.g.
+``backend="bucketed", buckets=4`` or ``backend="sharded", shards=4``), the
+MD backend's go in ``md_kw``; both reach every FC and MD call the service
+makes, and an option a backend does not take raises ``TypeError`` here.
 
 Exact-mode inference runs the per-chunk step of ``serving/fused.py`` by
 default (only the sampled ``(indices, scores, alarms)`` leave the device),
@@ -37,15 +41,16 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.backends import (check_backend_mode, compute_features,
+from repro_torch.core.backends import (check_backend_mode,
+                                       check_backend_options, compute_features,
                                        default_backend, resolve_backend)
 from repro_torch.core.records import epoch_indices
 from repro_torch.core.state import init_state
 from repro_torch.data.pipeline import phv_batches
 from repro_torch.detection.kitnet import KitNet, train_kitnet
 from repro_torch.detection.md_backends import (default_md_backend,
-                                               resolve_md_backend,
-                                               score_records)
+                                               score_records,
+                                               validate_md_options)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serving.fused import make_fused_step
 from repro_torch.traffic.generator import to_torch
@@ -56,18 +61,23 @@ class DetectionService:
                  mode: str = "exact", threshold: Optional[float] = None,
                  backend: Optional[str] = None,
                  md_backend: Optional[str] = None,
+                 md_kw: Optional[Dict] = None,
                  fused: Optional[bool] = None,
                  state_backend: str = "dense",
                  state_kw: Optional[Dict] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, **backend_kw):
         self.device = resolve_device(device)
         self.epoch = epoch
         self.mode = mode
         self.backend = resolve_backend(backend if backend is not None
                                        else default_backend(mode))
         check_backend_mode(self.backend, mode)
-        self.md_backend = resolve_md_backend(
-            md_backend if md_backend is not None else default_md_backend())
+        self.backend_kw = backend_kw            # e.g. shards= for "sharded"
+        check_backend_options(self.backend, backend_kw)
+        self.md_kw = dict(md_kw or {})
+        self.md_backend = validate_md_options(
+            md_backend if md_backend is not None else default_md_backend(),
+            self.md_kw)
         # the per-chunk device step by default wherever the exact batch
         # pipeline runs; the switch mode's oracle stays on the staged path
         self.fused = (mode == "exact") if fused is None else bool(fused)
@@ -86,7 +96,7 @@ class DetectionService:
     def _fc(self, pkts: Dict[str, np.ndarray]) -> torch.Tensor:
         self.state, feats = compute_features(
             self.state, to_torch(pkts, self.device), backend=self.backend,
-            mode=self.mode)
+            mode=self.mode, **self.backend_kw)
         return feats
 
     def reset_stream(self, pkt_count: int = 0) -> None:
@@ -123,8 +133,9 @@ class DetectionService:
                 "or lower `epoch`")
         train = torch.cat(self._train_feats)
         self.net = train_kitnet(train, seed=seed, md_backend=self.md_backend,
-                                device=self.device)
-        scores = score_records(self.net, train, backend=self.md_backend)
+                                device=self.device, md_kw=self.md_kw)
+        scores = score_records(self.net, train, backend=self.md_backend,
+                               **self.md_kw)
         if self.threshold is None:
             self.threshold = float(np.float32(np.quantile(scores, 1.0 - fpr)))
         self._train_feats = []
@@ -134,7 +145,8 @@ class DetectionService:
         if self._step is None:
             self._step = make_fused_step(
                 backend=self.backend, mode=self.mode,
-                md_backend=self.md_backend, epoch=self.epoch)
+                backend_kw=self.backend_kw, md_backend=self.md_backend,
+                md_kw=self.md_kw, epoch=self.epoch)
         return self._step
 
     def _dispatch_fused(self, pkts: Dict[str, np.ndarray]):
@@ -174,7 +186,7 @@ class DetectionService:
             return idx + base, np.zeros((0,), np.float32), np.zeros((0,), bool)
         scores = score_records(self.net,
                                feats[torch.as_tensor(idx, device=feats.device)],
-                               backend=self.md_backend)
+                               backend=self.md_backend, **self.md_kw)
         return idx + base, scores, scores > np.float32(self.threshold)
 
     def process_stream(self, pkts: Dict[str, np.ndarray], chunk: int = 4096,

@@ -44,12 +44,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.backends import default_backend, resolve_backend
+from repro_torch.core.backends import (check_backend_options, default_backend,
+                                       resolve_backend)
 from repro_torch.core.state import (StatePool, slot_collisions_lanes,
                                     state_backend_of, state_config,
                                     state_device, state_slots)
 from repro_torch.detection.md_backends import (default_md_backend,
-                                               resolve_md_backend)
+                                               validate_md_options)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serving.fused import make_tenant_step
 from repro_torch.traffic.generator import to_torch
@@ -70,6 +71,10 @@ class DetectionEngine:
         ``fc_full`` kernel, whose batched launch takes every lane) and MD
         ``default_md_backend()`` (``cuda``).  The JAX package's engine
         defaults to ``scan``.
+    backend_kw, md_kw:
+        The FC and MD backends' options (e.g. ``backend="bucketed",
+        backend_kw={"buckets": 4}``); an option a backend does not take
+        raises ``TypeError``.
     n_tenants:
         State-pool capacity: the hard bound on concurrently attached
         tenant streams.
@@ -93,15 +98,17 @@ class DetectionEngine:
         Where the pool and the steps live: ``cuda`` unless ``"cpu"`` is
         asked for (the plain versions then run); the net must be there.
 
-    ``from_service`` inherits the service's net, threshold, epoch, backends,
-    mode, state layout, ``state_config`` and device.
+    ``from_service`` inherits the service's net, threshold, epoch, backends
+    and their options, mode, state layout, ``state_config`` and device.
     """
 
     def __init__(self, net, threshold: float, *, epoch: int = 1024,
                  n_slots: int = 8192, n_tenants: int = 4, chunk: int = 2048,
                  queue_depth: int = 8, max_batch: Optional[int] = None,
                  backend: Optional[str] = None,
+                 backend_kw: Optional[Dict] = None,
                  md_backend: Optional[str] = None,
+                 md_kw: Optional[Dict] = None,
                  mode: str = "exact", alarm_dir: Optional[str] = None,
                  alarm_format: str = "csv",
                  state_backend: str = "dense",
@@ -122,8 +129,12 @@ class DetectionEngine:
         self.mode = mode
         self.backend = resolve_backend(backend if backend is not None
                                        else default_backend(mode))
-        self.md_backend = resolve_md_backend(
-            md_backend if md_backend is not None else default_md_backend())
+        self.backend_kw = dict(backend_kw or {})
+        check_backend_options(self.backend, self.backend_kw)
+        self.md_kw = dict(md_kw or {})
+        self.md_backend = validate_md_options(
+            md_backend if md_backend is not None else default_md_backend(),
+            self.md_kw)
         self.chunk = int(chunk)
         self.queue_depth = int(queue_depth)
         self.max_batch = int(max_batch if max_batch is not None else n_tenants)
@@ -135,8 +146,9 @@ class DetectionEngine:
         self.alarm_dir = alarm_dir
         self.alarm_format = alarm_format
         self._step = make_tenant_step(backend=self.backend, mode=self.mode,
+                                      backend_kw=self.backend_kw,
                                       md_backend=self.md_backend,
-                                      epoch=self.epoch)
+                                      md_kw=self.md_kw, epoch=self.epoch)
         # per-tenant host-side stream state (created by add_tenant)
         self._buf: Dict[int, collections.deque] = {}
         self._buffered: Dict[int, int] = {}
@@ -158,12 +170,13 @@ class DetectionEngine:
     def from_service(cls, svc, **kw) -> "DetectionEngine":
         """Build an engine that runs the SAME per-chunk pipeline as a
         fitted ``DetectionService`` (net, threshold, epoch, slot budget,
-        FC/MD backends, mode, state layout and device inherited; override
-        via ``kw``)."""
+        FC/MD backends and their options, mode, state layout and device
+        inherited; override via ``kw``)."""
         if svc.net is None:
             raise RuntimeError("fit the service first")
         cfg = dict(epoch=svc.epoch, n_slots=state_slots(svc.state),
-                   backend=svc.backend, md_backend=svc.md_backend,
+                   backend=svc.backend, backend_kw=svc.backend_kw,
+                   md_backend=svc.md_backend, md_kw=svc.md_kw,
                    mode=svc.mode, state_backend=state_backend_of(svc.state),
                    state_kw=state_config(svc.state),
                    device=state_device(svc.state))

@@ -9,10 +9,14 @@
   that needs a restore point clones the state first (``clone_state``).
 * Epoch sampling is the static-shape ``core.records.epoch_gather``: no
   ``nonzero``, no device-to-host sync inside the step.
-* FC runs through ``compute_features_sampled``: the ``scan`` backend's
-  record-sampled path updates the flow state for every packet but computes
-  feature statistics only at the epoch records; the other backends compute
-  the full (n, 80) matrix and the records are gathered on the device.
+* FC runs through ``compute_features_sampled``: the ``scan`` and
+  ``bucketed`` backends' record-sampled path updates the flow state for
+  every packet but computes feature statistics only at the epoch records;
+  the other backends (``cuda``, ``serial``, ``sharded``) compute the full
+  (n, 80) matrix and the records are gathered on the device.
+* ``backend_kw`` and ``md_kw`` carry the FC and MD backends' options (e.g.
+  ``{"buckets": 8}``); an option a backend does not take raises
+  ``TypeError`` when the step is built.
 * Any registered FC backend and mode it supports: ``mode="switch"`` runs
   with the ``serial`` backend, as the JAX package's step does.
 * Only ``(idx, scores, alarms)`` (``count`` rows each) need to cross to the
@@ -35,11 +39,12 @@ of tenants, ``_tenant_sharding``, is not ported: ROADMAP queue 2).
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.core.backends import (check_backend_mode,
+                                       check_backend_options,
                                        compute_features_sampled,
                                        resolve_backend)
 from repro_torch.core.records import epoch_gather, epoch_gather_lanes
@@ -49,8 +54,11 @@ from repro_torch.kernels.feature_update import feature_update_full_tenants
 
 
 def make_fused_step(backend: str = "cuda", mode: str = "exact",
-                    md_backend: str = "cuda", epoch: int = 1024) -> Callable:
-    """Build the per-chunk step.
+                    backend_kw: Optional[Dict] = None,
+                    md_backend: str = "cuda", md_kw: Optional[Dict] = None,
+                    epoch: int = 1024) -> Callable:
+    """Build the per-chunk step (FC options ``backend_kw``, MD options
+    ``md_kw``).
 
     Returns ``step(state, net, threshold, base_mod, pkts)`` →
     ``(state, idx, scores, alarms, count)``: ``idx`` (ceil(n/epoch),) int64
@@ -61,14 +69,17 @@ def make_fused_step(backend: str = "cuda", mode: str = "exact",
     """
     backend = resolve_backend(backend)
     check_backend_mode(backend, mode)
-    score = md_score_fn(md_backend)
+    fc_kw = dict(backend_kw or {})
+    check_backend_options(backend, fc_kw)
+    score = md_score_fn(md_backend, **dict(md_kw or {}))
 
     @torch.no_grad()
     def step(state, net, threshold: float, base_mod: int, pkts):
         n = pkts["ts"].shape[0]
         idx, count = epoch_gather(n, epoch, base_mod, device=pkts["ts"].device)
         state, recs = compute_features_sampled(state, pkts, idx,
-                                               backend=backend, mode=mode)
+                                               backend=backend, mode=mode,
+                                               **fc_kw)
         scores = score(net, recs)
         return state, idx, scores, scores > threshold, count
 
@@ -76,7 +87,9 @@ def make_fused_step(backend: str = "cuda", mode: str = "exact",
 
 
 def make_tenant_step(backend: str = "cuda", mode: str = "exact",
-                     md_backend: str = "cuda", epoch: int = 1024) -> Callable:
+                     backend_kw: Optional[Dict] = None,
+                     md_backend: str = "cuda", md_kw: Optional[Dict] = None,
+                     epoch: int = 1024) -> Callable:
     """Build the TENANT-BATCHED per-chunk step.
 
     Returns ``step(pool, tenant_ids, net, threshold, base_mods, pkts)`` →
@@ -96,13 +109,16 @@ def make_tenant_step(backend: str = "cuda", mode: str = "exact",
     packets, one ``fc_full`` launch over all lanes
     (``kernels/feature_update.feature_update_full_tenants``), the records
     gathered and scored in one ``kitnet_score`` launch, the threshold
-    compared on the device.  Everything else (``scan``, ``serial``, sketch
-    pools, switch mode) runs :func:`make_fused_step` lane by lane.
+    compared on the device.  Everything else (``scan``, ``bucketed``,
+    ``sharded``, ``serial``, sketch pools, switch mode) runs
+    :func:`make_fused_step` lane by lane.  ``backend_kw``/``md_kw`` as
+    there.
     """
+    lane_step = make_fused_step(backend=backend, mode=mode,
+                                backend_kw=backend_kw, md_backend=md_backend,
+                                md_kw=md_kw, epoch=epoch)
     backend = resolve_backend(backend)
-    check_backend_mode(backend, mode)
-    score = md_score_fn(md_backend)
-    lane_step = make_fused_step(backend, mode, md_backend, epoch)
+    score = md_score_fn(md_backend, **dict(md_kw or {}))
 
     @torch.no_grad()
     def step(pool, tenant_ids: Sequence[int], net, threshold: float,

@@ -703,3 +703,57 @@ def test_engine_on_the_card_matches_solo_service(dev):
         assert eng.stats()["tenants"][t]["slot_collisions"] == sum(
             slot_collisions({k: v[i:i + 512] for k, v in tr.items()}, 1024)["total"]
             for i in range(0, len(tr["ts"]), 512))
+
+
+# ---------------------------------------------------------------------------
+# partitioned FC (plain torch ops on the card, no kernel of their own)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("S", [4, 16])
+def test_bucketed_on_the_card_matches_cpu(dev, S):
+    """``bucketed`` on the card against the same call on the CPU, in the JAX
+    package's scan envelope (tests/test_backends.py: every non-pcc value
+    within 1 + 1e-3 * |f|, at least 99.5% of all values; state at rtol
+    1e-3, atol 1.0); its record-sampled path equals its full path's rows
+    and state bit for bit on the card; no FC kernel launches."""
+    from repro_torch.core import FEATURE_NAMES, compute_features
+    from repro_torch.core.backends import compute_features_sampled
+    tr = synth_trace("mirai", n_train=64, n_benign_eval=500, n_attack=500,
+                     seed=2)["eval"]
+    reset_launch_counts()
+    st_g, f_g = compute_features(init_state(512, device=dev), to_torch(tr, dev),
+                                 backend="bucketed", buckets=S)
+    assert launch_counts()["fc_full"] == 0
+    st_c, f_c = compute_features(init_state(512, device="cpu"), to_torch(tr, "cpu"),
+                                 backend="bucketed", buckets=S)
+    got, want = f_g.cpu().double(), f_c.double()
+    ok = (got - want).abs() <= 1.0 + 1e-3 * want.abs()
+    pcc = torch.tensor([n.endswith(":pcc") for n in FEATURE_NAMES])
+    assert ok[:, ~pcc].all() and ok.double().mean() >= 0.995
+    for g in st_c:
+        for k in st_c[g]:
+            torch.testing.assert_close(st_g[g][k].cpu(), st_c[g][k], rtol=1e-3,
+                                       atol=1.0)
+    idx = torch.arange(63, 1000, 64, device=dev)
+    st_x, f_x = compute_features_sampled(init_state(512, device=dev),
+                                         to_torch(tr, dev), idx,
+                                         backend="bucketed", buckets=S)
+    assert torch.equal(f_x, f_g[idx])
+    for g in st_g:
+        for k in st_g[g]:
+            assert torch.equal(st_x[g][k], st_g[g][k]), (g, k)
+
+
+@pytest.mark.parametrize("mode,S", [("exact", 4), ("exact", 16), ("switch", 4)])
+def test_sharded_on_the_card_matches_serial(dev, mode, S):
+    """``sharded`` on the card equals the card's serial oracle bit for bit,
+    features and every table (round-robin counters included)."""
+    from repro_torch.core import compute_features
+    pk = to_torch(synth_trace("ssh_bruteforce", n_train=64, n_benign_eval=150,
+                              n_attack=150, seed=3)["eval"], dev)
+    st_s, f_s = process_serial(init_state(512, device=dev), pk, mode=mode)
+    st_h, f_h = compute_features(init_state(512, device=dev), pk,
+                                 backend="sharded", shards=S, mode=mode)
+    assert torch.equal(f_h, f_s), float((f_h - f_s).abs().max())
+    for g in st_s:
+        for k in st_s[g]:
+            assert torch.equal(st_h[g][k], st_s[g][k]), (g, k)

@@ -189,7 +189,8 @@ def test_state_updated_in_place():
 
 
 def test_registry_names_aliases_and_errors():
-    assert available_backends() == ("cuda", "scan", "serial")
+    assert available_backends() == ("bucketed", "cuda", "scan", "serial",
+                                    "sharded")
     assert resolve_backend("kernel") == "cuda"
     assert resolve_backend("pallas") == "cuda"
     assert resolve_backend("parallel") == "scan"
@@ -202,14 +203,17 @@ def test_registry_names_aliases_and_errors():
         compute_features(st, pk, backend="nope")
     _, f = compute_features(init_state(64, device="cpu"), pk, backend="scan")
     assert f.shape == (N_PKTS, N_FEATURES)
-    for name in ("bucketed", "sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compute_features(st, pk, backend=name)
-    for name in ("cuda", "scan"):
+    for name, kw in (("bucketed", {"buckets": 2}), ("sharded", {"shards": 2})):
+        _, f = compute_features(init_state(64, device="cpu"), pk, backend=name,
+                                **kw)
+        assert f.shape == (N_PKTS, N_FEATURES)
+    for name in ("cuda", "scan", "bucketed"):
         with pytest.raises(ValueError, match="serial"):
             compute_features(st, pk, backend=name, mode="switch")
     with pytest.raises(TypeError, match="chunk"):
         compute_features(st, pk, backend="pallas", chunk=64)
+    with pytest.raises(TypeError, match="buckets"):
+        compute_features(st, pk, backend="scan", buckets=4)
 
 
 def test_empty_batch():

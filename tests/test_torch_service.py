@@ -124,14 +124,22 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown state backend"):
         DetectionService(device="cpu", state_backend="bloom")
     assert DetectionService(device="cpu", backend="scan").backend == "scan"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DetectionService(device="cpu", backend="bucketed")
+    svc = DetectionService(device="cpu", backend="bucketed", buckets=8)
+    assert svc.backend_kw == {"buckets": 8} and svc.fused
+    svc = DetectionService(device="cpu", mode="switch", backend="sharded",
+                           shards=4)
+    assert svc.backend == "sharded" and not svc.fused
     with pytest.raises(ValueError, match="serial"):
         DetectionService(device="cpu", mode="switch", backend="cuda")
     with pytest.raises(TypeError, match="chunk"):
         DetectionService(device="cpu", chunk=64)
-    with pytest.raises(TypeError, match="md_kw"):
-        DetectionService(device="cpu", md_kw={"bb": 64})
+    with pytest.raises(TypeError, match="buckets"):
+        DetectionService(device="cpu", backend="scan", buckets=4)
+    # the JAX package's Pallas MD options have no counterpart; the cuda
+    # ensemble's design= does not reach its scoring kernel
+    for md_kw in ({"bb": 64}, {"interpret": True}, {"design": "tile"}):
+        with pytest.raises(TypeError, match=next(iter(md_kw))):
+            DetectionService(device="cpu", md_kw=md_kw)
     svc = DetectionService(device="cpu", n_slots=64)
     with pytest.raises(RuntimeError, match="fit"):
         svc.process({"ts": np.zeros(1, np.float32)})
