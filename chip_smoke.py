@@ -167,6 +167,29 @@ back-to-back call, which includes the wrapper's host overhead.
                with the same weights through the kernel and through the
                plain route (blockwise attention): logits within 1e-3,
                greedy tokens equal wherever the top-2 margin exceeds it.
+  train_main — LM training of gemma2-2b at full width and depth (float32
+               parameters from seed 0, bf16 compute, AdamW) through
+               training.make_train_step: the JAX launcher's batch 8 x seq 128
+               from lm_batches(seed=0), warmup 1, 10 steps.  After step 1
+               every parameter has a finite, nonzero gradient; losses finite
+               and the last 3's mean below the first.  Seconds a step
+               (median of steps 3-10), tokens/s, peak memory, the device's
+               busy share over steps 3-10 and the model-FLOPs share (6 N
+               tokens a step over the step time, of 989 TFLOP/s) from
+               torch.profiler, and step 10's top device ops.  No kernel of
+               the port launches on this path.
+  train_reference — reduced gemma2-2b, 3 steps on the card against 3 on the
+               CPU from the same state and batches in float32 compute: the
+               plain step, remat "dots" and int8 error feedback, each within
+               tests/test_torch_training.py's envelope (loss and grad norm
+               1e-5 relative; parameters within 2 * sum(lr), at most 1e-4
+               of them past 1e-5 + 1e-5 |p|; int8: grad norm 1e-4, at most
+               1e-3 past).
+  train_resume — launch.train.train_lm at --reduced (10 steps, checkpoints
+               every 2 under chiprun_out/train_ckpt, removed after), then
+               resilient_loop with failures at steps 3, 7, 7 over 12 batches
+               against an uninterrupted run (rtol 1e-5, atol 1e-6), then its
+               last checkpoint restored into a CPU state, equal to the card's.
 Then the kernel table line, the card line, and the result line last.  The
 phases' records also go to chiprun_out/chip_smoke.json.
 
@@ -201,6 +224,7 @@ FLASH_MODEL_TOL = 2e-5          # tests/test_kernels.py:115-116, model path
 # output's rounding, so at most one bf16 ulp, which is <= 2**-7 * |want|
 FLASH_MODEL_BF16_RTOL, FLASH_MODEL_BF16_ATOL = 2.0 ** -7, 1e-5
 LM_REF_TOL = 1e-3               # logits, kernel route against plain route
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS's matrix-product kernels
 # the device kernels of a wrapper that launches more than one, each once a
 # call (a launch is counted by the first)
 DEVICE_KERNELS = {"sketch_update": ("sketch_update_kernel", "sketch_schedule_kernel",
@@ -1862,8 +1886,9 @@ def phase_lm_main(log) -> Tuple[int, float]:
 
 def traced_window(fn) -> dict:
     """``fn`` once under torch.profiler: wall seconds, the device's busy
-    seconds (events that ran on the card, each counted once), the flash
-    kernel's device time, and the top device and host ops."""
+    seconds (events that ran on the card, each counted once) and their
+    count, the matrix products' share of them, the flash kernel's device
+    time, and the top device and host ops."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1876,6 +1901,9 @@ def traced_window(fn) -> dict:
     top = sorted(events.items(), key=lambda kv: -kv[1][0])[:10]
     return {"traced_s": wall, "device_busy_s": busy_us * 1e-6,
             "busy_share_traced": busy_us * 1e-6 / wall,
+            "device_events": sum(n for _, n in events.values()),
+            "gemm_share": sum(us for key, (us, _) in events.items()
+                              if any(w in key.lower() for w in GEMM_NAMES)) / max(busy_us, 1),
             "flash_launches": sum(n for _, n in flash),
             "flash_device_s": sum(u for u, _ in flash) * 1e-6,
             "top_device": {key: {"ms": us * 1e-3, "count": n, "share": us / busy_us}
@@ -1975,6 +2003,247 @@ def phase_lm_reference(log) -> None:
     if not bool(same[decided].all()):
         raise RuntimeError("lm_reference: greedy tokens differ where the top-2 "
                            "margin exceeds the tolerance")
+
+
+# tests/test_torch_training.py's envelope: loss and grad norm within 1e-5
+# relative; parameters within 1e-5 + 1e-5 |p| but for a share of them (an
+# AdamW update divides g by |g| + eps; int8: a gradient at a rounding
+# boundary quantises a step apart), which stay within 2 * sum(lr)
+TRAIN_F32_TOL = 1e-5
+TRAIN_F32_SHARE = 1e-4
+TRAIN_EF_GN_TOL = 1e-4
+TRAIN_EF_SHARE = 1e-3
+
+
+def train_batches(vocab: int, batch: int, seq: int, n: int, seed: int, dev) -> list:
+    from repro_torch.data import Prefetcher, lm_batches
+    return [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            for b in Prefetcher(lm_batches(vocab, batch, seq, n, seed=seed))]
+
+
+def phase_train_main(log) -> None:
+    """Full-width gemma2-2b training on the card: float32 parameters from
+    seed 0, bf16 compute, AdamW, the JAX launcher's batch 8 x seq 128 from
+    lm_batches(seed=0) and warmup, 10 steps of training.make_train_step,
+    launch counts zeroed before step 1 and read after step 10 (the training
+    path runs none of the port's kernels).  After step 1 every parameter
+    (each layer's slice of a stacked leaf) has a finite, nonzero gradient;
+    every loss is finite; the mean of the last 3 is below the first.
+    Seconds a step (median of steps 3-10), tokens/s and the model-FLOPs
+    share from these untraced steps; then the same 10 steps again from the
+    same state with steps 3-9 and step 10 under torch.profiler (two
+    windows): the device's busy share over steps 3-10, against the traced
+    wall and the untraced one, and step 10's top device and host ops."""
+    import gc
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.training import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("gemma2-2b")
+    n_steps, B, S = 10, 8, 128
+    model = build_model(cfg, device="cuda")
+    tc = TrainConfig(warmup_steps=max(n_steps // 10, 1))
+    step = make_train_step(model, tc)
+    batches = train_batches(cfg.vocab, B, S, n_steps, tc.seed, "cuda")
+    t0 = time.perf_counter()
+    state = init_train_state(model, tc, tc.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    times, mets = [], []
+
+    def one(b):
+        nonlocal state
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in met.items()})
+
+    reset_launch_counts()
+    one(batches[0])
+    _, _, grads = step.compute_grads(state["params"], batches[1])
+    bad = []
+    for key, g in zip(tree.key_paths(grads), tree.leaves(grads)):
+        rows = g.reshape(g.shape[0], -1) if key.startswith("layers/") else g.reshape(1, -1)
+        if not (torch.isfinite(g).all() and (rows.abs().amax(1) > 0).all()):
+            bad.append(key)
+    grad_leaves = len(tree.leaves(grads))
+    del grads
+    for b in batches[1:]:
+        one(b)
+    launches = launch_counts()
+    losses = [m["loss"] for m in mets]
+    untraced_all = list(times)
+    untraced = times[2:]
+    step_s = float(np.median(untraced))
+    flops = 6 * cfg.param_count() * B * S
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same steps again, steps 3-10 traced
+    state = None
+    gc.collect()
+    state = init_train_state(model, tc, tc.seed)
+    times.clear()
+    one(batches[0])
+    one(batches[1])
+    win = traced_window(lambda: [one(b) for b in batches[2:9]])
+    last = traced_window(lambda: one(batches[9]))
+    busy = win["device_busy_s"] + last["device_busy_s"]
+    wall = win["traced_s"] + last["traced_s"]
+    emit({"phase": "train_main", "arch": cfg.name, "params": cfg.param_count(),
+          "batch": B, "seq": S, "steps": n_steps, "optimizer": tc.optimizer,
+          "compute_dtype": tc.compute_dtype, "init_s": init_s, "losses": losses,
+          "grad_norms": [m["grad_norm"] for m in mets[:n_steps]],
+          "lrs": [m["lr"] for m in mets[:n_steps]],
+          "step_s": untraced_all,
+          "step_s_median_3_10": step_s, "tokens_per_s": B * S / step_s,
+          "flops_per_step": flops, "mfu_bf16": flops / step_s / BF16_FLOPS,
+          "peak_mem_gib": peak / 2 ** 30, "grad_leaves_checked": grad_leaves,
+          "launches": launches, "traced_step_s": times[2:],
+          "device_busy_s_steps_3_10": busy, "busy_share_traced": busy / wall,
+          "device_events_step10": last["device_events"],
+          "gemm_share_step10": last["gemm_share"],
+          "busy_share_untraced": busy / sum(untraced),
+          "rerun_losses_equal": [m["loss"] for m in mets[n_steps:]] == losses,
+          "top_device_step10": last["top_device"],
+          "top_host_self_ms_step10": last["top_host_self_ms"]}, log)
+    if bad:
+        raise RuntimeError(f"train_main: zero or non-finite gradients after step 1: {bad}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"train_main: non-finite losses {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise RuntimeError(f"train_main: the loss did not fall: {losses}")
+    if any(launches.values()):
+        raise RuntimeError(f"train_main: the training path launched kernels {launches}")
+    del state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def compare_train(tc, n: int = 3) -> dict:
+    """reduced(gemma2-2b) trained ``n`` steps on the card and on the CPU
+    from the same state and batches; the worst errors against the CPU."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.interop import train_state_from_arrays, train_state_to_arrays
+    from repro_torch.models import build_model
+    from repro_torch.training import init_train_state, make_train_step
+
+    cfg = reduced(get_arch("gemma2-2b"))
+    models = {d: build_model(cfg, device=d) for d in ("cpu", "cuda")}
+    arrays = train_state_to_arrays(init_train_state(models["cpu"], tc, 0))
+    states = {d: train_state_from_arrays(cfg, tc, arrays, device=d) for d in models}
+    steps = {d: make_train_step(m, tc) for d, m in models.items()}
+    batches = {d: train_batches(cfg.vocab, 8, 32, n, 1, d) for d in models}
+    errs = {"loss_rel": 0.0, "grad_norm_rel": 0.0, "params_max_abs": 0.0,
+            "share_past_tol": 0.0}
+    lrs = []
+    for i in range(n):
+        mets = {}
+        for d in models:
+            states[d], met = steps[d](states[d], batches[d][i])
+            mets[d] = {k: float(v) for k, v in met.items()}
+        lrs.append(mets["cpu"]["lr"])
+        for key in ("loss", "grad_norm"):
+            errs[key + "_rel"] = max(errs[key + "_rel"], abs(mets["cuda"][key] - mets["cpu"][key])
+                                     / abs(mets["cpu"][key]))
+        got = torch.cat([t.cpu().flatten() for t in tree.leaves(states["cuda"]["params"])])
+        want = torch.cat([t.flatten() for t in tree.leaves(states["cpu"]["params"])])
+        d = (got - want).abs()
+        errs["params_max_abs"] = max(errs["params_max_abs"], float(d.max()))
+        errs["share_past_tol"] = max(errs["share_past_tol"], float(
+            (d > TRAIN_F32_TOL + TRAIN_F32_TOL * want.abs()).float().mean()))
+    errs["two_sum_lr"] = 2 * sum(lrs)
+    errs["final_loss"] = {d: mets[d]["loss"] for d in mets}
+    return errs
+
+
+def phase_train_reference(log) -> None:
+    """compare_train in float32 compute (TF32 off) for the plain step, remat
+    "dots" and int8 error feedback, each within the CPU tests' envelope."""
+    from repro_torch.configs import TrainConfig
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, kw in (("f32", {}), ("remat_dots", {"remat": "dots"}),
+                     ("int8_ef", {"grad_compression": "int8_ef"})):
+        tc = TrainConfig(compute_dtype="float32", learning_rate=1e-3, warmup_steps=2, **kw)
+        out[name] = compare_train(tc)
+    emit({"phase": "train_reference", "tol": TRAIN_F32_TOL, "errs": out,
+          "seconds": time.perf_counter() - t0}, log)
+    for name, e in out.items():
+        ef = name == "int8_ef"
+        ok = (e["loss_rel"] <= TRAIN_F32_TOL
+              and e["grad_norm_rel"] <= (TRAIN_EF_GN_TOL if ef else TRAIN_F32_TOL)
+              and e["params_max_abs"] <= e["two_sum_lr"]
+              and e["share_past_tol"] <= (TRAIN_EF_SHARE if ef else TRAIN_F32_SHARE))
+        if not ok:
+            raise RuntimeError(f"train_reference {name}: card vs CPU outside the envelope: {e}")
+
+
+def phase_train_resume(log) -> None:
+    """launch.train.train_lm end to end at --reduced (10 steps, a checkpoint
+    every 2); then resilient_loop with failures injected at steps 3, 7, 7
+    and a checkpoint every 2 over 12 batches against an uninterrupted run
+    (rtol 1e-5, atol 1e-6, tests/test_fault_tolerance.py); then its last
+    checkpoint, written on the card, restored into a CPU state equal to the
+    card's.  Checkpoints under chiprun_out/train_ckpt, removed after."""
+    import shutil
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig, get_arch, reduced
+    from repro_torch.launch.train import parser, train_lm
+    from repro_torch.models import build_model
+    from repro_torch.training import CheckpointManager, init_train_state, make_train_step
+    from repro_torch.training.fault import FailureInjector, resilient_loop
+
+    root = ROOT / "chiprun_out" / "train_ckpt"
+    t0 = time.perf_counter()
+    try:
+        rec = train_lm(parser().parse_args(
+            ["--arch", "gemma2-2b", "--reduced", "--steps", "10", "--ckpt-every", "2",
+             "--ckpt-dir", str(root / "launcher"), "--device", "cuda"]))
+        launcher_s = time.perf_counter() - t0
+        if (rec["steps"] != 10 or rec["restarts"] or not np.isfinite(rec["loss"])
+                or rec["ckpt_steps"] != [6, 8, 10]):
+            raise RuntimeError(f"train_resume: launcher run {rec}")
+        cfg = reduced(get_arch("gemma2-2b"))
+        model = build_model(cfg, device="cuda")
+        tc = TrainConfig(learning_rate=1e-3)
+        step = make_train_step(model, tc)
+        batches = train_batches(cfg.vocab, 4, 16, 12, 4, "cuda")
+        ref = init_train_state(model, tc, 0)
+        for b in batches:
+            ref, _ = step(ref, b)
+        ckpt = CheckpointManager(str(root / "fault"), keep=3)
+        out = resilient_loop(step, init_train_state(model, tc, 0), batches, ckpt,
+                             ckpt_every=2, injector=FailureInjector(fail_at=[3, 7, 7]),
+                             max_restarts=5)
+        err = max(max_abs(a, b) for a, b in zip(tree.leaves(out["state"]["params"]),
+                                                 tree.leaves(ref["params"])))
+        for a, b in zip(tree.leaves(out["state"]["params"]), tree.leaves(ref["params"])):
+            assert_close(a, b, "train_resume: resumed vs uninterrupted", rtol=1e-5, atol=1e-6)
+        cpu_target = init_train_state(build_model(cfg, device="cpu"), tc, 1)
+        restored, rstep = ckpt.restore(cpu_target)
+        same = all(a.device.type == "cpu" and torch.equal(a, b.cpu())
+                   for a, b in zip(tree.leaves(restored), tree.leaves(out["state"])))
+        emit({"phase": "train_resume", "launcher": rec, "launcher_s": launcher_s,
+              "restarts": out["restarts"], "completed": out["completed"],
+              "resumed_vs_uninterrupted_max_abs": err, "restored_step": rstep,
+              "card_checkpoint_on_cpu_equal": same,
+              "seconds": time.perf_counter() - t0}, log)
+        if out["restarts"] < 2 or out["completed"] != len(batches):
+            raise RuntimeError(f"train_resume: {out['restarts']} restarts, "
+                               f"{out['completed']} steps")
+        if rstep != len(batches) or not same:
+            raise RuntimeError("train_resume: the card's checkpoint restored on the "
+                               "CPU differs from the card's state")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def ensemble_designs(dev, x_sub, args, batches) -> dict:
@@ -2240,6 +2509,11 @@ def main() -> int:
     flash["launches"], long_prompt_s = phase_lm_main(log)
     phase_lm_trace(long_prompt_s, log)
     phase_lm_reference(log)
+
+    # ---- 8. LM training of gemma2-2b at full width, card against CPU, resume ----
+    phase_train_main(log)
+    phase_train_reference(log)
+    phase_train_resume(log)
 
     # ---- report ----
     fc["launches"] = launches["fc_full"]

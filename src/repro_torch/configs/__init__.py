@@ -9,8 +9,8 @@ listed, though ``models.build_model`` runs only the dense one so far.
 from __future__ import annotations
 
 from repro_torch.configs.base import (  # noqa: F401
-    ArchConfig, ShapeConfig, SHAPES, TRAIN_4K, PREFILL_32K, DECODE_32K,
-    LONG_500K, reduced,
+    ArchConfig, ShapeConfig, TrainConfig, SHAPES, TRAIN_4K, PREFILL_32K,
+    DECODE_32K, LONG_500K, reduced,
 )
 from repro_torch.configs import (  # noqa: F401
     phi35_moe, kimi_k2, zamba2, granite_20b, gemma2_2b, deepseek_7b,

@@ -2,8 +2,8 @@
 
 A copy of the JAX package's ``configs/base.py`` (the port imports nothing
 of it): every architecture is an :class:`ArchConfig`, every input shape a
-:class:`ShapeConfig`; both are frozen dataclasses.  ``TrainConfig`` waits
-for the training slice.
+:class:`ShapeConfig`, every training run's settings a :class:`TrainConfig`;
+all three are frozen dataclasses.
 """
 from __future__ import annotations
 
@@ -157,6 +157,26 @@ DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
 LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
 
 SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"           # adamw | adafactor | sgd
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    opt_state_dtype: str = "float32"
+    remat: str = "none"                # none | dots | full
+    microbatches: int = 1
+    zero1: bool = False                # shard optimizer state over DP axis (a mesh)
+    grad_compression: str = "none"     # none | int8_ef
+    warmup_steps: int = 100
+    seed: int = 0
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:

@@ -1,13 +1,14 @@
 """Weights and flow state carried into the port as numpy arrays.
 
 A KitNET fitted elsewhere (for example by the JAX package), a flow state
-(dense, or a sketch with its scalar ``evict_age``) and an LM's parameters
-cross as plain dicts of numpy arrays, so the port never sees another
-framework's objects:
+(dense, or a sketch with its scalar ``evict_age``), an LM's parameters and
+an LM train state cross as plain dicts of numpy arrays, so the port never
+sees another framework's objects:
 
     net = kitnet_from_arrays({"idx": ..., "W1": ..., ...}, device="cuda")
     state = state_from_arrays({"uni": {...}, "bi": {...}}, device="cuda")
     params = lm_params_from_arrays(cfg, {"embed": ..., "layers": {...}})
+    ts = train_state_from_arrays(cfg, tc, {"params": ..., "opt": ..., "step": ...})
 """
 from __future__ import annotations
 
@@ -18,10 +19,12 @@ import torch
 
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch import tree
+from repro_torch.configs.base import ArchConfig, TrainConfig
 from repro_torch.detection.kitnet import KitNet
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import Block, Transformer
+from repro_torch.training.optim import torch_dtype
 
 PARAM_FIELDS = ("W1", "b1", "W2", "b2", "V1", "c1", "V2", "c2")
 KITNET_FIELDS = ("idx", "mask") + PARAM_FIELDS + (
@@ -102,3 +105,57 @@ def lm_params_from_arrays(cfg: ArchConfig, arrays: Dict,
     head = None if cfg.tie_embeddings else param(arrays["lm_head"])
     return Transformer(param(arrays["embed"]), param(arrays["final_norm"]),
                        blocks, head)
+
+
+OPT_KEYS = {"adamw": ("m", "step", "v"), "adafactor": ("step", "vc", "vr"),
+            "sgd": ("step",)}
+
+
+def train_state_from_arrays(cfg: ArchConfig, tc: TrainConfig, arrays: Dict,
+                            device: DeviceLike = None) -> Dict:
+    """An LM train state (``training.init_train_state``'s layout) from the
+    JAX package's train state as numpy arrays: ``params`` (its parameter
+    tree, layers stacked on a leading L axis, which the port's train state
+    keeps), ``opt`` (``m``/``v``/``step`` for AdamW, ``vr``/``vc``/``step``
+    for Adafactor, ``step`` for SGD), ``step``, and ``ef_err`` under int8
+    error feedback.  Parameters take ``tc.param_dtype``, AdamW's moments
+    ``tc.opt_state_dtype``, Adafactor's and the error float32, on
+    ``device``; the steps int32 on the host, where the port's train state
+    keeps its counters."""
+    dev = resolve_device(device)
+    want_opt = OPT_KEYS[tc.optimizer]
+    if tuple(sorted(arrays["opt"])) != want_opt:
+        raise KeyError(f"{tc.optimizer} state holds {want_opt}, got "
+                       f"{tuple(sorted(arrays['opt']))}")
+    if ("ef_err" in arrays) != (tc.grad_compression == "int8_ef"):
+        raise KeyError(f"ef_err goes with grad_compression='int8_ef', not "
+                       f"{tc.grad_compression!r}")
+    n_layers = len(arrays["params"]["layers"]["ln1"])
+    if n_layers != cfg.n_layers:
+        raise ValueError(f"{n_layers} stacked layers for a {cfg.n_layers}-layer "
+                         "config")
+
+    def leaves(t, dtype):
+        where = "cpu" if dtype == torch.int32 else dev
+        return tree.tree_map(
+            lambda a: torch.from_numpy(np.array(a)).to(where, dtype), t)
+
+    opt_dtype = {"m": torch_dtype(tc.opt_state_dtype),
+                 "v": torch_dtype(tc.opt_state_dtype), "step": torch.int32,
+                 "vr": torch.float32, "vc": torch.float32}
+    state = {"params": leaves(arrays["params"], torch_dtype(tc.param_dtype)),
+             "opt": {k: leaves(v, opt_dtype[k]) for k, v in arrays["opt"].items()},
+             "step": leaves(arrays["step"], torch.int32)}
+    if "ef_err" in arrays:
+        state["ef_err"] = leaves(arrays["ef_err"], torch.float32)
+    return state
+
+
+def train_state_to_arrays(state: Dict) -> Dict:
+    """The inverse of :func:`train_state_from_arrays` (bfloat16 leaves as
+    float32, which numpy cannot hold)."""
+    def arr(t):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    return tree.tree_map(arr, state)

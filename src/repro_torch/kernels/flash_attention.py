@@ -122,6 +122,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     Returns (B, H, Sq, D) in q.dtype, laid out in memory as q is (at a
     padded head dim, as a view of the padded output's first D columns).
+    On the card, raises when autograd would need its gradient: the kernel
+    has no backward.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -129,6 +131,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                    softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("the flash kernel has no backward (nor has the JAX "
+                         "package's flash_attention): its output would carry no "
+                         "gradient; train through attn_impl='plain' (lm_loss's "
+                         "default)")
     B, H, Sq, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
     Dp = built_head_dim(D)

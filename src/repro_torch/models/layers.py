@@ -55,11 +55,15 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Ten
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """``cap * tanh(x / cap)`` in float32, back in x's dtype; identity at 0.
-    One temporary, updated in place: at a long prompt the final logits are
-    GiBs."""
+    Without autograd, one temporary updated in place: at a long prompt the
+    final logits are GiBs.  Under autograd tanh's output is saved for the
+    backward, so the scale is a new tensor."""
     if cap <= 0.0:
         return x
-    return (x.float() / cap).tanh_().mul_(cap).to(x.dtype)
+    t = (x.float() / cap).tanh_()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return (t * cap).to(x.dtype)
+    return t.mul_(cap).to(x.dtype)
 
 
 def act_fn(name: str):

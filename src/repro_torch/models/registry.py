@@ -37,12 +37,14 @@ class Model:
     forward: Callable
     decode_step: Callable
     init_cache: Callable
+    loss: Callable
 
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     """The model's functions on ``device`` (``cuda`` unless given; raises
     without a card).  ``init_params(seed_or_generator=0, dtype=float32)``
-    draws its parameters on that device."""
+    draws its parameters on that device; ``loss(params, batch)`` is
+    ``transformer.lm_loss``."""
     if cfg.family != DENSE:
         raise NotImplementedError(NOT_PORTED.get(cfg.family, cfg.family))
     dev = resolve_device(device)
@@ -59,4 +61,5 @@ def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         decode_step=lambda p, tokens, cache: tf.decode_step(p, cfg, tokens, cache),
         init_cache=lambda batch, max_seq, dtype=torch.bfloat16: tf.init_cache(
             cfg, batch, max_seq, dtype, dev),
+        loss=lambda p, batch: tf.lm_loss(p, cfg, batch),
     )

@@ -1,11 +1,17 @@
-"""The dense transformer stack: parameters, full-sequence forward and
-one-token decode.
+"""The dense transformer stack: parameters, full-sequence forward, one-token
+decode and the LM loss.
 
 A port of the dense family of the JAX package's ``models/transformer.py``.
 Parameters live in an ``nn.Module`` (``Transformer``) with one ``Block`` per
-layer in a ``ModuleList``; they are created without gradients (serving).
-JAX's ``lax.scan`` over stacked layers becomes a Python loop, and each
-layer's attention window a Python int.
+layer in a ``ModuleList``; they are created without gradients (serving),
+and ``requires_grad_(True)`` makes them trainable.  Training holds them as
+the JAX package's tree instead (``params_tree``: every layer's weights
+stacked on a leading L axis), so that statistics the JAX optimizer takes
+over a stacked leaf stay global over the layers; ``forward`` and
+``lm_loss`` take either form, and read a tree's layers as views of its
+stacked leaves.
+JAX's ``lax.scan`` over stacked layers becomes a Python loop whose body goes
+through ``maybe_remat``, and each layer's attention window a Python int.
 
 Public entry points (through ``registry.build_model``):
   * ``init_params``  — random parameters from a ``torch.Generator``
@@ -13,6 +19,9 @@ Public entry points (through ``registry.build_model``):
                        (logits, aux, cache-or-None)
   * ``decode_step``  — one token per sequence against a cache
   * ``init_cache``   — the KV cache for (batch, max_seq)
+  * ``lm_loss``      — mean token cross-entropy, on the JAX package's
+                       attention routing (never the flash kernel, which
+                       has no backward)
 
 The cache is ``{"k": (L,B,Smax,K,hd), "v": (L,B,Smax,K,hd), "pos": int}``.
 ``decode_step`` writes the new keys and values into it in place (the JAX
@@ -21,12 +30,14 @@ function returns a new cache) and returns it with ``pos`` advanced.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from types import SimpleNamespace
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import DENSE, ArchConfig
+from repro_torch.distributed.rematctx import maybe_remat
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, embed_init, mlp_fwd,
                                        mlp_init, rmsnorm, softcap, zeros_param)
@@ -75,6 +86,41 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
     return Transformer(embed, zeros_param(d, dtype, dev), layers, lm_head)
 
 
+def params_tree(p: Transformer) -> Dict:
+    """The JAX package's parameter tree of ``p``: ``embed``, ``final_norm``,
+    ``lm_head`` unless tied, and ``layers`` with every weight stacked on a
+    leading L axis (copies; the rest share ``p``'s storage)."""
+    lay = p.layers
+    tree = {"embed": p.embed.detach(), "final_norm": p.final_norm.detach(),
+            "layers": {
+                "ln1": torch.stack([b.ln1.detach() for b in lay]),
+                "ln2": torch.stack([b.ln2.detach() for b in lay]),
+                "attn": {n: torch.stack([b.attn[n].detach() for b in lay])
+                         for n in lay[0].attn},
+                "mlp": {n: torch.stack([b.mlp[n].detach() for b in lay])
+                        for n in lay[0].mlp}}}
+    if p.lm_head is not None:
+        tree["lm_head"] = p.lm_head.detach()
+    return tree
+
+
+def _as_params(p):
+    """``p`` itself, or for the JAX package's tree (a dict) the same
+    attributes with each layer's weights views of the stacked leaves
+    (``unbind``: one stack in the backward, not one scatter a layer)."""
+    if not isinstance(p, dict):
+        return p
+    lay = p["layers"]
+    per = {g: {n: w.unbind(0) for n, w in lay[g].items()} for g in ("attn", "mlp")}
+    layers = [SimpleNamespace(ln1=ln1, ln2=ln2,
+                              attn={n: w[i] for n, w in per["attn"].items()},
+                              mlp={n: w[i] for n, w in per["mlp"].items()})
+              for i, (ln1, ln2) in enumerate(zip(lay["ln1"].unbind(0),
+                                                 lay["ln2"].unbind(0)))]
+    return SimpleNamespace(embed=p["embed"], final_norm=p["final_norm"],
+                           lm_head=p.get("lm_head"), layers=layers)
+
+
 # ===========================================================================
 # Embedding / head
 # ===========================================================================
@@ -84,7 +130,8 @@ def embed_in(p: Transformer, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
                                   "not ported")
     x = p.embed[batch["tokens"]]
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+        # a device fill, not a host tensor copied over (which waits on the card)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
 
 
@@ -122,6 +169,18 @@ def _prefill_impl(x: torch.Tensor, positions: torch.Tensor, explicit: bool,
     return "blockwise" if x.shape[1] >= attn.BLOCKWISE_THRESHOLD else "dense"
 
 
+def _layer(x: torch.Tensor, lp, cfg: ArchConfig, positions: torch.Tensor,
+           window: int, impl: str):
+    """One layer over the full sequence. Returns (x, k, v)."""
+    h = rmsnorm(x, lp.ln1, cfg.norm_eps)
+    q, k, v = attn.qkv_proj(lp.attn, h, cfg, positions)
+    o = attn.attention(q, k, v, cfg, positions, positions,
+                       causal=cfg.causal, window=window, impl=impl)
+    x = x + attn.attn_out(lp.attn, o)
+    h2 = rmsnorm(x, lp.ln2, cfg.norm_eps)
+    return x + mlp_fwd(lp.mlp, h2, cfg.act), k, v
+
+
 def _attn_stack_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
                      positions: torch.Tensor, impl: str, build_cache: bool,
                      max_seq: int = 0):
@@ -133,14 +192,9 @@ def _attn_stack_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
         cache = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
                  "v": torch.zeros(shape, dtype=x.dtype, device=x.device),
                  "pos": S}
+    layer = maybe_remat(_layer)
     for i, (lp, window) in enumerate(zip(p.layers, _per_layer_windows(cfg))):
-        h = rmsnorm(x, lp.ln1, cfg.norm_eps)
-        q, k, v = attn.qkv_proj(lp.attn, h, cfg, positions)
-        o = attn.attention(q, k, v, cfg, positions, positions,
-                           causal=cfg.causal, window=window, impl=impl)
-        x = x + attn.attn_out(lp.attn, o)
-        h2 = rmsnorm(x, lp.ln2, cfg.norm_eps)
-        x = x + mlp_fwd(lp.mlp, h2, cfg.act)
+        x, k, v = layer(x, lp, cfg, positions, window, impl)
         if cache is not None:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
@@ -192,8 +246,10 @@ def forward(params: Transformer, cfg: ArchConfig, batch: Dict,
     ``attn_impl`` None runs the flash kernel on the card and the JAX
     package's routing (dense below 4096 tokens, blockwise from 4096) on the
     CPU; "plain" takes that routing on the card too; "flash" takes the
-    kernel (its plain version on the CPU).
+    kernel (its plain version on the CPU).  ``params`` is a ``Transformer``
+    or the JAX package's tree.
     """
+    params = _as_params(params)
     x = embed_in(params, cfg, batch)
     B, S = x.shape[:2]
     positions = batch.get("positions")
@@ -213,3 +269,28 @@ def decode_step(params: Transformer, cfg: ArchConfig, tokens: torch.Tensor,
     x = embed_in(params, cfg, {"tokens": tokens})
     x, cache = _attn_stack_decode(params, cfg, x, cache)
     return lm_head(params, cfg, x), cache
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token CE in fp32. logits (B,S,V), labels (B,S)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
+
+
+def lm_loss(params, cfg: ArchConfig, batch: Dict, aux_weight: float = 0.01,
+            attn_impl: Optional[str] = "plain"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {"ce", "aux"}) of ``batch`` ({tokens, labels, mask?}).  The
+    attention takes the JAX package's routing on every device (dense below
+    4096 tokens, blockwise from 4096): the flash kernel has no backward."""
+    logits, aux, _ = forward(params, cfg, batch, attn_impl=attn_impl)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}

@@ -1,0 +1,52 @@
+"""Nested dicts (and lists) of tensors read as the JAX package's pytrees:
+leaves in ``jax.tree_util`` order (dict keys sorted), each with its key
+path, joined by "/" as the JAX package's checkpoints name it."""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+
+def _items(tree):
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
+def flatten_with_paths(tree) -> List[Tuple[Tuple, Any]]:
+    """[(key path, leaf)] in ``jax.tree_util.tree_flatten_with_path`` order."""
+    items = _items(tree)
+    if items is None:
+        return [((), tree)]
+    return [((k,) + path, leaf) for k, sub in items
+            for path, leaf in flatten_with_paths(sub)]
+
+
+def leaves(tree) -> list:
+    return [leaf for _, leaf in flatten_with_paths(tree)]
+
+
+def key_paths(tree) -> List[str]:
+    """Each leaf's key path as the JAX package's checkpoints write it."""
+    return ["/".join(str(k) for k in path) for path, _ in flatten_with_paths(tree)]
+
+
+def unflatten(like, new_leaves) -> Any:
+    """A tree of ``like``'s structure holding ``new_leaves`` in leaf order."""
+    it = iter(new_leaves)
+
+    def build(t):
+        items = _items(t)
+        if items is None:
+            return next(it)
+        if isinstance(t, dict):
+            return {k: build(sub) for k, sub in items}
+        return type(t)(build(sub) for _, sub in items)
+
+    return build(like)
+
+
+def tree_map(fn: Callable, tree, *rest) -> Any:
+    return unflatten(tree, [fn(*ls) for ls in
+                            zip(leaves(tree), *(leaves(r) for r in rest))])

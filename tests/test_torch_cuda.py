@@ -4,7 +4,9 @@ against its plain PyTorch version at small sizes (the FC, single-key and
 sketch kernels bit for bit), at the shapes past the kernels' built sizes
 (sketch rows past 8 and 32, AE widths past 32 and 64, flash head dims other
 than 32, 64, 128, 256, prefill positions arange(S) + c), launch counting,
-and the wrappers' checks.
+and the wrappers' checks (the flash kernel refuses inputs that require a
+gradient); LM training on the card against the CPU (three steps, remat,
+int8 error feedback, microbatches) and resuming on the card.
 
 Marked ``cuda``; each test skips without a CUDA device.  Run on the card:
 
@@ -757,3 +759,100 @@ def test_sharded_on_the_card_matches_serial(dev, mode, S):
     for g in st_s:
         for k in st_s[g]:
             assert torch.equal(st_h[g][k], st_s[g][k]), (g, k)
+
+
+def test_flash_refuses_inputs_that_require_grad(dev):
+    """The kernel has no backward: on the card it refuses q/k/v that need a
+    gradient; lm_loss takes the plain route and launches it no time."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import lm_batches
+    from repro_torch.models import build_model
+    q, k, v = _flash_inputs(dev, 1, 2, 1, 16, 16, 32, torch.float32)
+    with pytest.raises(ValueError, match="no backward"):
+        flash_attention(q.requires_grad_(True), k, v)
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    model = build_model(reduced(get_arch("gemma2-2b")), device=dev)
+    params = model.init_params(0).requires_grad_(True)
+    b = {k_: torch.from_numpy(a).to(dev)
+         for k_, a in next(lm_batches(model.cfg.vocab, 2, 16, 1)).items()}
+    with pytest.raises(ValueError, match="attn_impl='plain'"):
+        model.forward(params, b)
+    reset_launch_counts()
+    loss, _ = model.loss(params, b)
+    loss.backward()
+    assert launch_counts()["flash_attention"] == 0
+    assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in params.parameters())
+
+
+# LM training on the card against the CPU: the CPU tests' envelopes against
+# JAX (tests/test_torch_training.py), from the same carried state
+TRAIN_F32_TOL = 1e-5
+
+
+def _train_states(dev, tc, arch="gemma2-2b"):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.interop import train_state_from_arrays, train_state_to_arrays
+    from repro_torch.models import build_model
+    from repro_torch.training import init_train_state
+    cfg = reduced(get_arch(arch))
+    models = {d: build_model(cfg, device=d) for d in ("cpu", dev)}
+    arrays = train_state_to_arrays(init_train_state(models["cpu"], tc, 0))
+    return models, {d: train_state_from_arrays(cfg, tc, arrays, device=d)
+                    for d in models}
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(remat="dots"),
+                                dict(grad_compression="int8_ef"),
+                                dict(microbatches=4)])
+def test_train_step_on_card_matches_cpu(dev, kw):
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import lm_batches
+    from repro_torch.training import make_train_step
+    tc = TrainConfig(compute_dtype="float32", learning_rate=1e-3, warmup_steps=2, **kw)
+    models, states = _train_states(dev, tc)
+    steps = {d: make_train_step(m, tc) for d, m in models.items()}
+    lrs = []
+    for b in lm_batches(models["cpu"].cfg.vocab, 8, 32, 3, seed=1):
+        mets = {}
+        for d in models:
+            batch = {k: torch.from_numpy(a).to(d) for k, a in b.items()}
+            states[d], mets[d] = steps[d](states[d], batch)
+        lrs.append(float(mets["cpu"]["lr"]))
+        for key in ("loss", "grad_norm"):
+            want = float(mets["cpu"][key])
+            tol = 1e-4 if key == "grad_norm" and kw.get("grad_compression") else TRAIN_F32_TOL
+            assert abs(float(mets[dev][key]) - want) <= tol * abs(want), key
+        got = torch.cat([t.cpu().flatten() for t in tree.leaves(states[dev]["params"])])
+        want = torch.cat([t.flatten() for t in tree.leaves(states["cpu"]["params"])])
+        d = (got - want).abs()
+        share = 1e-3 if kw.get("grad_compression") else 1e-4
+        assert d.max() <= 2 * sum(lrs)
+        assert (d > TRAIN_F32_TOL + TRAIN_F32_TOL * want.abs()).float().mean() <= share
+
+
+def test_resume_on_card_and_checkpoint_on_cpu(dev, tmp_path):
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import lm_batches
+    from repro_torch.training import CheckpointManager, make_train_step
+    from repro_torch.training.fault import FailureInjector, resilient_loop
+    tc = TrainConfig(learning_rate=1e-3)
+    models, states = _train_states(dev, tc)
+    step = make_train_step(models[dev], tc)
+    batches = [{k: torch.from_numpy(a).to(dev) for k, a in b.items()}
+               for b in lm_batches(models[dev].cfg.vocab, 4, 16, 12, seed=4)]
+    ref = tree.tree_map(torch.clone, states[dev])
+    for b in batches:
+        ref, _ = step(ref, b)
+    ckpt = CheckpointManager(str(tmp_path / "ft"), keep=3)
+    out = resilient_loop(step, states[dev], batches, ckpt, ckpt_every=2,
+                         injector=FailureInjector(fail_at=[3, 7, 7]), max_restarts=5)
+    assert out["restarts"] >= 2 and out["completed"] == len(batches)
+    for a, b in zip(tree.leaves(out["state"]["params"]), tree.leaves(ref["params"])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    restored, rstep = ckpt.restore(states["cpu"])
+    assert rstep == len(batches)
+    for a, b in zip(tree.leaves(restored), tree.leaves(out["state"])):
+        assert a.device.type == "cpu" and torch.equal(a, b.cpu())
