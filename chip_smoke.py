@@ -167,6 +167,27 @@ back-to-back call, which includes the wrapper's host overhead.
                with the same weights through the kernel and through the
                plain route (blockwise attention): logits within 1e-3,
                greedy tokens equal wherever the top-2 margin exceeds it.
+  lm_families — the families beyond dense, each at full width with float32
+               parameters from seed 0 and a bf16 cache, built, run and freed
+               in turn: phi3.5-moe (4 of 32 layers), zamba2-2.7b, xlstm-125m,
+               qwen2-vl-72b (4 of 80 layers) and hubert-xlarge.  A decoder
+               serves lm_main's launcher traffic through ServeEngine (counts
+               zeroed just before and read just after: flash launches equal
+               attention applications x prefills: n_layers, 9 for zamba2, 0
+               for the xLSTM), then one 2048-token prefill through the kernel
+               and through the plain route and 16 decode steps fed the same
+               tokens (lm_reference's check); the xLSTM's prefill of 2048
+               tokens and 16 decode steps against one full forward;
+               hubert one forward over 1500 frames of embeddings, kernel
+               route against plain route (1e-3).  The xLSTM's prefill rows
+               and decode steps against the full forward to XLSTM_REF_TOL
+               (at this width a one-ulp nudge of its embeddings moves its
+               logits by ~1e-2; measured beside them).  phi3.5-moe's dropped token
+               slots in each prefill.  Then the flash kernel at zamba2's
+               (H=K=32, D=80, S=2048, causal) and hubert's (H=K=16, D=80,
+               S=1500, no causal mask) shapes against its plain version
+               (2e-5), its time beside the plain version's and
+               scaled_dot_product_attention's.
   train_main — LM training of gemma2-2b at full width and depth (float32
                parameters from seed 0, bf16 compute, AdamW) through
                training.make_train_step: the JAX launcher's batch 8 x seq 128
@@ -1947,62 +1968,345 @@ def phase_lm_trace(untraced_s: float, log) -> None:
           "prefills_window": first, "decode_window": rest}, log)
 
 
-def phase_lm_reference(log) -> None:
-    """One 8192-token prefill of full-width gemma2-2b with the same weights
-    through the kernel and through the plain route (blockwise attention, as
-    the JAX package routes it), then 16 decode steps fed the same tokens:
-    logits within LM_REF_TOL, greedy tokens equal where the top-2 margin
-    exceeds it."""
-    from repro_torch.configs import get_arch
-    from repro_torch.models import build_model
+# the families beyond dense at full width, each model's depth cut where its
+# float32 weights would not fit beside the rest (None: uncut)
+LM_FAMILIES = (("phi3.5-moe-42b-a6.6b", 4), ("zamba2-2.7b", None),
+               ("xlstm-125m", None), ("qwen2-vl-72b", 4), ("hubert-xlarge", None))
+FAMILY_PREFILL, FAMILY_DECODE, HUBERT_FRAMES = 2048, 16, 1500
+# xlstm-125m at full width with random weights amplifies rounding through
+# its 12 blocks (the mLSTM's normaliser max(|q.n|, exp(-m)) divides by small
+# dot products).  On the CPU (python tests/test_torch_recurrent.py
+# --full-width): a one-ulp nudge of the embeddings moves its logits by up to
+# 1.3e-2 at 2048 tokens, the port and the JAX package with the same weights
+# differ by up to 1.8e-2, and the JAX package's own prefill + 16 decode
+# steps (the recurrent form) differ from its full forward (the chunked form)
+# by up to 2.5e-3 (the port's by 1.0e-3); a fault in the decode state moves
+# them by 4.0-7.3 (a zeroed C, a block's state reset, a skipped token).  Its
+# prefill's rows and decode steps against the full forward are held to
+# 5e-2; the phase measures the one-ulp floor on the card beside them.
+XLSTM_REF_TOL = 5e-2
+# the flash kernel at the shapes these families give it: (B, H, K, S, D, causal)
+FAMILY_FLASH_SHAPES = {"zamba2": (1, 32, 32, 2048, 80, True),
+                       "hubert": (1, 16, 16, 1500, 80, False)}
 
-    model = build_model(get_arch("gemma2-2b"), device="cuda")
-    params = model.init_params(0)
-    S, n_dec = 8192, 16
+
+def flash_per_prefill(cfg) -> int:
+    """Flash launches a prefill: one an attention application."""
+    from repro_torch.models.transformer import n_attn_apps
+    return {"hybrid": n_attn_apps(cfg), "ssm": 0}.get(cfg.family, cfg.n_layers)
+
+
+def sync_time(fn, dev):
+    """(fn(), its wall seconds), the card synchronised before and after."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def family_engine(model, params, dev) -> dict:
+    """The JAX launcher's traffic (lm_args: 4 slots, 8 requests of 16-token
+    prompts from default_rng(0), max_new 16, max_seq 256, bf16 cache)
+    through ServeEngine, launch counts zeroed just before and read just
+    after; a MoE model's dropped token slots in each prefill and over the
+    decode steps."""
+    import dataclasses
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import moe
+    from repro_torch.models.lm_engine import Request, ServeEngine
+
+    args = lm_args()
+    cfg = model.cfg
+    drops = {"prefills": [], "decode": []}
+
+    def counting(fn, where):
+        def wrapped(*a, **kw):
+            with moe.count_drops() as d:
+                out = fn(*a, **kw)
+            drops[where].append(int(sum(d)) if d else 0)
+            return out
+        return wrapped
+
+    eng = ServeEngine(model, params, batch_slots=args.slots, max_seq=args.max_seq,
+                      device=dev)
+    if cfg.is_moe:
+        eng.model = dataclasses.replace(model, forward=counting(model.forward, "prefills"),
+                                        decode_step=counting(model.decode_step, "decode"))
+    rng = np.random.default_rng(args.seed)
+    for rid in range(args.requests):
+        eng.submit(Request(rid, torch.from_numpy(rng.integers(1, cfg.vocab, args.prompt_len)),
+                           max_new=args.max_new))
+    reset_launch_counts()
+    outs, wall = sync_time(eng.run, dev)
+    n_flash = launch_counts()["flash_attention"]
+    st = eng.stats
+    if n_flash != flash_per_prefill(cfg) * st["prefills"]:
+        raise RuntimeError(f"lm_families {cfg.name}: {n_flash} flash launches for "
+                           f"{st['prefills']} prefills")
+    if (len(outs) != args.requests
+            or any(len(v) != args.max_new or min(v) < 0 or max(v) >= cfg.vocab
+                   for v in outs.values())):
+        raise RuntimeError(f"lm_families {cfg.name}: outputs misshapen or out of "
+                           "the vocabulary")
+    rec = {"wall_s": wall, **st, "flash_launches": n_flash,
+           "prefill_s_per_request": st["prefill_s"] / st["prefills"],
+           "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+           "first_output": outs[0]}
+    if cfg.is_moe:
+        rec["moe_dropped_slots"] = {"each_prefill": drops["prefills"],
+                                    "decode_steps_total": sum(drops["decode"]),
+                                    "decode_steps": len(drops["decode"])}
+    return rec
+
+
+def route_reference(model, params, dev, S: int, n_dec: int = 16) -> Tuple[dict, int, list]:
+    """One S-token prefill of a decoder with the same weights through the
+    default route (on the card, the flash kernel) and through the plain
+    route (the JAX package's routing), then ``n_dec`` decode steps fed the
+    same tokens: logits within LM_REF_TOL, greedy tokens equal where the
+    top-2 margin exceeds it.  Returns the record, the flash launches of the
+    default route's prefill and the checks that failed."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import moe
+
+    cfg = model.cfg
     rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(1, model.cfg.vocab, (1, S))).cuda()
-    sample = torch.from_numpy(np.sort(rng.choice(S - 1, 64, replace=False))).cuda()
-    out = {}
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (1, S))).to(dev)
+    sample = torch.from_numpy(np.sort(rng.choice(S - 1, 64, replace=False))).to(dev)
+    out, n_flash = {}, 0
     for route in (None, "plain"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, _, cache = model.forward(params, {"tokens": toks}, build_cache=True,
-                                         max_seq=S + n_dec, attn_impl=route)
-        last = logits[0, -1].clone()
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        out[route] = {"last": last, "sample": logits[0, sample].clone(),
-                      "cache": cache, "prefill_s": prefill_s}
+        reset_launch_counts()
+        with moe.count_drops() as d:
+            (logits, _, cache), t = sync_time(lambda: model.forward(
+                params, {"tokens": toks}, build_cache=True, max_seq=S + n_dec,
+                attn_impl=route), dev)
+        if route is None:
+            n_flash = launch_counts()["flash_attention"]
+        out[route] = {"last": logits[0, -1].clone(), "sample": logits[0, sample].clone(),
+                      "cache": cache, "prefill_s": t, "dropped": [int(x) for x in d]}
         del logits
     teacher = [int(out[None]["last"].argmax())]
     steps = {None: [], "plain": []}
-    for i in range(n_dec):
-        tok = torch.tensor([[teacher[-1]]], device="cuda")
+    t_dec = []
+    for _ in range(n_dec):
+        tok = torch.tensor([[teacher[-1]]], device=dev)
         for route in (None, "plain"):
-            lg, out[route]["cache"] = model.decode_step(params, tok, out[route]["cache"])
+            (lg, out[route]["cache"]), dt = sync_time(lambda: model.decode_step(
+                params, tok, out[route]["cache"]), dev)
             steps[route].append(lg[0, 0])
+            if route is None:
+                t_dec.append(dt)
         teacher.append(int(steps[None][-1].argmax()))
     k_rows = torch.stack([out[None]["last"]] + steps[None])
     p_rows = torch.stack([out["plain"]["last"]] + steps["plain"])
     errs = {"last": max_abs(out[None]["last"], out["plain"]["last"]),
             "sample64": max_abs(out[None]["sample"], out["plain"]["sample"]),
-            "decode16": max_abs(k_rows[1:], p_rows[1:])}
+            f"decode{n_dec}": max_abs(k_rows[1:], p_rows[1:])}
     top2 = p_rows.topk(2, dim=-1).values
     decided = (top2[:, 0] - top2[:, 1]) > LM_REF_TOL
-    same = (k_rows.argmax(-1) == p_rows.argmax(-1))
-    finite = all(torch.isfinite(t).all() for t in (k_rows, p_rows, out[None]["sample"]))
-    emit({"phase": "lm_reference", "tokens": S, "decode_steps": n_dec,
-          "tol": LM_REF_TOL, "max_abs_err": errs,
-          "logit_absmax": float(k_rows.abs().max()),
-          "greedy_equal": int(same.sum()), "rows": int(same.numel()),
-          "decided_rows": int(decided.sum()),
-          "prefill_s": {"kernel": out[None]["prefill_s"],
-                        "plain": out["plain"]["prefill_s"]}}, log)
+    same = k_rows.argmax(-1) == p_rows.argmax(-1)
+    finite = all(bool(torch.isfinite(t).all()) for t in (k_rows, p_rows, out[None]["sample"]))
+    rec = {"tokens": S, "decode_steps": n_dec, "tol": LM_REF_TOL, "max_abs_err": errs,
+           "logit_absmax": float(k_rows.abs().max()), "greedy_equal": int(same.sum()),
+           "rows": int(same.numel()), "decided_rows": int(decided.sum()),
+           "prefill_s": {"kernel": out[None]["prefill_s"],
+                         "plain": out["plain"]["prefill_s"]},
+           "decode_ms_per_step": 1e3 * float(np.median(t_dec))}
+    if cfg.is_moe:
+        rec["moe_dropped_slots"] = {"kernel": out[None]["dropped"],
+                                    "plain": out["plain"]["dropped"]}
+    failed = []
     if not finite or max(errs.values()) > LM_REF_TOL:
-        raise RuntimeError(f"lm_reference: kernel vs plain route logits differ: {errs}")
+        failed.append(f"kernel vs plain route logits differ: {errs}")
     if not bool(same[decided].all()):
-        raise RuntimeError("lm_reference: greedy tokens differ where the top-2 "
-                           "margin exceeds the tolerance")
+        failed.append("greedy tokens differ where the top-2 margin exceeds the tolerance")
+    return rec, n_flash, failed
+
+
+def xlstm_reference(model, params, dev) -> Tuple[dict, int, list]:
+    """xlstm-125m, which has no attention: a prefill of FAMILY_PREFILL
+    tokens and FAMILY_DECODE decode steps of the next tokens against one
+    full forward over them all (XLSTM_REF_TOL), beside the rounding floor
+    (the full forward with the embeddings one ulp off)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    S, n_dec = FAMILY_PREFILL, FAMILY_DECODE
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(1, model.cfg.vocab, (1, S + n_dec))).to(dev)
+    reset_launch_counts()
+    (full, _, _), t_full = sync_time(lambda: model.forward(params, {"tokens": toks}), dev)
+    (pre, _, cache), t_pre = sync_time(lambda: model.forward(
+        params, {"tokens": toks[:, :S]}, build_cache=True), dev)
+    rows, t_dec = [pre[0, -1]], []
+    for i in range(n_dec):
+        (lg, cache), dt = sync_time(lambda: model.decode_step(
+            params, toks[:, S + i:S + i + 1], cache), dev)
+        rows.append(lg[0, 0])
+        t_dec.append(dt)
+    n_flash = launch_counts()["flash_attention"]
+    got, want = torch.stack(rows), full[0, S - 1:]
+    per_step = (got.double() - want.double()).abs().amax(-1)
+    errs = {"prefill_rows_vs_full": max_abs(pre[0], full[0, :S]),
+            "decode_vs_full": float(per_step.max())}
+    emb = params.embed.detach().clone()
+    sign = torch.randint(0, 2, emb.shape, generator=torch.Generator(dev).manual_seed(2),
+                         device=dev) * 2.0 - 1.0
+    with torch.no_grad():
+        params.embed.mul_(1 + sign * 2.0 ** -23)
+        nudged, _, _ = model.forward(params, {"tokens": toks})
+        params.embed.copy_(emb)
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(full).all())
+    rec = {"tokens": S, "decode_steps": n_dec, "tol": XLSTM_REF_TOL,
+           "max_abs_err": errs, "decode_err_per_step": per_step.tolist(),
+           "ulp_nudge_floor": max_abs(nudged, full),
+           "logit_absmax": float(want.abs().max()), "finite": finite,
+           "full_forward_s": t_full, "prefill_s": t_pre,
+           "decode_ms_per_step": 1e3 * float(np.median(t_dec))}
+    failed = []
+    if not finite or max(errs.values()) > XLSTM_REF_TOL:
+        failed.append(f"prefill + decode vs full forward {errs}")
+    return rec, n_flash, failed
+
+
+def encoder_reference(model, params, dev) -> Tuple[dict, int, list]:
+    """hubert-xlarge: one forward over HUBERT_FRAMES frames of embeddings
+    through the kernel and through the plain route (LM_REF_TOL); its
+    decode step raises."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(1)
+    emb = torch.from_numpy(rng.standard_normal((1, HUBERT_FRAMES, model.cfg.d_in))
+                           .astype(np.float32)).to(dev)
+    reset_launch_counts()
+    (lk, _, _), t_k = sync_time(lambda: model.forward(params, {"embeds": emb}), dev)
+    n_flash = launch_counts()["flash_attention"]
+    (lp, _, _), t_p = sync_time(lambda: model.forward(params, {"embeds": emb},
+                                                      attn_impl="plain"), dev)
+    err = max_abs(lk, lp)
+    finite = bool(torch.isfinite(lk).all())
+    rec = {"frames": HUBERT_FRAMES, "tol": LM_REF_TOL, "max_abs_err": {"all_rows": err},
+           "logit_absmax": float(lk.abs().max()), "finite": finite,
+           "forward_s": {"kernel": t_k, "plain": t_p}}
+    failed = [] if finite and err <= LM_REF_TOL else [f"kernel vs plain route {err}"]
+    try:
+        model.decode_step(params, torch.zeros((1, 1), dtype=torch.long, device=dev), {})
+        failed.append("the encoder has a decode step")
+    except ValueError:
+        pass
+    return rec, n_flash, failed
+
+
+def family_reference(model, params, dev) -> Tuple[dict, int, list]:
+    cfg = model.cfg
+    if cfg.is_encoder:
+        return encoder_reference(model, params, dev)
+    if cfg.family == "ssm":
+        return xlstm_reference(model, params, dev)
+    return route_reference(model, params, dev, FAMILY_PREFILL, FAMILY_DECODE)
+
+
+def phase_lm_reference(log) -> None:
+    """One 8192-token prefill of full-width gemma2-2b with the same weights
+    through the kernel and through the plain route (blockwise attention, as
+    the JAX package routes it), then 16 decode steps fed the same tokens
+    (route_reference)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    model = build_model(get_arch("gemma2-2b"), device="cuda")
+    rec, _, failed = route_reference(model, model.init_params(0), torch.device("cuda"),
+                                     8192)
+    emit({"phase": "lm_reference", **rec}, log)
+    if failed:
+        raise RuntimeError(f"lm_reference: {'; '.join(failed)}")
+
+
+def family_flash_shapes() -> dict:
+    """The flash kernel at the shapes zamba2 and hubert give it (float32, as
+    their prefills run): against its plain version (FLASH_MODEL_TOL), its
+    time, the plain version's, scaled_dot_product_attention's on the same
+    inputs, and the bound at the true head dim (the kernel pads 80 to
+    128)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    rng = np.random.default_rng(11)
+    out = {}
+    for name, (B, H, K, S, D, causal) in FAMILY_FLASH_SHAPES.items():
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, n, S, D)).astype(np.float32))
+                   .cuda() for n in (H, K, K))
+        got = flash_attention(q, k, v, causal=causal)
+        err = max_abs(got, flash_attention_ref(q, k, v, causal=causal))
+        if not err <= FLASH_MODEL_TOL:
+            raise RuntimeError(f"flash at {name}'s shape: max abs err {err}")
+        out[name] = {"shape": {"B": B, "H": H, "K": K, "S": S, "D": D, "causal": causal,
+                               "dtype": "float32"},
+                     "max_abs_err": err,
+                     **timed(lambda: flash_attention(q, k, v, causal=causal), 20,
+                             "flash_attention_kernel"),
+                     "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal), 5),
+                     "library_ms": cuda_ms(
+                         lambda: torch.nn.functional.scaled_dot_product_attention(
+                             q, k, v, is_causal=causal), 20),
+                     **flash_cost(B, H, K, S, S, D, causal, 0, torch.float32)}
+        del q, k, v, got
+    return out
+
+
+def phase_lm_families(log) -> Tuple[int, dict]:
+    """Each family beyond dense on the card at full width (float32
+    parameters from seed 0, bf16 cache; depth cut as LM_FAMILIES says, by
+    dataclasses.replace): a decoder serves the launcher's traffic through
+    ServeEngine (family_engine), then family_reference; the encoder runs
+    family_reference alone.  Flash launches equal attention applications x
+    prefills.  Each model is freed before the next is built.  Returns the
+    flash launches of the families' runs and the flash kernel's record at
+    their shapes."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    launches = 0
+    for arch, depth in LM_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        full = get_arch(arch)
+        cfg = full if depth is None else dataclasses.replace(full, n_layers=depth)
+        model = build_model(cfg, device=dev)
+        params = model.init_params(0)
+        torch.cuda.synchronize()
+        rec = {"phase": "lm_families", "arch": arch, "family": cfg.family,
+               "cut": None if depth is None else {"n_layers": [full.n_layers, depth]},
+               "params": cfg.param_count(),
+               "param_gib": sum(p.numel() * p.element_size()
+                                for p in params.parameters()) / 2 ** 30,
+               "init_s": time.perf_counter() - t0,
+               "flash_per_prefill": flash_per_prefill(cfg)}
+        if not cfg.is_encoder:
+            rec["engine"] = family_engine(model, params, dev)
+            launches += rec["engine"]["flash_launches"]
+        rec["reference"], n_flash, failed = family_reference(model, params, dev)
+        launches += n_flash
+        if n_flash != flash_per_prefill(cfg):
+            failed.append(f"{n_flash} flash launches for one prefill")
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["seconds"] = time.perf_counter() - t0
+        emit(rec, log)
+        if failed:
+            raise RuntimeError(f"lm_families {arch}: {'; '.join(failed)}")
+        del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = family_flash_shapes()
+    emit({"phase": "lm_families", "flash_at_family_shapes": shapes,
+          "flash_launches": launches, "seconds": time.perf_counter() - t_phase}, log)
+    return launches, shapes
 
 
 # tests/test_torch_training.py's envelope: loss and grad norm within 1e-5
@@ -2510,6 +2814,10 @@ def main() -> int:
     phase_lm_trace(long_prompt_s, log)
     phase_lm_reference(log)
 
+    # ---- 7b. the MoE, hybrid, xLSTM, VLM and audio families ----
+    family_launches, flash["family_shapes"] = phase_lm_families(log)
+    flash["launches"] += family_launches
+
     # ---- 8. LM training of gemma2-2b at full width, card against CPU, resume ----
     phase_train_main(log)
     phase_train_reference(log)
@@ -2526,7 +2834,7 @@ def main() -> int:
     single["launches"] = single_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("bf16", "chain_floor_ms", "computes", "tenant_axis")
+    extra = ("bf16", "chain_floor_ms", "computes", "tenant_axis", "family_shapes")
     table = {"kernels": [{**{key: kern[key] for key in keys},
                           **{key: kern[key] for key in extra if key in kern}}
                          for kern in (fc, ens, score, sk, single, flash)]}

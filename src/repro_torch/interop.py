@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch import tree
-from repro_torch.configs.base import ArchConfig, TrainConfig
+from repro_torch.configs.base import HYBRID, SSM, ArchConfig, TrainConfig
 from repro_torch.detection.kitnet import KitNet
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import Block, Transformer
@@ -83,28 +83,41 @@ def state_to_arrays(state: Dict) -> Dict:
 
 def lm_params_from_arrays(cfg: ArchConfig, arrays: Dict,
                           device: DeviceLike = None) -> Transformer:
-    """A dense LM's parameters from the JAX package's parameter tree as
-    numpy arrays: ``embed`` (V, d), ``final_norm`` (d,), ``lm_head`` (d, V)
-    unless ``cfg.tie_embeddings``, and ``layers`` stacked on a leading L axis
-    (``ln1``, ``ln2``, ``attn/{wq,wk,wv,wo}``, ``mlp/{wi,wg?,wo}``), every
-    weight stored (d_in, d_out)."""
+    """An LM's parameters, of any family, from the JAX package's parameter
+    tree as numpy arrays: ``embed`` (V, d), ``final_norm`` (d,), ``lm_head``
+    (d, V) unless ``cfg.tie_embeddings``, ``in_proj`` (d_in, d) where the
+    model takes embeddings, and the layers.  ``layers`` holds each part
+    stacked on a leading L axis: ``ln1``, ``ln2``, ``attn/{wq,wk,wv,wo}`` and
+    ``mlp/{wi,wg?,wo}`` or ``moe/{router,wi,wg,wo,shared?/*}`` (attention
+    families), or ``ln`` and ``mamba/*`` (hybrid, with ``shared_attn``
+    unstacked); the xLSTM's ``blocks`` are a list of ``{ln, cell/*}``.  Every
+    weight is stored (d_in, d_out); dtypes are kept."""
     dev = resolve_device(device)
 
-    def param(a) -> nn.Parameter:
-        return nn.Parameter(torch.from_numpy(np.array(a)).to(dev),
+    def part(t, i=None):
+        """A weight, or a dict of them, taken at layer ``i`` of its stack
+        when ``i`` is given."""
+        if isinstance(t, dict):
+            return nn.ParameterDict({n: part(w, i) for n, w in t.items()})
+        return nn.Parameter(torch.from_numpy(np.array(t if i is None else t[i])).to(dev),
                             requires_grad=False)
 
-    lay = arrays["layers"]
-    if len(lay["ln1"]) != cfg.n_layers:
-        raise ValueError(f"{len(lay['ln1'])} stacked layers for a "
-                         f"{cfg.n_layers}-layer config")
-    blocks = [Block(param(lay["ln1"][i]), param(lay["ln2"][i]),
-                    nn.ParameterDict({n: param(w[i]) for n, w in lay["attn"].items()}),
-                    nn.ParameterDict({n: param(w[i]) for n, w in lay["mlp"].items()}))
-              for i in range(cfg.n_layers)]
-    head = None if cfg.tie_embeddings else param(arrays["lm_head"])
-    return Transformer(param(arrays["embed"]), param(arrays["final_norm"]),
-                       blocks, head)
+    if cfg.family == SSM:
+        layers = [Block(ln=part(b["ln"]), cell=part(b["cell"]))
+                  for b in arrays["blocks"]]
+    else:
+        lay = arrays["layers"]
+        n = len(lay["ln"] if cfg.family == HYBRID else lay["ln1"])
+        layers = [Block(**{name: part(t, i) for name, t in lay.items()})
+                  for i in range(n)]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers for a {cfg.n_layers}-layer config")
+    shared = arrays.get("shared_attn")
+    return Transformer(
+        part(arrays["embed"]), part(arrays["final_norm"]), layers,
+        None if cfg.tie_embeddings else part(arrays["lm_head"]),
+        part(arrays["in_proj"]) if "in_proj" in arrays else None,
+        None if shared is None else Block(**{n: part(t) for n, t in shared.items()}))
 
 
 OPT_KEYS = {"adamw": ("m", "step", "v"), "adafactor": ("step", "vc", "vr"),

@@ -1,4 +1,4 @@
-"""Attention: GQA with RoPE, sliding window and logit softcap.
+"""Attention: GQA with RoPE or M-RoPE, sliding window and logit softcap.
 
 A port of the JAX package's ``models/attention.py``.  Four paths share one
 definition of the function:
@@ -25,7 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init, softcap
+from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, softcap
 
 NEG_INF = -1e30
 BLOCKWISE_THRESHOLD = 4096   # the blockwise path for S >= this (CPU routing)
@@ -44,17 +44,21 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype) -> nn.ParameterDict:
 
 def qkv_proj(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied."""
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP queue 1 "
-                                  "item 12)")
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied:
+    M-RoPE on positions (B, S, 3) where the config asks for it, else 1-D
+    RoPE on positions (B, S) (or on the first stream of (B, S, 3))."""
     B, S, _ = x.shape
     hd = cfg.hd
     q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
     k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        pos1d = positions if positions.dim() == 2 else positions[..., 0]
+        q = apply_rope(q, pos1d, cfg.rope_theta)
+        k = apply_rope(k, pos1d, cfg.rope_theta)
     return q, k, v
 
 

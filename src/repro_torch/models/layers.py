@@ -9,7 +9,7 @@ package's distributions (not its numbers: the two generators differ).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +19,7 @@ from torch import nn
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
-def _normal(gen: torch.Generator, shape, scale: float, dtype) -> nn.Parameter:
+def normal_init(gen: torch.Generator, shape, scale: float, dtype) -> nn.Parameter:
     w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return nn.Parameter(w.mul_(scale).to(dtype), requires_grad=False)
 
@@ -28,12 +28,12 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: Optional[float] = None) -> nn.Parameter:
     """A (d_in, d_out) weight, N(0, 1) / sqrt(d_in) unless ``scale``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return _normal(gen, (d_in, d_out), scale, dtype)
+    return normal_init(gen, (d_in, d_out), scale, dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> nn.Parameter:
     """A (vocab, d) embedding, N(0, 0.02^2)."""
-    return _normal(gen, (vocab, d), 0.02, dtype)
+    return normal_init(gen, (vocab, d), 0.02, dtype)
 
 
 def zeros_param(d: int, dtype, device) -> nn.Parameter:
@@ -51,6 +51,18 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Ten
     var = x.square().mean(-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + gain.float())).to(dt)
+
+
+def layernorm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """Layer norm in float32 (biased variance), ``gain`` and ``bias`` as
+    given, back in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, correction=0)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * gain.float() + bias.float()).to(dt)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -74,7 +86,7 @@ def act_fn(name: str):
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE (+ M-RoPE)
 # ---------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
@@ -85,6 +97,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """x: (B, S, H, D); positions: (B, S) integers."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)               # (D/2,)
     ang = positions.float()[..., None] * freqs                     # (B, S, D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Sequence[int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, D); positions: (B, S, 3)
+    [temporal, height, width].  The D/2 frequency slots go to the three
+    position streams in runs of ``sections`` (which sum to D/2); with equal
+    t/h/w positions this is 1-D RoPE."""
+    D = x.shape[-1]
+    if sum(sections) != D // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"head_dim // 2 = {D // 2}")
+    freqs = rope_freqs(D, theta, x.device)                         # (D/2,)
+    pos = positions.float()
+    # each stream's position repeated over its run of slots (no index
+    # tensor copied to the card)
+    pos = torch.cat([pos[..., i:i + 1].expand(*pos.shape[:-1], n)
+                     for i, n in enumerate(sections)], dim=-1)     # (B, S, D/2)
+    ang = pos * freqs
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -115,13 +115,28 @@ class ServeEngine:
 
 def _splice_cache(batch_cache: Dict, one_cache: Dict, slot: int) -> Dict:
     """Copy a single-request cache (batch 1) into slot ``slot`` of the batch
-    cache, in place; the shared ``pos`` becomes the larger of the two."""
-    for name, o in one_cache.items():
-        b = batch_cache[name]
-        if name == "pos":
-            batch_cache[name] = max(b, o)
+    cache, in place, by the JAX package's rule: the shared ``pos`` becomes
+    the larger of the two; a leaf of the batch's shape is copied whole; a
+    leaf with a leading layer axis then the batch axis (attention keys and
+    values, the hybrid's Mamba2 states) goes in at index ``slot`` of its
+    second axis; one with the batch axis leading (the xLSTM's states, a
+    list of dicts reached by recursion) at index ``slot`` of its first."""
+    def splice(b, o):
+        if isinstance(b, dict):
+            for name, sub in o.items():
+                if name == "pos":
+                    b[name] = max(b[name], sub)
+                else:
+                    b[name] = splice(b[name], sub)
+        elif isinstance(b, list):
+            for i, sub in enumerate(o):
+                b[i] = splice(b[i], sub)
         elif b.shape == o.shape:
             b.copy_(o)
-        else:                            # leading layer axis, then batch
+        elif b.dim() >= 2 and o.shape[0] == b.shape[0] and o.shape[1] == 1:
             b[:, slot:slot + 1].copy_(o)
-    return batch_cache
+        elif o.shape[0] == 1:
+            b[slot:slot + 1].copy_(o)
+        return b
+
+    return splice(batch_cache, one_cache)

@@ -1,10 +1,5 @@
-"""Model registry: resolves an ArchConfig into the model's functions, on
-one device.
-
-The port runs the dense family.  Every other family raises
-``NotImplementedError`` naming where ROADMAP.md queues it; nothing else
-runs in its place.
-"""
+"""Model registry: resolves an ArchConfig of any family into the model's
+functions, on one device."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,21 +7,9 @@ from typing import Callable, Union
 
 import torch
 
-from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
-                                      ArchConfig)
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
-
-NOT_PORTED = {
-    MOE: "the moe family (models/moe.py) is not ported: ROADMAP queue 1 item 12c",
-    HYBRID: "the hybrid family (Mamba2, models/ssm.py) is not ported: "
-            "ROADMAP queue 1 item 12d",
-    SSM: "the xLSTM family (models/xlstm.py) is not ported: ROADMAP queue 1 "
-         "item 12e",
-    VLM: "the vlm family (M-RoPE) is not ported: ROADMAP queue 1 item 12f",
-    AUDIO: "the audio family (encoder, embedding inputs) is not ported: "
-           "ROADMAP queue 1 item 12f",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +28,6 @@ def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     without a card).  ``init_params(seed_or_generator=0, dtype=float32)``
     draws its parameters on that device; ``loss(params, batch)`` is
     ``transformer.lm_loss``."""
-    if cfg.family != DENSE:
-        raise NotImplementedError(NOT_PORTED.get(cfg.family, cfg.family))
     dev = resolve_device(device)
 
     def init_params(seed: Union[int, torch.Generator] = 0, dtype=torch.float32):

@@ -1,31 +1,42 @@
-"""The dense transformer stack: parameters, full-sequence forward, one-token
-decode and the LM loss.
+"""The model stacks of every family: parameters, full-sequence forward,
+one-token decode and the LM loss.
 
-A port of the dense family of the JAX package's ``models/transformer.py``.
-Parameters live in an ``nn.Module`` (``Transformer``) with one ``Block`` per
-layer in a ``ModuleList``; they are created without gradients (serving),
-and ``requires_grad_(True)`` makes them trainable.  Training holds them as
-the JAX package's tree instead (``params_tree``: every layer's weights
-stacked on a leading L axis), so that statistics the JAX optimizer takes
-over a stacked leaf stay global over the layers; ``forward`` and
-``lm_loss`` take either form, and read a tree's layers as views of its
-stacked leaves.
-JAX's ``lax.scan`` over stacked layers becomes a Python loop whose body goes
-through ``maybe_remat``, and each layer's attention window a Python int.
+A port of the JAX package's ``models/transformer.py``.  Parameters live in
+an ``nn.Module`` (``Transformer``) with one ``Block`` per layer in a
+``ModuleList``; they are created without gradients (serving), and
+``requires_grad_(True)`` makes them trainable.  The stacks:
+  * dense, moe, vlm and audio: attention then an MLP or the MoE FFN in each
+    layer (M-RoPE for the vlm, embedding inputs and no causal mask for the
+    audio encoder, which has no decode step);
+  * hybrid (Zamba2): Mamba2 layers, and after every ``attn_every``-th one
+    shared attention + MLP block (JAX's ``lax.cond`` on the layer's flag is
+    a Python ``if`` on its index);
+  * ssm (xLSTM): a list of mLSTM and sLSTM blocks.
+Training holds a dense model as the JAX package's tree instead
+(``params_tree``: every layer's weights stacked on a leading L axis), so
+that statistics the JAX optimizer takes over a stacked leaf stay global
+over the layers; ``forward`` and ``lm_loss`` take either form, and read a
+tree's layers as views of its stacked leaves.  JAX's ``lax.scan`` over
+stacked layers becomes a Python loop (through ``maybe_remat`` in the
+attention stack), and each layer's attention window a Python int.
 
 Public entry points (through ``registry.build_model``):
   * ``init_params``  — random parameters from a ``torch.Generator``
   * ``forward``      — full-sequence forward (prefill), returns
                        (logits, aux, cache-or-None)
   * ``decode_step``  — one token per sequence against a cache
-  * ``init_cache``   — the KV cache for (batch, max_seq)
-  * ``lm_loss``      — mean token cross-entropy, on the JAX package's
-                       attention routing (never the flash kernel, which
-                       has no backward)
+  * ``init_cache``   — the decode cache for (batch, max_seq)
+  * ``lm_loss``      — mean token cross-entropy plus ``aux_weight`` times
+                       the MoE aux loss, on the JAX package's attention
+                       routing (never the flash kernel, which has no
+                       backward)
 
-The cache is ``{"k": (L,B,Smax,K,hd), "v": (L,B,Smax,K,hd), "pos": int}``.
-``decode_step`` writes the new keys and values into it in place (the JAX
-function returns a new cache) and returns it with ``pos`` advanced.
+The caches: ``{"k", "v": (L,B,Smax,K,hd), "pos": int}`` (attention
+families); ``{"attn_k", "attn_v": (apps,B,Smax,K,hd), "ssm": (L,B,nh,hp,ds),
+"conv": (L,B,3,conv_dim), "pos"}`` (hybrid, the states in float32);
+``{"states": [per block {C, n, m} or {c, n, h, m}], "pos"}`` (xLSTM).
+``decode_step`` updates the cache in place (the JAX function returns a new
+cache) and returns it with ``pos`` advanced.
 """
 from __future__ import annotations
 
@@ -36,35 +47,47 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import DENSE, ArchConfig
+from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
+                                      ArchConfig)
 from repro_torch.distributed.rematctx import maybe_remat
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (dense_init, embed_init, mlp_fwd,
                                        mlp_init, rmsnorm, softcap, zeros_param)
 
 ATTN_ROUTES = (None, "plain", "flash")
+ATTN_FAMILIES = (DENSE, MOE, AUDIO, VLM)
 
 
 class Block(nn.Module):
-    """One layer: the two norm gains, attention and MLP weights."""
+    """One layer's parameters, as named parts: ``ln1``, ``ln2``, ``attn``
+    and ``mlp`` or ``moe`` (the attention families; also the hybrid's shared
+    block), ``ln`` and ``mamba`` (a hybrid layer), ``ln`` and ``cell`` (an
+    xLSTM block)."""
 
-    def __init__(self, ln1: nn.Parameter, ln2: nn.Parameter,
-                 attn_p: nn.ParameterDict, mlp_p: nn.ParameterDict):
+    def __init__(self, **parts):
         super().__init__()
-        self.ln1, self.ln2 = ln1, ln2
-        self.attn, self.mlp = attn_p, mlp_p
+        for name, part in parts.items():
+            setattr(self, name, part)
 
 
 class Transformer(nn.Module):
-    """The parameters of a dense LM: ``embed`` (V, d), ``final_norm`` (d,),
-    ``lm_head`` (d, V) unless the embeddings are tied, and ``layers``."""
+    """The parameters of an LM: ``embed`` (V, d), ``final_norm`` (d,),
+    ``lm_head`` (d, V) unless the embeddings are tied, ``in_proj`` (d_in, d)
+    where the model takes embeddings, ``layers`` (the xLSTM's blocks, which
+    differ by kind), and the hybrid's ``shared_attn`` block."""
 
     def __init__(self, embed: nn.Parameter, final_norm: nn.Parameter,
-                 layers: Sequence[Block], lm_head: Optional[nn.Parameter] = None):
+                 layers: Sequence[Block], lm_head: Optional[nn.Parameter] = None,
+                 in_proj: Optional[nn.Parameter] = None,
+                 shared_attn: Optional[Block] = None):
         super().__init__()
         self.embed, self.final_norm = embed, final_norm
-        self.lm_head = lm_head
+        self.lm_head, self.in_proj = lm_head, in_proj
         self.layers = nn.ModuleList(layers)
+        self.shared_attn = shared_attn
 
 
 # ===========================================================================
@@ -74,16 +97,34 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
                 dtype=torch.float32) -> Transformer:
     """Random parameters on ``gen``'s device, with the JAX package's
     distributions (gains zero, so each norm starts as 1 * x)."""
-    if cfg.family != DENSE:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
     d, dev = cfg.d_model, gen.device
+
+    def gain():
+        return zeros_param(d, dtype, dev)
+
     embed = embed_init(gen, cfg.vocab, d, dtype)
+    in_proj = None if cfg.embed_inputs else dense_init(gen, cfg.d_in, d, dtype)
     lm_head = None if cfg.tie_embeddings else dense_init(gen, d, cfg.vocab, dtype)
-    layers = [Block(zeros_param(d, dtype, dev), zeros_param(d, dtype, dev),
-                    attn.attn_init(gen, cfg, dtype),
-                    mlp_init(gen, d, cfg.d_ff, dtype, cfg.gated_mlp))
-              for _ in range(cfg.n_layers)]
-    return Transformer(embed, zeros_param(d, dtype, dev), layers, lm_head)
+    shared = None
+    if cfg.family in ATTN_FAMILIES:
+        def ffn():
+            if cfg.is_moe:
+                return {"moe": moe_mod.moe_init(gen, cfg, dtype)}
+            return {"mlp": mlp_init(gen, d, cfg.d_ff, dtype, cfg.gated_mlp)}
+        layers = [Block(ln1=gain(), ln2=gain(), attn=attn.attn_init(gen, cfg, dtype),
+                        **ffn()) for _ in range(cfg.n_layers)]
+    elif cfg.family == HYBRID:
+        layers = [Block(ln=gain(), mamba=ssm_mod.mamba2_init(gen, cfg, dtype))
+                  for _ in range(cfg.n_layers)]
+        shared = Block(ln1=gain(), ln2=gain(), attn=attn.attn_init(gen, cfg, dtype),
+                       mlp=mlp_init(gen, d, cfg.d_ff, dtype))
+    elif cfg.family == SSM:
+        layers = [Block(ln=gain(), cell=(xlstm_mod.slstm_init if i in cfg.slstm_at
+                                         else xlstm_mod.mlstm_init)(gen, cfg, dtype))
+                  for i in range(cfg.n_layers)]
+    else:
+        raise ValueError(cfg.family)
+    return Transformer(embed, gain(), layers, lm_head, in_proj, shared)
 
 
 def params_tree(p: Transformer) -> Dict:
@@ -125,10 +166,14 @@ def _as_params(p):
 # Embedding / head
 # ===========================================================================
 def embed_in(p: Transformer, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
+    """Token ids through ``embed``, or frontend embeddings (``embeds``,
+    (B, S, d_in)) through ``in_proj``."""
     if "embeds" in batch:
-        raise NotImplementedError("embedding inputs (audio/vlm frontends) are "
-                                  "not ported")
-    x = p.embed[batch["tokens"]]
+        if p.in_proj is None:
+            raise ValueError(f"{cfg.name} takes token ids, not embeddings")
+        x = batch["embeds"].to(p.in_proj.dtype) @ p.in_proj
+    else:
+        x = p.embed[batch["tokens"]]
     if cfg.embed_scale:
         # a device fill, not a host tensor copied over (which waits on the card)
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
@@ -142,7 +187,7 @@ def lm_head(p: Transformer, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ===========================================================================
-# Attention stack
+# Attention-family stack (dense / moe / audio / vlm)
 # ===========================================================================
 def _per_layer_windows(cfg: ArchConfig):
     """Each layer's attention window (0 = full)."""
@@ -151,17 +196,22 @@ def _per_layer_windows(cfg: ArchConfig):
     return [cfg.window] * cfg.n_layers
 
 
-def _prefill_impl(x: torch.Tensor, positions: torch.Tensor, explicit: bool,
+def _check_route(attn_impl: Optional[str]) -> None:
+    if attn_impl not in ATTN_ROUTES:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_ROUTES}")
+
+
+def _prefill_impl(x: torch.Tensor, pos1d: torch.Tensor, explicit: bool,
                   attn_impl: Optional[str]) -> str:
     """The attention path of one forward.  The flash kernel on the card, or
     wherever "flash" is asked for; its masks are those of positions
-    arange(S) + c per row, checked once when the caller gave positions.
-    Otherwise ("plain", or None on the CPU) the JAX package's routing by
-    length."""
-    if attn_impl not in ATTN_ROUTES:
-        raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_ROUTES}")
+    arange(S) + c per row (``pos1d``: the positions, or M-RoPE's first
+    stream, which the masks read), checked once when the caller gave
+    positions.  Otherwise ("plain", or None on the CPU) the JAX package's
+    routing by length."""
+    _check_route(attn_impl)
     if attn_impl == "flash" or (attn_impl is None and x.is_cuda):
-        if explicit and not attn.is_prefill_positions(positions, positions):
+        if explicit and not attn.is_prefill_positions(pos1d, pos1d):
             raise ValueError("prefill through the flash kernel masks positions "
                              "arange(S) + c per row; pass attn_impl='plain' "
                              "for others")
@@ -170,21 +220,26 @@ def _prefill_impl(x: torch.Tensor, positions: torch.Tensor, explicit: bool,
 
 
 def _layer(x: torch.Tensor, lp, cfg: ArchConfig, positions: torch.Tensor,
-           window: int, impl: str):
-    """One layer over the full sequence. Returns (x, k, v)."""
+           pos1d: torch.Tensor, window: int, impl: str):
+    """One layer over the full sequence. Returns (x, k, v, the MoE aux loss
+    or None)."""
     h = rmsnorm(x, lp.ln1, cfg.norm_eps)
     q, k, v = attn.qkv_proj(lp.attn, h, cfg, positions)
-    o = attn.attention(q, k, v, cfg, positions, positions,
+    o = attn.attention(q, k, v, cfg, pos1d, pos1d,
                        causal=cfg.causal, window=window, impl=impl)
     x = x + attn.attn_out(lp.attn, o)
     h2 = rmsnorm(x, lp.ln2, cfg.norm_eps)
-    return x + mlp_fwd(lp.mlp, h2, cfg.act), k, v
+    if cfg.is_moe:
+        f, aux = moe_mod.moe_ffn(lp.moe, h2, cfg)
+        return x + f, k, v, aux
+    return x + mlp_fwd(lp.mlp, h2, cfg.act), k, v, None
 
 
 def _attn_stack_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
-                     positions: torch.Tensor, impl: str, build_cache: bool,
-                     max_seq: int = 0):
-    """All layers over the full sequence. Returns (x, cache or None)."""
+                     positions: torch.Tensor, pos1d: torch.Tensor, impl: str,
+                     build_cache: bool, max_seq: int = 0):
+    """All layers over the full sequence. Returns (x, aux, cache or None);
+    aux sums the layers' MoE losses (0 without experts)."""
     B, S, _ = x.shape
     cache = None
     if build_cache:
@@ -192,13 +247,31 @@ def _attn_stack_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
         cache = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
                  "v": torch.zeros(shape, dtype=x.dtype, device=x.device),
                  "pos": S}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layer = maybe_remat(_layer)
     for i, (lp, window) in enumerate(zip(p.layers, _per_layer_windows(cfg))):
-        x, k, v = layer(x, lp, cfg, positions, window, impl)
+        x, k, v, a = layer(x, lp, cfg, positions, pos1d, window, impl)
+        if a is not None:
+            aux = aux + a
         if cache is not None:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
-    return x, cache
+    return x, aux, cache
+
+
+def _decode_positions(cfg: ArchConfig, pos: int, B: int, device) -> torch.Tensor:
+    """(B, 1) positions ``pos``, repeated over M-RoPE's three streams."""
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=device)
+    return positions[..., None].expand(B, 1, 3) if cfg.mrope else positions
+
+
+def _write_kv(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, pos: int) -> None:
+    """One token's keys and values into caches (B, Smax, K, hd) at ``pos``
+    (the last row past the end: JAX clamps the update slice)."""
+    at = min(pos, kc.shape[1] - 1)
+    kc[:, at] = k[:, 0].to(kc.dtype)
+    vc[:, at] = v[:, 0].to(vc.dtype)
 
 
 def _attn_stack_decode(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
@@ -206,21 +279,167 @@ def _attn_stack_decode(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
     """One token per sequence through all layers, against the cache."""
     pos = cache["pos"]
     B = x.shape[0]
-    at = min(pos, cache["k"].shape[2] - 1)     # JAX clamps the update slice
-    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    positions = _decode_positions(cfg, pos, B, x.device)
     cache_len = torch.full((B,), pos + 1, dtype=torch.long, device=x.device)
     for i, (lp, window) in enumerate(zip(p.layers, _per_layer_windows(cfg))):
         h = rmsnorm(x, lp.ln1, cfg.norm_eps)
         q, k, v = attn.qkv_proj(lp.attn, h, cfg, positions)
         kc, vc = cache["k"][i], cache["v"][i]
-        kc[:, at] = k[:, 0].to(kc.dtype)
-        vc[:, at] = v[:, 0].to(vc.dtype)
+        _write_kv(kc, vc, k, v, pos)
         o = attn.decode_attention(q, kc, vc, cfg, cache_len, window=window)
         x = x + attn.attn_out(lp.attn, o)
         h2 = rmsnorm(x, lp.ln2, cfg.norm_eps)
-        x = x + mlp_fwd(lp.mlp, h2, cfg.act)
+        if cfg.is_moe:
+            x = x + moe_mod.moe_ffn(lp.moe, h2, cfg)[0]
+        else:
+            x = x + mlp_fwd(lp.mlp, h2, cfg.act)
     cache["pos"] = pos + 1
     return x, cache
+
+
+def init_attn_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
+                    device=None) -> Dict:
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
+
+
+# ===========================================================================
+# Hybrid stack (Zamba2: Mamba2 layers + one shared attention block)
+# ===========================================================================
+def n_attn_apps(cfg: ArchConfig) -> int:
+    return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+
+
+def _attn_app(cfg: ArchConfig, i: int) -> Optional[int]:
+    """Which application of the shared block follows layer ``i``, if any
+    (after every ``attn_every``-th layer)."""
+    if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
+        return (i + 1) // cfg.attn_every - 1
+    return None
+
+
+def _shared_attn_apply(sp, cfg: ArchConfig, x: torch.Tensor,
+                       positions: torch.Tensor, impl: Optional[str] = None,
+                       kv=None, pos: int = 0):
+    """The shared attention + MLP block.  ``kv`` None: the full sequence
+    through ``impl``, returning its keys and values; else one token against
+    the caches ``kv`` = (k, v) (B, Smax, K, hd), written at ``pos`` in
+    place."""
+    h = rmsnorm(x, sp.ln1, cfg.norm_eps)
+    q, k, v = attn.qkv_proj(sp.attn, h, cfg, positions)
+    if kv is None:
+        pos1d = positions if positions.dim() == 2 else positions[..., 0]
+        o = attn.attention(q, k, v, cfg, pos1d, pos1d, impl=impl)
+    else:
+        kc, vc = kv
+        _write_kv(kc, vc, k, v, pos)
+        cache_len = torch.full((x.shape[0],), pos + 1, dtype=torch.long,
+                               device=x.device)
+        o = attn.decode_attention(q, kc, vc, cfg, cache_len)
+        k, v = kc, vc
+    x = x + attn.attn_out(sp.attn, o)
+    h2 = rmsnorm(x, sp.ln2, cfg.norm_eps)
+    return x + mlp_fwd(sp.mlp, h2, cfg.act), (k, v)
+
+
+def _hybrid_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor, impl: str, build_cache: bool,
+                 max_seq: int = 0):
+    """All layers over the full sequence, the shared block after every
+    ``attn_every``-th.  The cache's keys and values are in x's dtype."""
+    B, S, _ = x.shape
+    if build_cache:
+        shape = (n_attn_apps(cfg), B, max(max_seq, S), cfg.n_kv_heads, cfg.hd)
+        kc_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        vc_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        ssm_st, conv_st = [], []
+    for i, lp in enumerate(p.layers):
+        h = rmsnorm(x, lp.ln, cfg.norm_eps)
+        m_out, st = ssm_mod.mamba2_fwd(lp.mamba, h, cfg, None)
+        x = x + m_out
+        a = _attn_app(cfg, i)
+        if a is not None:
+            x, (k, v) = _shared_attn_apply(p.shared_attn, cfg, x, positions, impl)
+            if build_cache:
+                kc_all[a, :, :S] = k
+                vc_all[a, :, :S] = v
+        if build_cache:
+            ssm_st.append(st["ssm"])
+            conv_st.append(st["conv"])
+    cache = None
+    if build_cache:
+        cache = {"attn_k": kc_all, "attn_v": vc_all, "ssm": torch.stack(ssm_st),
+                 "conv": torch.stack(conv_st), "pos": S}
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
+
+
+def _hybrid_decode(p: Transformer, cfg: ArchConfig, x: torch.Tensor, cache: Dict):
+    """One token per sequence; every state and cache updated in place."""
+    pos = cache["pos"]
+    positions = _decode_positions(cfg, pos, x.shape[0], x.device)
+    for i, lp in enumerate(p.layers):
+        h = rmsnorm(x, lp.ln, cfg.norm_eps)
+        m_out, st = ssm_mod.mamba2_decode(
+            lp.mamba, h, cfg, {"ssm": cache["ssm"][i], "conv": cache["conv"][i]})
+        x = x + m_out
+        cache["ssm"][i] = st["ssm"]
+        cache["conv"][i] = st["conv"]
+        a = _attn_app(cfg, i)
+        if a is not None:
+            x, _ = _shared_attn_apply(p.shared_attn, cfg, x, positions,
+                                      kv=(cache["attn_k"][a], cache["attn_v"][a]),
+                                      pos=pos)
+    cache["pos"] = pos + 1
+    return x, cache
+
+
+def init_hybrid_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
+                      device=None) -> Dict:
+    """Keys and values in ``dtype``; the Mamba2 states in float32."""
+    kv = (n_attn_apps(cfg), batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    st = ssm_mod.mamba2_init_state(cfg, batch, device)
+    return {"attn_k": torch.zeros(kv, dtype=dtype, device=device),
+            "attn_v": torch.zeros(kv, dtype=dtype, device=device),
+            **{k: v.expand(cfg.n_layers, *v.shape).clone() for k, v in st.items()},
+            "pos": 0}
+
+
+# ===========================================================================
+# xLSTM stack (a list of blocks whose structure differs by kind)
+# ===========================================================================
+def _xlstm_cell(cfg: ArchConfig, i: int, decode: bool):
+    if i in cfg.slstm_at:
+        return xlstm_mod.slstm_decode if decode else xlstm_mod.slstm_fwd
+    return xlstm_mod.mlstm_decode if decode else xlstm_mod.mlstm_fwd
+
+
+def _xlstm_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
+                build_cache: bool):
+    states = []
+    for i, blk in enumerate(p.layers):
+        out, st = _xlstm_cell(cfg, i, False)(
+            blk.cell, rmsnorm(x, blk.ln, cfg.norm_eps), cfg, None)
+        x = x + out
+        states.append(st)
+    cache = {"states": states, "pos": x.shape[1]} if build_cache else None
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
+
+
+def _xlstm_decode(p: Transformer, cfg: ArchConfig, x: torch.Tensor, cache: Dict):
+    for i, blk in enumerate(p.layers):
+        out, cache["states"][i] = _xlstm_cell(cfg, i, True)(
+            blk.cell, rmsnorm(x, blk.ln, cfg.norm_eps), cfg, cache["states"][i])
+        x = x + out
+    cache["pos"] += 1
+    return x, cache
+
+
+def init_xlstm_cache(cfg: ArchConfig, batch: int, device=None) -> Dict:
+    return {"states": [(xlstm_mod.slstm_init_state if i in cfg.slstm_at
+                        else xlstm_mod.mlstm_init_state)(cfg, batch, device)
+                       for i in range(cfg.n_layers)],
+            "pos": 0}
 
 
 # ===========================================================================
@@ -228,46 +447,73 @@ def _attn_stack_decode(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
 # ===========================================================================
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> Dict:
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
+    """The decode cache for (batch, max_seq); an encoder has none."""
+    if cfg.family in (DENSE, MOE, VLM):
+        return init_attn_cache(cfg, batch, max_seq, dtype, device)
+    if cfg.family == HYBRID:
+        return init_hybrid_cache(cfg, batch, max_seq, dtype, device)
+    if cfg.family == SSM:
+        return init_xlstm_cache(cfg, batch, device)
+    raise ValueError(cfg.family)
 
 
 def default_positions(cfg: ArchConfig, batch: int, seq: int,
                       device=None) -> torch.Tensor:
-    return torch.arange(seq, device=device)[None].expand(batch, seq)
+    """(B, S) positions arange(S); (B, S, 3) with t = h = w under M-RoPE."""
+    pos = torch.arange(seq, device=device)[None].expand(batch, seq)
+    return pos[..., None].expand(batch, seq, 3) if cfg.mrope else pos
 
 
 def forward(params: Transformer, cfg: ArchConfig, batch: Dict,
             build_cache: bool = False, max_seq: int = 0,
             attn_impl: Optional[str] = None):
-    """Full-sequence forward. Returns (logits, aux_loss, cache|None).
+    """Full-sequence forward of ``batch`` ({tokens} or {embeds}, positions
+    optional). Returns (logits, aux_loss, cache|None).
 
     ``attn_impl`` None runs the flash kernel on the card and the JAX
     package's routing (dense below 4096 tokens, blockwise from 4096) on the
     CPU; "plain" takes that routing on the card too; "flash" takes the
     kernel (its plain version on the CPU).  ``params`` is a ``Transformer``
-    or the JAX package's tree.
+    or, for the dense family, the JAX package's tree.
     """
     params = _as_params(params)
     x = embed_in(params, cfg, batch)
     B, S = x.shape[:2]
+    if cfg.family == SSM:
+        _check_route(attn_impl)
+        x, aux, cache = _xlstm_full(params, cfg, x, build_cache)
+        return lm_head(params, cfg, x), aux, cache
     positions = batch.get("positions")
     explicit = positions is not None
     if not explicit:
         positions = default_positions(cfg, B, S, x.device)
-    impl = _prefill_impl(x, positions, explicit, attn_impl)
-    x, cache = _attn_stack_full(params, cfg, x, positions, impl, build_cache,
-                                max_seq)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    pos1d = positions if positions.dim() == 2 else positions[..., 0]
+    impl = _prefill_impl(x, pos1d, explicit, attn_impl)
+    if cfg.family in ATTN_FAMILIES:
+        x, aux, cache = _attn_stack_full(params, cfg, x, positions, pos1d, impl,
+                                         build_cache, max_seq)
+    elif cfg.family == HYBRID:
+        x, aux, cache = _hybrid_full(params, cfg, x, positions, impl,
+                                     build_cache, max_seq)
+    else:
+        raise ValueError(cfg.family)
     return lm_head(params, cfg, x), aux, cache
 
 
 def decode_step(params: Transformer, cfg: ArchConfig, tokens: torch.Tensor,
                 cache: Dict):
     """tokens: (B, 1). Returns (logits (B, 1, V), cache)."""
+    if cfg.is_encoder:
+        raise ValueError("encoder-only model has no decode step")
     x = embed_in(params, cfg, {"tokens": tokens})
-    x, cache = _attn_stack_decode(params, cfg, x, cache)
+    if cfg.family in (DENSE, MOE, VLM):
+        x, cache = _attn_stack_decode(params, cfg, x, cache)
+    elif cfg.family == HYBRID:
+        x, cache = _hybrid_decode(params, cfg, x, cache)
+    elif cfg.family == SSM:
+        x, cache = _xlstm_decode(params, cfg, x, cache)
+    else:
+        raise ValueError(cfg.family)
     return lm_head(params, cfg, x), cache
 
 
@@ -287,7 +533,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def lm_loss(params, cfg: ArchConfig, batch: Dict, aux_weight: float = 0.01,
             attn_impl: Optional[str] = "plain"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, {"ce", "aux"}) of ``batch`` ({tokens, labels, mask?}).  The
+    """(loss, {"ce", "aux"}) of ``batch`` ({tokens or embeds, labels,
+    mask?}): cross-entropy plus ``aux_weight`` times the MoE aux loss.  The
     attention takes the JAX package's routing on every device (dense below
     4096 tokens, blockwise from 4096): the flash kernel has no backward."""
     logits, aux, _ = forward(params, cfg, batch, attn_impl=attn_impl)

@@ -10,7 +10,9 @@ The features, all set by ``TrainConfig``:
   * the global-norm clip and the learning-rate schedule, read at the step
     before it is incremented.
 ZeRO-1 (``zero1``) shards optimizer state over a data-parallel mesh axis,
-which one device does not have (ROADMAP queue 1 item 12g).
+which one device does not have (ROADMAP queue 1 item 12g).  Only the
+dense family trains: the others raise ``NotImplementedError`` (ROADMAP queue
+1 item 12h).
 
 The state is the JAX package's tree: ``{"params", "opt", "step",
 "ef_err"?}``, every layer's weights stacked on a leading L axis, the step
@@ -26,12 +28,22 @@ from typing import Dict, Tuple, Union
 import torch
 
 from repro_torch import tree
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import DENSE, ArchConfig, TrainConfig
 from repro_torch.distributed.compression import ef_compress
 from repro_torch.models.registry import Model
 from repro_torch.models.transformer import params_tree
 from repro_torch.training.optim import lr_schedule, make_optimizer, torch_dtype
 from repro_torch.training.rematctx import use_remat
+
+
+def require_dense(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` is of the dense family, the one that trains."""
+    if cfg.family != DENSE:
+        raise NotImplementedError(
+            f"training the {cfg.family} family ({cfg.name}) is not ported: "
+            "ROADMAP queue 1 item 12h (a parameter tree per family, the MoE "
+            "aux loss in the train step, the xLSTM's block list in the "
+            "optimizer)")
 
 
 def cast_tree(t, dtype):
@@ -43,6 +55,7 @@ def init_train_state(model: Model, tc: TrainConfig,
                      seed: Union[int, torch.Generator] = 0) -> Dict:
     """The train state on ``model.device`` (its step counters on the host),
     parameters drawn from ``seed``."""
+    require_dense(model.cfg)
     params = params_tree(model.init_params(seed, dtype=torch_dtype(tc.param_dtype)))
     opt_init, _ = make_optimizer(tc)
     state = {"params": params, "opt": opt_init(params),
@@ -63,6 +76,7 @@ def make_train_step(model: Model, tc: TrainConfig):
     """``train_step(state, batch) -> (state, metrics)``; its
     ``compute_grads(params, batch) -> (loss, metrics, grads)`` is the
     gradient half alone."""
+    require_dense(model.cfg)
     _, opt_update = make_optimizer(tc)
     compute_dtype = torch_dtype(tc.compute_dtype)
 

@@ -5,8 +5,10 @@ sketch kernels bit for bit), at the shapes past the kernels' built sizes
 (sketch rows past 8 and 32, AE widths past 32 and 64, flash head dims other
 than 32, 64, 128, 256, prefill positions arange(S) + c), launch counting,
 and the wrappers' checks (the flash kernel refuses inputs that require a
-gradient); LM training on the card against the CPU (three steps, remat,
-int8 error feedback, microbatches) and resuming on the card.
+gradient); the LM families beyond dense (MoE, VLM, audio, hybrid, xLSTM)
+on the card against the CPU, and the flash kernel at their shapes; LM
+training on the card against the CPU (three steps, remat, int8 error
+feedback, microbatches) and resuming on the card.
 
 Marked ``cuda``; each test skips without a CUDA device.  Run on the card:
 
@@ -557,6 +559,67 @@ def test_model_prefill_runs_the_kernel(dev):
     assert launch_counts()["flash_attention"] == cfg.n_layers
     plain, _, _ = model.forward(params, shifted, attn_impl="plain")
     torch.testing.assert_close(logits, plain, rtol=2e-5, atol=2e-5)
+
+
+FAMILY_ARCHS = ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "qwen2-vl-72b",
+                "hubert-xlarge", "zamba2-2.7b", "xlstm-125m"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_on_card_matches_cpu(dev, arch):
+    """Each family beyond dense, reduced, with the same parameters on the
+    card (the flash kernel, one launch an attention application) and on the
+    CPU (the plain route): a 24-token prefill and 4 decode steps fed the
+    same tokens, within the CPU tests' tolerances (logits 2e-5; 1e-4 for
+    the hybrid and the xLSTM, tests/test_archs.py's bound for them)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import n_attn_apps
+    cfg = reduced(get_arch(arch))
+    models = {d: build_model(cfg, device=d) for d in ("cpu", dev)}
+    p_cpu = models["cpu"].init_params(0)
+    params = {"cpu": p_cpu, dev: models["cpu"].init_params(0).to(dev)}
+    tol = 1e-4 if cfg.family in ("hybrid", "ssm") else 2e-5
+    apps = {"hybrid": n_attn_apps(cfg), "ssm": 0}.get(cfg.family, cfg.n_layers)
+    g = torch.Generator().manual_seed(0)
+    if cfg.is_encoder:
+        batch = {"embeds": torch.randn(2, 24, cfg.d_in, generator=g)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 28), generator=g)}
+    out = {}
+    for d, m in models.items():
+        b = {k: v[:, :24].to(d) for k, v in batch.items()}
+        reset_launch_counts()
+        logits, aux, cache = m.forward(params[d], b, build_cache=not cfg.is_encoder,
+                                       max_seq=28)
+        if d == dev:
+            assert launch_counts()["flash_attention"] == apps
+        rows = [logits.cpu()]
+        for t in range(24, 28) if not cfg.is_encoder else ():
+            lg, cache = m.decode_step(params[d], batch["tokens"][:, t:t + 1].to(d), cache)
+            rows.append(lg.cpu())
+        out[d] = (rows, float(aux))
+    for got, want in zip(out[dev][0], out["cpu"][0]):
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    assert abs(out[dev][1] - out["cpu"][1]) <= 1e-5
+    if cfg.is_encoder:
+        with pytest.raises(ValueError, match="encoder-only"):
+            models[dev].decode_step(params[dev], torch.zeros((1, 1), dtype=torch.long,
+                                                             device=dev), {})
+
+
+@pytest.mark.parametrize("B,H,K,S,D,causal", [(1, 32, 32, 2048, 80, True),
+                                              (1, 16, 16, 1500, 80, False)])
+def test_flash_kernel_at_the_families_shapes(dev, B, H, K, S, D, causal):
+    """zamba2's shared attention (head dim 80, causal) and hubert's encoder
+    (head dim 80, no causal mask, 1500 frames), float32 as their prefills
+    run, against the plain version (the model path's 2e-5)."""
+    q, k, v = _flash_inputs(dev, B, H, K, S, S, D, torch.float32, seed=D + S)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    assert launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(got, flash_attention_ref(q, k, v, causal=causal),
+                               rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("rows", [9, 16, 33, 40])

@@ -592,6 +592,24 @@ def test_launcher_mesh_raises(tmp_path):
         train_launcher.train_lm(argparse.Namespace(**{**vars(args), "mesh": "2x4"}))
 
 
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b",
+                                  "zamba2-2.7b", "xlstm-125m", "qwen2-vl-72b",
+                                  "hubert-xlarge"])
+def test_training_refuses_other_families(arch, tmp_path):
+    """Only the dense family trains: the state, the step and the launcher
+    refuse the others, naming ROADMAP queue 1 item 12h."""
+    m = build_model(reduced(get_arch(arch)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12h"):
+        init_train_state(m, TrainConfig())
+    with pytest.raises(NotImplementedError, match="item 12h"):
+        make_train_step(m, TrainConfig())
+    args = train_launcher.parser().parse_args(
+        ["--arch", arch, "--reduced", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 12h"):
+        train_launcher.train_lm(args)
+    assert not any(tmp_path.iterdir())
+
 if __name__ == "__main__":
     # the readings behind the tolerances in the module docstring
     for case in STEP_CASES:
