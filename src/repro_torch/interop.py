@@ -73,12 +73,25 @@ def state_from_arrays(nested: Dict, device: DeviceLike = None) -> Dict:
 
 
 def state_to_arrays(state: Dict) -> Dict:
-    """The inverse of :func:`state_from_arrays`."""
+    """The inverse of :func:`state_from_arrays`: copies, which a state
+    updated in place later leaves as they were (as JAX's arrays are)."""
     def arr(t):
-        return t.detach().cpu().numpy()
+        return t.detach().to("cpu", copy=True).numpy()
 
     return {g: ({k: arr(t) for k, t in v.items()} if isinstance(v, dict)
                 else arr(v)) for g, v in state.items()}
+
+
+def _depth(cfg: ArchConfig, params: Dict) -> int:
+    """The layers of the JAX package's parameter tree ``params``, counted
+    where ``cfg``'s family keeps them; raises unless ``cfg.n_layers``."""
+    if cfg.family == SSM:
+        n = len(params["blocks"])
+    else:
+        n = len(params["layers"]["ln" if cfg.family == HYBRID else "ln1"])
+    if n != cfg.n_layers:
+        raise ValueError(f"{n} layers for a {cfg.n_layers}-layer config")
+    return n
 
 
 def lm_params_from_arrays(cfg: ArchConfig, arrays: Dict,
@@ -102,16 +115,13 @@ def lm_params_from_arrays(cfg: ArchConfig, arrays: Dict,
         return nn.Parameter(torch.from_numpy(np.array(t if i is None else t[i])).to(dev),
                             requires_grad=False)
 
+    n = _depth(cfg, arrays)
     if cfg.family == SSM:
         layers = [Block(ln=part(b["ln"]), cell=part(b["cell"]))
                   for b in arrays["blocks"]]
     else:
-        lay = arrays["layers"]
-        n = len(lay["ln"] if cfg.family == HYBRID else lay["ln1"])
-        layers = [Block(**{name: part(t, i) for name, t in lay.items()})
+        layers = [Block(**{name: part(t, i) for name, t in arrays["layers"].items()})
                   for i in range(n)]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers for a {cfg.n_layers}-layer config")
     shared = arrays.get("shared_attn")
     return Transformer(
         part(arrays["embed"]), part(arrays["final_norm"]), layers,
@@ -128,9 +138,10 @@ def train_state_from_arrays(cfg: ArchConfig, tc: TrainConfig, arrays: Dict,
                             device: DeviceLike = None) -> Dict:
     """An LM train state (``training.init_train_state``'s layout) from the
     JAX package's train state as numpy arrays: ``params`` (its parameter
-    tree, layers stacked on a leading L axis, which the port's train state
-    keeps), ``opt`` (``m``/``v``/``step`` for AdamW, ``vr``/``vc``/``step``
-    for Adafactor, ``step`` for SGD), ``step``, and ``ef_err`` under int8
+    tree of any family, layers stacked on a leading L axis or the xLSTM's
+    block list, which the port's train state keeps), ``opt``
+    (``m``/``v``/``step`` for AdamW, ``vr``/``vc``/``step`` for Adafactor,
+    ``step`` for SGD), ``step``, and ``ef_err`` under int8
     error feedback.  Parameters take ``tc.param_dtype``, AdamW's moments
     ``tc.opt_state_dtype``, Adafactor's and the error float32, on
     ``device``; the steps int32 on the host, where the port's train state
@@ -143,10 +154,7 @@ def train_state_from_arrays(cfg: ArchConfig, tc: TrainConfig, arrays: Dict,
     if ("ef_err" in arrays) != (tc.grad_compression == "int8_ef"):
         raise KeyError(f"ef_err goes with grad_compression='int8_ef', not "
                        f"{tc.grad_compression!r}")
-    n_layers = len(arrays["params"]["layers"]["ln1"])
-    if n_layers != cfg.n_layers:
-        raise ValueError(f"{n_layers} stacked layers for a {cfg.n_layers}-layer "
-                         "config")
+    _depth(cfg, arrays["params"])
 
     def leaves(t, dtype):
         where = "cpu" if dtype == torch.int32 else dev
@@ -166,9 +174,10 @@ def train_state_from_arrays(cfg: ArchConfig, tc: TrainConfig, arrays: Dict,
 
 def train_state_to_arrays(state: Dict) -> Dict:
     """The inverse of :func:`train_state_from_arrays` (bfloat16 leaves as
-    float32, which numpy cannot hold)."""
+    float32, which numpy cannot hold): copies, which the next train step,
+    updating the state in place, leaves as they were."""
     def arr(t):
         t = t.detach()
-        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+        return (t.float() if t.dtype == torch.bfloat16 else t).to("cpu", copy=True).numpy()
 
     return tree.tree_map(arr, state)

@@ -10,8 +10,11 @@ through a ``Prefetcher`` and runs ``resilient_loop`` with a checkpoint
 every ``--ckpt-every`` steps into ``--ckpt-dir`` (under the temporary
 directory by default), then prints the JAX launcher's result line.
 ``--reduced`` runs the config cut to CPU size; without it, full width.
-``--mesh`` (data x model placement over several devices) is not ported,
-nor the training of a family other than dense (ROADMAP queue 1 item 12h).
+Any ``--arch`` trains on ``lm_batches``' token ids, as the JAX launcher
+feeds every family (a model that takes embeddings, hubert, then trains
+through ``embed``, its ``in_proj`` getting a zero gradient).  ``--mesh``
+(data x model placement over several devices) is not ported (ROADMAP
+queue 1 items 10c and 12g).
 """
 from __future__ import annotations
 
@@ -28,7 +31,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.training import CheckpointManager, init_train_state, make_train_step
 from repro_torch.training.fault import StragglerMonitor, resilient_loop
-from repro_torch.training.train_step import require_dense
 
 
 def train_lm(args) -> dict:
@@ -41,7 +43,6 @@ def train_lm(args) -> dict:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    require_dense(cfg)
     model = build_model(cfg, device=dev)
     tc = TrainConfig(learning_rate=args.lr, remat=args.remat,
                      microbatches=args.microbatches,

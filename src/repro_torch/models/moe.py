@@ -56,10 +56,11 @@ def capacity(cfg: ArchConfig, n_tokens: int) -> int:
 
 def _routing(xt: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
     """xt: (n, d) -> gates (n, k) renormalised over the top k, expert
-    indices (n, k) and the aux loss, all from float32 logits."""
+    indices (n, k) and the aux loss, all from float32 logits (a router cast
+    to a lower compute dtype is promoted back, as JAX's einsum does)."""
     n = xt.shape[0]
     E, k = cfg.n_experts, cfg.top_k
-    probs = torch.softmax(xt.float() @ router, dim=-1)
+    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1)
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
     me = probs.mean(0)

@@ -12,13 +12,15 @@ an ``nn.Module`` (``Transformer``) with one ``Block`` per layer in a
     shared attention + MLP block (JAX's ``lax.cond`` on the layer's flag is
     a Python ``if`` on its index);
   * ssm (xLSTM): a list of mLSTM and sLSTM blocks.
-Training holds a dense model as the JAX package's tree instead
-(``params_tree``: every layer's weights stacked on a leading L axis), so
-that statistics the JAX optimizer takes over a stacked leaf stay global
-over the layers; ``forward`` and ``lm_loss`` take either form, and read a
-tree's layers as views of its stacked leaves.  JAX's ``lax.scan`` over
-stacked layers becomes a Python loop (through ``maybe_remat`` in the
-attention stack), and each layer's attention window a Python int.
+Training holds a model of any family as the JAX package's tree instead
+(``params_tree``: every layer's weights stacked on a leading L axis, the
+xLSTM's blocks a list), so that statistics the JAX optimizer takes over a
+stacked leaf stay global over the layers; ``forward`` and ``lm_loss`` take
+either form, and read a tree's layers as views of its stacked leaves.
+JAX's ``lax.scan`` over stacked layers becomes a Python loop (each layer's
+body through ``maybe_remat`` in the attention and hybrid stacks, as JAX
+remats its scan bodies; the xLSTM blocks, which JAX unrolls, without), and
+each layer's attention window a Python int.
 
 Public entry points (through ``registry.build_model``):
   * ``init_params``  — random parameters from a ``torch.Generator``
@@ -45,8 +47,10 @@ from types import SimpleNamespace
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import tree
 from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
                                       ArchConfig)
 from repro_torch.distributed.rematctx import maybe_remat
@@ -127,22 +131,41 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
     return Transformer(embed, gain(), layers, lm_head, in_proj, shared)
 
 
+def _part_tree(part):
+    """A block's part as a tree: a weight detached, or a dict of them."""
+    if isinstance(part, torch.Tensor):
+        return part.detach()
+    return {n: _part_tree(w) for n, w in part.items()}
+
+
+def _block_tree(b) -> Dict:
+    """A ``Block`` (or a namespace of the same parts) as a dict of trees."""
+    parts = ({**dict(b.named_parameters(recurse=False)), **dict(b.named_children())}
+             if isinstance(b, nn.Module) else vars(b))
+    return {n: _part_tree(w) for n, w in parts.items()}
+
+
 def params_tree(p: Transformer) -> Dict:
     """The JAX package's parameter tree of ``p``: ``embed``, ``final_norm``,
-    ``lm_head`` unless tied, and ``layers`` with every weight stacked on a
-    leading L axis (copies; the rest share ``p``'s storage)."""
-    lay = p.layers
-    tree = {"embed": p.embed.detach(), "final_norm": p.final_norm.detach(),
-            "layers": {
-                "ln1": torch.stack([b.ln1.detach() for b in lay]),
-                "ln2": torch.stack([b.ln2.detach() for b in lay]),
-                "attn": {n: torch.stack([b.attn[n].detach() for b in lay])
-                         for n in lay[0].attn},
-                "mlp": {n: torch.stack([b.mlp[n].detach() for b in lay])
-                        for n in lay[0].mlp}}}
-    if p.lm_head is not None:
-        tree["lm_head"] = p.lm_head.detach()
-    return tree
+    ``lm_head`` unless tied, ``in_proj`` where the model takes embeddings,
+    and the layers.  ``layers`` holds every layer's weights stacked on a
+    leading L axis (copies): ``ln1``, ``ln2``, ``attn``, ``mlp`` or ``moe``
+    (attention families), or ``ln`` and ``mamba`` (hybrid, beside an
+    unstacked ``shared_attn``); the xLSTM's blocks, which differ by kind,
+    are a list ``blocks`` of ``{ln, cell}``.  Unstacked leaves share ``p``'s
+    storage."""
+    out = {"embed": p.embed.detach(), "final_norm": p.final_norm.detach()}
+    for name in ("lm_head", "in_proj"):
+        if getattr(p, name, None) is not None:
+            out[name] = getattr(p, name).detach()
+    blocks = [_block_tree(b) for b in p.layers]
+    if "cell" in blocks[0]:
+        out["blocks"] = blocks
+    else:
+        out["layers"] = tree.tree_map(lambda *ws: torch.stack(ws), *blocks)
+    if getattr(p, "shared_attn", None) is not None:
+        out["shared_attn"] = _block_tree(p.shared_attn)
+    return out
 
 
 def _as_params(p):
@@ -151,15 +174,18 @@ def _as_params(p):
     (``unbind``: one stack in the backward, not one scatter a layer)."""
     if not isinstance(p, dict):
         return p
-    lay = p["layers"]
-    per = {g: {n: w.unbind(0) for n, w in lay[g].items()} for g in ("attn", "mlp")}
-    layers = [SimpleNamespace(ln1=ln1, ln2=ln2,
-                              attn={n: w[i] for n, w in per["attn"].items()},
-                              mlp={n: w[i] for n, w in per["mlp"].items()})
-              for i, (ln1, ln2) in enumerate(zip(lay["ln1"].unbind(0),
-                                                 lay["ln2"].unbind(0)))]
+    if "blocks" in p:
+        layers = [SimpleNamespace(**b) for b in p["blocks"]]
+    else:
+        lay = p["layers"]
+        cols = [w.unbind(0) for w in tree.leaves(lay)]
+        layers = [SimpleNamespace(**tree.unflatten(lay, [c[i] for c in cols]))
+                  for i in range(len(cols[0]))]
+    shared = p.get("shared_attn")
     return SimpleNamespace(embed=p["embed"], final_norm=p["final_norm"],
-                           lm_head=p.get("lm_head"), layers=layers)
+                           lm_head=p.get("lm_head"), in_proj=p.get("in_proj"),
+                           layers=layers,
+                           shared_attn=None if shared is None else SimpleNamespace(**shared))
 
 
 # ===========================================================================
@@ -173,7 +199,10 @@ def embed_in(p: Transformer, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
             raise ValueError(f"{cfg.name} takes token ids, not embeddings")
         x = batch["embeds"].to(p.in_proj.dtype) @ p.in_proj
     else:
-        x = p.embed[batch["tokens"]]
+        # F.embedding, not p.embed[tokens]: its backward sums a row's
+        # gradients in one order (indexing's accumulates in parallel on the
+        # CPU, so two runs differ in the last bits)
+        x = F.embedding(batch["tokens"], p.embed)
     if cfg.embed_scale:
         # a device fill, not a host tensor copied over (which waits on the card)
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
@@ -343,6 +372,21 @@ def _shared_attn_apply(sp, cfg: ArchConfig, x: torch.Tensor,
     return x + mlp_fwd(sp.mlp, h2, cfg.act), (k, v)
 
 
+def _hybrid_layer(x: torch.Tensor, lp, sp, cfg: ArchConfig,
+                  positions: torch.Tensor, impl: str, shared: bool):
+    """One Mamba2 layer over the full sequence, then the shared block
+    (parameters ``sp``) where ``shared``: JAX's rematted scan body, the
+    shared block's application inside it.  Returns (x, the layer's Mamba2
+    state, the shared block's (k, v) or None)."""
+    h = rmsnorm(x, lp.ln, cfg.norm_eps)
+    m_out, st = ssm_mod.mamba2_fwd(lp.mamba, h, cfg, None)
+    x = x + m_out
+    kv = None
+    if shared:
+        x, kv = _shared_attn_apply(sp, cfg, x, positions, impl)
+    return x, st, kv
+
+
 def _hybrid_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
                  positions: torch.Tensor, impl: str, build_cache: bool,
                  max_seq: int = 0):
@@ -354,17 +398,13 @@ def _hybrid_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
         kc_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
         vc_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
         ssm_st, conv_st = [], []
+    layer = maybe_remat(_hybrid_layer)
     for i, lp in enumerate(p.layers):
-        h = rmsnorm(x, lp.ln, cfg.norm_eps)
-        m_out, st = ssm_mod.mamba2_fwd(lp.mamba, h, cfg, None)
-        x = x + m_out
         a = _attn_app(cfg, i)
-        if a is not None:
-            x, (k, v) = _shared_attn_apply(p.shared_attn, cfg, x, positions, impl)
-            if build_cache:
-                kc_all[a, :, :S] = k
-                vc_all[a, :, :S] = v
+        x, st, kv = layer(x, lp, p.shared_attn, cfg, positions, impl, a is not None)
         if build_cache:
+            if a is not None:
+                kc_all[a, :, :S], vc_all[a, :, :S] = kv
             ssm_st.append(st["ssm"])
             conv_st.append(st["conv"])
     cache = None
@@ -474,7 +514,7 @@ def forward(params: Transformer, cfg: ArchConfig, batch: Dict,
     package's routing (dense below 4096 tokens, blockwise from 4096) on the
     CPU; "plain" takes that routing on the card too; "flash" takes the
     kernel (its plain version on the CPU).  ``params`` is a ``Transformer``
-    or, for the dense family, the JAX package's tree.
+    or the JAX package's tree (``params_tree``).
     """
     params = _as_params(params)
     x = embed_in(params, cfg, batch)

@@ -8,7 +8,9 @@ recurrence, a Python loop over chunks (JAX's ``lax.scan``).  The sLSTM is a
 true sequential recurrence (its recurrent matrix R makes it
 non-associative): a Python loop over time.  Gates and stabilisers run in
 float32, and ``w_if``/``b_if`` (mLSTM) and ``w_gates``/``r_gates``/
-``b_gates`` (sLSTM) are float32 whatever the model's dtype.  The
+``b_gates`` (sLSTM) are float32 whatever the model's dtype; a training
+step's compute-dtype copy casts them down, and the gate products promote
+them back to float32, as JAX's einsums do.  The
 stabiliser starts at m = -1e30, and a sequence padded to whole chunks gets
 log_i = -1e30 (no input) and log_f = 0 (no decay) there.
 """
@@ -68,7 +70,7 @@ def mlstm_init_state(cfg: ArchConfig, batch: int, device=None) -> Dict:
 
 def _mlstm_gates(p, u: torch.Tensor):
     """u: (B, S, d_inner) -> log_i, log_f each (B, S, H), float32."""
-    raw = u.float() @ p["w_if"] + p["b_if"]
+    raw = u.float() @ p["w_if"].float() + p["b_if"]
     i_raw, f_raw = raw.chunk(2, dim=-1)
     return i_raw, -F.softplus(-f_raw)          # exponential input gate, log sigmoid
 
@@ -229,7 +231,7 @@ def _slstm_step(p, H: int, carry, wx_t):
     c, n, h, m = carry
     B, d = c.shape
     rec = torch.einsum("bhd,hde->bhe", h.reshape(B, H, d // H),
-                       p["r_gates"]).reshape(B, 4 * d)
+                       p["r_gates"].float()).reshape(B, 4 * d)
     i_raw, f_raw, z_raw, o_raw = (wx_t + rec + p["b_gates"]).chunk(4, dim=-1)
     log_f = -F.softplus(-f_raw)
     m_new = torch.maximum(log_f + m, i_raw)
@@ -237,7 +239,8 @@ def _slstm_step(p, H: int, carry, wx_t):
     fw = torch.exp(log_f + m - m_new)
     c_new = fw * c + iw * torch.tanh(z_raw)
     n_new = fw * n + iw
-    h_new = torch.sigmoid(o_raw) * c_new / torch.clamp_min(n_new, 1e-6)
+    # maximum, not clamp_min: at a tie it splits the gradient, as JAX does
+    h_new = torch.sigmoid(o_raw) * c_new / torch.maximum(n_new, n_new.new_full((), 1e-6))
     return c_new, n_new, h_new, m_new
 
 
@@ -247,7 +250,7 @@ def slstm_fwd(p, x: torch.Tensor, cfg: ArchConfig,
     B, S, _ = x.shape
     H = cfg.n_heads
     st = state or slstm_init_state(cfg, B, x.device)
-    wx = x.float() @ p["w_gates"]
+    wx = x.float() @ p["w_gates"].float()
     carry = (st["c"], st["n"], st["h"], st["m"])
     hs = []
     for t in range(S):

@@ -32,19 +32,21 @@ def key_paths(tree) -> List[str]:
     return ["/".join(str(k) for k in path) for path, _ in flatten_with_paths(tree)]
 
 
+def _build(t, it):
+    items = _items(t)
+    if items is None:
+        return next(it)
+    if isinstance(t, dict):
+        return {k: _build(sub, it) for k, sub in items}
+    return type(t)(_build(sub, it) for _, sub in items)
+
+
 def unflatten(like, new_leaves) -> Any:
-    """A tree of ``like``'s structure holding ``new_leaves`` in leaf order."""
-    it = iter(new_leaves)
-
-    def build(t):
-        items = _items(t)
-        if items is None:
-            return next(it)
-        if isinstance(t, dict):
-            return {k: build(sub) for k, sub in items}
-        return type(t)(build(sub) for _, sub in items)
-
-    return build(like)
+    """A tree of ``like``'s structure holding ``new_leaves`` in leaf order.
+    (No nested recursive closure: one would be a reference cycle holding
+    ``new_leaves`` until the garbage collector runs, GiBs of a train step's
+    gradients and copies on the card.)"""
+    return _build(like, iter(new_leaves))
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

@@ -8,7 +8,8 @@ and the wrappers' checks (the flash kernel refuses inputs that require a
 gradient); the LM families beyond dense (MoE, VLM, audio, hybrid, xLSTM)
 on the card against the CPU, and the flash kernel at their shapes; LM
 training on the card against the CPU (three steps, remat, int8 error
-feedback, microbatches) and resuming on the card.
+feedback, microbatches; three steps of every family beyond dense) and
+resuming on the card.
 
 Marked ``cuda``; each test skips without a CUDA device.  Run on the card:
 
@@ -919,3 +920,52 @@ def test_resume_on_card_and_checkpoint_on_cpu(dev, tmp_path):
     assert rstep == len(batches)
     for a, b in zip(tree.leaves(restored), tree.leaves(out["state"])):
         assert a.device.type == "cpu" and torch.equal(a, b.cpu())
+
+
+def _family_batches(cfg, n, seed=1):
+    """lm_batches' tokens and labels, or for a model that takes embeddings
+    seeded normal ``embeds`` with the labels (numpy)."""
+    from repro_torch.data import lm_batches
+    rng = np.random.default_rng(100 + seed)
+    out = []
+    for b in lm_batches(cfg.vocab, 8, 32, n, seed=seed):
+        if not cfg.embed_inputs:
+            b = {"embeds": rng.standard_normal((8, 32, cfg.d_in)).astype(np.float32),
+                 "labels": b["labels"]}
+        out.append(b)
+    return out
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_steps_on_card_match_cpu(dev, arch):
+    """Each family beyond dense, reduced, 3 train steps on the card against
+    the CPU from the same state and batches, within
+    tests/test_torch_train_families.py's envelopes (loss, MoE aux and grad
+    norm 1e-5 relative, the xLSTM's grad norm from step 2 on 5e-5;
+    parameters within 2 * sum(lr), at most 1e-4 past 1e-5 + 1e-5 |p|); no
+    kernel of the port launches."""
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig
+    from repro_torch.training import make_train_step
+    tc = TrainConfig(compute_dtype="float32", learning_rate=1e-3, warmup_steps=2)
+    models, states = _train_states(dev, tc, arch)
+    steps = {d: make_train_step(m, tc) for d, m in models.items()}
+    lrs = []
+    reset_launch_counts()
+    for i, b in enumerate(_family_batches(models["cpu"].cfg, 3)):
+        mets = {}
+        for d in models:
+            batch = {k: torch.from_numpy(a).to(d) for k, a in b.items()}
+            states[d], mets[d] = steps[d](states[d], batch)
+        lrs.append(float(mets["cpu"]["lr"]))
+        for key in ("loss", "grad_norm", "aux"):
+            want = float(mets["cpu"][key])
+            scale = max(abs(want), 1.0) if key == "aux" else abs(want)
+            tol = 5e-5 if key == "grad_norm" and arch == "xlstm-125m" and i else TRAIN_F32_TOL
+            assert abs(float(mets[dev][key]) - want) <= tol * scale, (i, key)
+        got = torch.cat([t.cpu().flatten() for t in tree.leaves(states[dev]["params"])])
+        want = torch.cat([t.flatten() for t in tree.leaves(states["cpu"]["params"])])
+        d = (got - want).abs()
+        assert d.max() <= 2 * sum(lrs)
+        assert (d > TRAIN_F32_TOL + TRAIN_F32_TOL * want.abs()).float().mean() <= 1e-4
+    assert not any(launch_counts().values())

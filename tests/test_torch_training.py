@@ -596,19 +596,35 @@ def test_launcher_mesh_raises(tmp_path):
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b",
                                   "zamba2-2.7b", "xlstm-125m", "qwen2-vl-72b",
                                   "hubert-xlarge"])
-def test_training_refuses_other_families(arch, tmp_path):
-    """Only the dense family trains: the state, the step and the launcher
-    refuse the others, naming ROADMAP queue 1 item 12h."""
+def test_training_runs_every_family(arch, tmp_path, capsys):
+    """Every family trains through the three entry points: the state, one
+    step (finite loss and grad norm, the step counted) and the CPU launcher
+    with its checkpoints written.  The launcher feeds token ids to every
+    family, as JAX's does: hubert then trains through ``embed`` and its
+    ``in_proj`` gets a zero gradient, in both packages."""
     m = build_model(reduced(get_arch(arch)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12h"):
-        init_train_state(m, TrainConfig())
-    with pytest.raises(NotImplementedError, match="item 12h"):
-        make_train_step(m, TrainConfig())
-    args = train_launcher.parser().parse_args(
-        ["--arch", arch, "--reduced", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 12h"):
-        train_launcher.train_lm(args)
-    assert not any(tmp_path.iterdir())
+    tc = TrainConfig()
+    state = init_train_state(m, tc)
+    step = make_train_step(m, tc)
+    b = next(lm_batches(m.cfg.vocab, 2, 16, 1, seed=0))
+    state, met = step(state, _tbatch(b))
+    assert np.isfinite(float(met["loss"])) and float(met["grad_norm"]) > 0
+    assert int(state["step"]) == 1
+    if not m.cfg.embed_inputs:
+        _, _, grads = step.compute_grads(state["params"], _tbatch(b))
+        assert float(grads["in_proj"].abs().max()) == 0.0 < float(grads["embed"].abs().max())
+        jm = jax_build_model(jax_reduced(jax_get_arch(arch)))
+        jg = jax.grad(lambda p: jm.loss(p, _jbatch(b))[0])(
+            jax.tree_util.tree_map(jnp.asarray, train_state_to_arrays(state["params"])))
+        assert float(jnp.abs(jg["in_proj"]).max()) == 0.0 < float(jnp.abs(jg["embed"]).max())
+    ckpt = tmp_path / "ckpt"
+    train_launcher.main(["--arch", arch, "--reduced", "--steps", "2", "--batch", "2",
+                         "--seq", "16", "--ckpt-every", "1", "--device", "cpu",
+                         "--ckpt-dir", str(ckpt)])
+    fields = dict(kv.split("=") for kv in capsys.readouterr().out.split())
+    assert fields["steps"] == "2" and np.isfinite(float(fields["loss"]))
+    assert CheckpointManager(str(ckpt)).all_steps() == [0, 1, 2]
+
 
 if __name__ == "__main__":
     # the readings behind the tolerances in the module docstring

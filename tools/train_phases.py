@@ -4,11 +4,13 @@
 
 Runs phases ``train_main`` (full-width gemma2-2b, 10 AdamW steps of batch
 8 x 128 in bf16 compute), ``train_reference`` (reduced gemma2-2b on the
-card against the CPU) and ``train_resume`` (the launcher and the fault
-loop), each printing its JSON line as in the full smoke run, with TF32 off
-as there; the card's name and power limit (nvidia-smi) come first, and the
-records also go to ``chiprun_out/train_phases.json``.  About 70 s and 50
-GiB of device memory; a phase's failure ends the run.
+card against the CPU), ``train_resume`` (the launcher and the fault loop),
+``train_families`` (the families beyond dense at full width, 6 steps each)
+and ``train_families_reference`` (the six non-dense archs reduced on the
+card against the CPU), each printing its JSON line as in the full smoke run,
+with TF32 off as there; the card's name and power limit (nvidia-smi) come
+first, and the records also go to ``chiprun_out/train_phases.json``.  About
+100 s and 52 GiB of device memory; a phase's failure ends the run.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ def main() -> int:
     log: list = []
     try:
         for phase in (chip_smoke.phase_train_main, chip_smoke.phase_train_reference,
-                      chip_smoke.phase_train_resume):
+                      chip_smoke.phase_train_resume, chip_smoke.phase_train_families,
+                      chip_smoke.phase_train_families_reference):
             phase(log)
     finally:
         out = ROOT / "chiprun_out"
