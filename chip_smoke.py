@@ -143,6 +143,22 @@ back-to-back call, which includes the wrapper's host overhead.
                goldeneye and fuzzing (16,384 packets each) and 2 tenants on
                the sketch layout (4096 wide, rows 2, phase sketch_main's net),
                each against its solo service bit for bit.
+  mesh    — the Peregrine path placed over a mesh: flow_mesh(devices=
+               ["cuda:0"] * 4), and one place a card where the host has two
+               or more (with one card the record says the cross-card path
+               was not run).  On the main traffic: the bucketed service at
+               S=4 and 16 from phase partition's post-fit tables, each pass
+               the bits of partition's unplaced eval (indices and scores);
+               sharded at S=4 on phase switch's 2,048 packets, bit for bit
+               with phase partition's card serial; the sketch service under
+               the mesh, unchanged; 4 tenants through DetectionEngine.run
+               built under the mesh (tenant t's tables on place t % 4, never
+               moved), bit for bit with the unplaced engine, one fc_full
+               and one kitnet_score launch a place a batch.  Each case: eval
+               or aggregate pps placed and unplaced (the services u, p; the
+               engine u, p, p, u), device launches a chunk (profiler, over
+               2 chunks, 2 batches or 4 packets) and bytes handed between
+               places a chunk.
   eval    — the evaluation protocol, launch counts zeroed just before each
                part and read just after: sweep_attack in exact mode over
                phase main's traffic at rates 64, 256 and 1024 (fc_full and
@@ -1258,7 +1274,7 @@ def phase_scan_main(data, main: dict, main_trace: dict, log) -> None:
 
 
 def phase_partition(dev, data, pk, main: dict, main_trace: dict, switch_tr,
-                    switch_cpu, log) -> None:
+                    switch_cpu, log) -> dict:
     """The partitioned FC backends.  The service on backend="bucketed" at 4
     and 16 buckets over the dense main path's traffic, launch counts zeroed
     just before and read just after (no fc_full, the KitNET kernels as on
@@ -1270,7 +1286,9 @@ def phase_partition(dev, data, pk, main: dict, main_trace: dict, switch_tr,
     2048 mirai packets at n_slots=8192: exact mode at 4 and 16 shards
     against the card's serial oracle, switch mode at 4 shards against the
     CPU's serial oracle (phase switch's run), features and every table bit
-    for bit; card ms a packet of each."""
+    for bit; card ms a packet of each.  Returns what phase mesh holds its
+    placed runs against: each bucketed service with its post-fit tables
+    and its eval results, and the card's serial run."""
     from repro_torch.core import (clone_state, compute_features, init_state,
                                   process_serial)
     from repro_torch.core.state import FEATURE_NAMES
@@ -1286,6 +1304,7 @@ def phase_partition(dev, data, pk, main: dict, main_trace: dict, switch_tr,
     st0 = init_state(8192, device=dev)
     _, f_k = compute_features(clone_state(st0), pk, backend="cuda")
     pcc = torch.tensor([n.endswith(":pcc") for n in FEATURE_NAMES], device=dev)
+    unplaced = {}
     for S in (4, 16):
         t_part = time.perf_counter()
         svc = DetectionService(backend="bucketed", buckets=S, device=dev)
@@ -1297,10 +1316,13 @@ def phase_partition(dev, data, pk, main: dict, main_trace: dict, switch_tr,
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         eval_start = svc.pkt_count
+        snap = clone_state(svc.state)
         t0 = time.perf_counter()
         idx, scores, alarms = svc.process_stream(data["eval"], chunk=8192)
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
+        unplaced[S] = {"svc": svc, "snap": snap, "count": eval_start,
+                       "result": (idx, scores, alarms), "eval_pps": n_eval / eval_s}
         launches = launch_counts()
         if launches["fc_full"] != 0:
             raise RuntimeError(f"bucketed S={S} launched fc_full")
@@ -1375,6 +1397,8 @@ def phase_partition(dev, data, pk, main: dict, main_trace: dict, switch_tr,
     emit(rec, log)
     if not all(checks.values()):
         raise RuntimeError(f"sharded: not bit for bit: {checks}")
+    return {"bucketed": unplaced, "serial": (st_s, f_s),
+            "sharded_4_ms_per_packet": sharded["exact_4_card_ms_per_packet"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1651,6 +1675,237 @@ def phase_engine(dev, data, svc, sketch_svc, log) -> dict:
                            "bitwise_solo": True}}
     emit(rec, log)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# the Peregrine path placed over a mesh
+# ---------------------------------------------------------------------------
+def mesh_layouts() -> dict:
+    """Four places on cuda:0, and a place a card (at most four) where the
+    host has two or more cards."""
+    out = {"one_card_4_places": [torch.device("cuda", 0)] * 4}
+    n = torch.cuda.device_count()
+    if n > 1:
+        out[f"{min(n, 4)}_cards"] = [torch.device("cuda", i) for i in range(min(n, 4))]
+    return out
+
+
+def mesh_pass(fn, places):
+    """fn() under ``flow_mesh(devices=places)`` (unplaced for None), launch
+    and transfer counts zeroed just before: (result, wall s, launches,
+    bytes moved)."""
+    import contextlib
+    from repro_torch.distributed.sharding import (flow_mesh, reset_transfer_counts,
+                                                  transfer_counts)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    reset_launch_counts()
+    reset_transfer_counts()
+    sync()
+    t0 = time.perf_counter()
+    with flow_mesh(devices=places) if places else contextlib.nullcontext():
+        out = fn()
+        sync()
+    return out, time.perf_counter() - t0, launch_counts(), transfer_counts()
+
+
+def same_bits(a, b) -> bool:
+    return all(np.asarray(x).dtype == np.asarray(y).dtype
+               and np.asarray(x).shape == np.asarray(y).shape
+               and np.asarray(x).tobytes() == np.asarray(y).tobytes()
+               for x, y in zip(a, b))
+
+
+def mesh_service_case(svc, snap, count: int, ev: dict, places, want, kernel: str,
+                      what: str) -> dict:
+    """A fitted service's eval stream from its post-fit tables, unplaced,
+    then placed: each pass's indices, scores and alarms
+    the bits of ``want``; each placed pass launches ``kernel`` and
+    kitnet_score once a chunk (fc_full none unless it is ``kernel``); eval
+    pps of each pass, bytes between places a chunk, and device launches a
+    chunk over the first 2 chunks, placed and unplaced (profiler)."""
+    from repro_torch.core import clone_state
+    from repro_torch.kernels import KERNELS
+    n = len(ev["ts"])
+    chunks = -(-n // 8192)
+
+    def run(pkts):
+        def go():
+            svc.state, svc.pkt_count = clone_state(snap), count
+            return svc.process_stream(pkts, chunk=8192)
+        return go
+
+    passes = []
+    for where in (None, places):
+        out, secs, launches, moved = mesh_pass(run(ev), where)
+        if not same_bits(out, want):
+            raise RuntimeError(f"mesh {what}: {'placed' if where else 'unplaced'} "
+                               "results are not the unplaced run's bits")
+        if where and (launches["kitnet_score"] != chunks
+                      or launches[kernel] != (chunks if kernel != "fc_full" else 0)
+                      or (kernel != "fc_full" and launches["fc_full"])):
+            raise RuntimeError(f"mesh {what}: placed launches {launches}")
+        passes.append({"placed": bool(where), "eval_pps": n / secs,
+                       "launches": launches, "moved": moved})
+    t_case = time.perf_counter()
+    sub = {k: v[:2 * 8192] for k, v in ev.items()}
+    launches_per_chunk = {}
+    for label, where in (("unplaced", None), ("placed", places)):
+        _, secs, _, _ = mesh_pass(run(sub), where)
+
+        def traced():
+            svc.state, svc.pkt_count = clone_state(snap), count
+            return trace_eval(svc, sub, secs, KERNELS)
+
+        launches_per_chunk[label] = mesh_pass(traced, where)[0]["device_launches_per_chunk"]
+    placed = [p for p in passes if p["placed"]]
+    return {"eval_pps_placed": [p["eval_pps"] for p in placed],
+            "eval_pps_unplaced": [p["eval_pps"] for p in passes if not p["placed"]],
+            "device_launches_per_chunk": launches_per_chunk,
+            "bytes_between_places_per_chunk":
+                placed[0]["moved"]["between_places"] / chunks,
+            "launches_placed": placed[0]["launches"], "bitwise_unplaced": True,
+            "seconds": time.perf_counter() - t_case}
+
+
+def mesh_engine_case(svc, ev: dict, places, want: dict) -> dict:
+    """4 tenants each fed the eval stream through ``DetectionEngine.run``,
+    built unplaced and under the mesh in turns (u, p, p, u): each tenant's
+    results the unplaced engine's bits (``want``: results and end tables);
+    the placed pool's tables on their places, never moved; one fc_full and
+    one kitnet_score launch a place a batch; aggregate pps, bytes between
+    places and from the host a batch, device launches a batch (profiler,
+    the first 2 batches)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.state import tenant_view
+    from repro_torch.distributed.sharding import flow_mesh
+    from repro_torch.serving import DetectionEngine
+    t_case = time.perf_counter()
+    n = len(ev["ts"])
+    batches = -(-n // 8192)
+    D = len(places)
+
+    def run(where, pkts=ev):
+        """Build (under the mesh when placed: the pool takes its places
+        then) and run the engine; a placed pool's tables must lie on their
+        places and stay where they are."""
+        eng = DetectionEngine.from_service(svc, n_tenants=4, chunk=8192,
+                                           queue_depth=4)
+        tids = [eng.add_tenant() for _ in range(4)]
+        homes = [tenant_view(eng.pool.stacked, t)["uni"]["w"] for t in tids]
+        ptrs = [w.data_ptr() for w in homes]
+        if where and [w.device for w in homes] != [places[t % D] for t in tids]:
+            raise RuntimeError("mesh engine: a tenant's tables are not on its place")
+        eng.run(dict(zip(tids, [pkts] * 4)))
+        if ptrs != [tenant_view(eng.pool.stacked, t)["uni"]["w"].data_ptr()
+                    for t in tids]:
+            raise RuntimeError("mesh engine: a tenant's tables moved during run")
+        return eng, tids
+
+    passes = []
+    for where in (None, places, places, None):
+        (eng, tids), secs, launches, moved = mesh_pass(lambda: run(where), where)
+        for t in tids:
+            got = eng.results(t)
+            end = {g: {k: v.cpu() for k, v in eng.pool.read(t)[g].items()}
+                   for g in ("uni", "bi")}
+            if not (same_bits(got, want["results"][t])
+                    and states_equal(end, want["states"][t])):
+                raise RuntimeError(f"mesh engine: tenant {t} is not the unplaced "
+                                   "engine's bits")
+        if where and not (launches["fc_full"] == launches["kitnet_score"]
+                          == batches * len({t % D for t in tids})):
+            raise RuntimeError(f"mesh engine: {launches} for {batches} batches over "
+                               f"{D} places")
+        passes.append({"placed": bool(where), "agg_pps": 4 * n / secs,
+                       "launches": launches, "moved": moved})
+    with flow_mesh(devices=places):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(places, {k: v[:2 * 8192] for k, v in ev.items()})
+            torch.cuda.synchronize()
+    launched = sum(c for _, c in device_events(prof).values()) / 2
+    placed = [p for p in passes if p["placed"]]
+    return {"agg_pps_placed": [p["agg_pps"] for p in placed],
+            "agg_pps_unplaced": [p["agg_pps"] for p in passes if not p["placed"]],
+            "device_launches_per_batch_placed": launched,
+            "bytes_between_places_per_batch": placed[0]["moved"]["between_places"] / batches,
+            "bytes_host_to_places_per_batch": placed[0]["moved"]["host_to_place"] / batches,
+            "launches_placed": placed[0]["launches"], "batches": batches,
+            "bitwise_unplaced": True, "seconds": time.perf_counter() - t_case}
+
+
+def phase_mesh(dev, data, svc, sketch_svc, part: dict, switch_tr, log) -> None:
+    """The Peregrine path placed over a mesh (``flow_mesh(devices=...)``):
+    four places on cuda:0, and a place a card where the host has two or
+    more (else the record says the cross-card path was not run).  On the
+    main traffic: the bucketed service at S=4 and 16 from phase
+    partition's post-fit tables, bit for bit with its unplaced eval
+    (indices and score bits); sharded at S=4 on phase switch's 2,048
+    packets, bit for bit with the card's serial run of phase partition; the
+    sketch service (phase sketch_main's, from its tables now) under the
+    mesh, unchanged; 4 tenants through ``DetectionEngine.run`` from phase
+    main's service, bit for bit with the unplaced engine.  Each case: eval
+    or aggregate pps placed and unplaced, device launches a chunk, bytes
+    between places a chunk."""
+    from repro_torch.core import clone_state, compute_features, init_state
+    from repro_torch.traffic import to_torch
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    ev = {k: v for k, v in data["eval"].items() if k != "label"}
+    rec = {"phase": "mesh", "layouts": {}}
+    sk_snap, sk_count = clone_state(sketch_svc.state), sketch_svc.pkt_count
+    sk_want = sketch_svc.process_stream(ev, chunk=8192)
+    want_eng = {"results": {}, "states": {}}
+    eng, tids, _ = engine_run(svc, [ev] * 4)
+    for t in tids:
+        want_eng["results"][t] = eng.results(t)
+        want_eng["states"][t] = {g: {k: v.cpu() for k, v in eng.pool.read(t)[g].items()}
+                                 for g in ("uni", "bi")}
+    del eng
+    st_s, f_s = part["serial"]
+    n_sh = len(switch_tr["ts"])
+    pk_sh = to_torch(switch_tr, dev)
+    for name, places in mesh_layouts().items():
+        t_lay = time.perf_counter()
+        out = {"places": [str(d) for d in places]}
+        for S, b in part["bucketed"].items():
+            out[f"bucketed_{S}"] = mesh_service_case(
+                b["svc"], b["snap"], b["count"], ev, places, b["result"], "fc_full",
+                f"bucketed S={S}")
+            out[f"bucketed_{S}"]["eval_pps_partition"] = b["eval_pps"]
+        t_case = time.perf_counter()
+        (st_h, f_h), secs, launches, moved = mesh_pass(
+            lambda: compute_features(init_state(8192, device=dev), pk_sh,
+                                     backend="sharded", shards=4), places)
+        if not (torch.equal(f_h, f_s) and states_equal(st_h, st_s)):
+            raise RuntimeError(f"mesh sharded ({name}): not bit for bit with serial")
+        few = {k: v[:4] for k, v in pk_sh.items()}
+        per_packet = {}
+        for label, where in (("unplaced", None), ("placed", places)):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                mesh_pass(lambda: compute_features(init_state(8192, device=dev), few,
+                                                   backend="sharded", shards=4), where)
+            per_packet[label] = sum(c for _, c in device_events(prof).values()) / 4
+        out["sharded_4"] = {"packets": n_sh, "ms_per_packet_placed": secs / n_sh * 1e3,
+                            "ms_per_packet_unplaced_partition":
+                                part["sharded_4_ms_per_packet"],
+                            "device_launches_per_packet": per_packet,
+                            "bytes_between_places_per_call": moved["between_places"],
+                            "bitwise_card_serial": True,
+                            "seconds": time.perf_counter() - t_case}
+        out["sketch"] = mesh_service_case(sketch_svc, sk_snap, sk_count, ev, places,
+                                          sk_want, "sketch_update", "sketch")
+        out["engine_4_tenants"] = mesh_engine_case(svc, ev, places, want_eng)
+        out["seconds"] = time.perf_counter() - t_lay
+        rec["layouts"][name] = out
+    if torch.cuda.device_count() < 2:
+        rec["cross_card"] = (f"not run: {torch.cuda.device_count()} card visible; "
+                             "four places shared cuda:0")
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec, log)
 
 
 def phase_eval(data, net, log) -> None:
@@ -3000,8 +3255,10 @@ def main() -> int:
     switch_tr, switch_cpu = phase_switch(dev, log)
     phase_scan(dev, pk, log)
     phase_scan_main(data, main, main_trace, log)
-    phase_partition(dev, data, pk, main, main_trace, switch_tr, switch_cpu, log)
+    part = phase_partition(dev, data, pk, main, main_trace, switch_tr, switch_cpu, log)
     engine = phase_engine(dev, data, svc, sketch_svc, log)
+    phase_mesh(dev, data, svc, sketch_svc, part, switch_tr, log)
+    del part
     phase_eval(data, net, log)
 
     # ---- 7. LM serving of gemma2-2b at full width, traced, against plain ----

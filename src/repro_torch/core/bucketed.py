@@ -23,10 +23,14 @@ segmented scans of ``core/parallel.py``:
 How the port lays the buckets out (both key types of a group in one sorted
 array, a ragged batch padded at its tail) is in ``core/parallel._process``.
 
-Placement is not ported: on one device the bucket axis is a batch
-dimension of plain torch ops, as in the JAX package without a mesh.  The
-JAX package's ``shard_map`` of the buckets over the ``flow_shards`` mesh
-axis waits for a host with more than one card (ROADMAP queue 1 item 10c).
+Placement: unplaced, the bucket axis is a batch dimension of plain torch
+ops on one device.  When a mesh is bound and the ``flow_shards`` logical
+axis has a rule (``distributed.sharding.flow_mesh``), the buckets' scans
+run over that axis (``ShardContext``, ``core/parallel``'s ``shard=``): each
+place scans its buckets, the O(S) bucket tails are gathered to every place,
+each place runs the tail combine and fixes up its own buckets.  The
+placement is resolved at every call (the port has no compile cache), and
+the placed run equals the unplaced one bit for bit.
 
 ``process_bucketed_sampled`` is the record-sampled twin for the fused
 serving step, registered in ``core/backends`` so a ``backend="bucketed"``
@@ -34,16 +38,35 @@ service takes the record-sampled path.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.parallel import _process
+from repro_torch.distributed.sharding import (ShardContext, flow_shards_binding,
+                                              resolve_placement, shard_context)
 
 
 def _check_buckets(buckets: int) -> None:
     if buckets < 1:
         raise ValueError(f"buckets must be >= 1, got {buckets}")
+
+
+def _resolve_placement(buckets: int):
+    """(mesh, binding) placing ``buckets`` buckets over the ambient mesh, or
+    (None, None): unplaced when no mesh is bound, the ``flow_shards`` rule
+    is unbound, the mesh lacks the bound axes, or ``buckets`` is not a
+    multiple of the places (the JAX package's rules)."""
+    return resolve_placement(flow_shards_binding(), buckets)
+
+
+# the ShardContext placing the two-level scans on a mesh, one per (mesh,
+# binding), or None when unplaced
+_shard_ctx = shard_context
+
+
+def _placement(buckets: int) -> Optional[ShardContext]:
+    return _shard_ctx(*_resolve_placement(buckets))
 
 
 def process_bucketed(state: Dict, pkts: Dict[str, torch.Tensor],
@@ -52,11 +75,12 @@ def process_bucketed(state: Dict, pkts: Dict[str, torch.Tensor],
     """Bucketed FC: the same I/O as ``process_parallel``, each key type's
     flow-sorted batch cut into ``buckets`` balanced buckets scanned apart;
     ``state`` updated in place.  Exact arithmetic only: for switch mode use
-    the ``serial`` or ``sharded`` backend (the packet-serial paths)."""
+    the ``serial`` or ``sharded`` backend (the packet-serial paths).  Under
+    a bound mesh the buckets' scans are placed over it."""
     _check_buckets(buckets)
     if mode != "exact":
         raise ValueError("bucketed backend is exact-mode only")
-    return _process(state, pkts, chunks=buckets)
+    return _process(state, pkts, chunks=buckets, shard=_placement(buckets))
 
 
 def process_bucketed_sampled(state: Dict, pkts: Dict[str, torch.Tensor],
@@ -64,6 +88,8 @@ def process_bucketed_sampled(state: Dict, pkts: Dict[str, torch.Tensor],
                              ) -> Tuple[Dict, torch.Tensor]:
     """Record-sampled bucketed FC for the fused serving step: the state
     update covers every packet, feature rows are computed only at
-    ``sample_idx`` (equal to ``process_bucketed(...)[1][sample_idx]``)."""
+    ``sample_idx`` (equal to ``process_bucketed(...)[1][sample_idx]``),
+    placed as :func:`process_bucketed`."""
     _check_buckets(buckets)
-    return _process(state, pkts, sample_idx, chunks=buckets)
+    return _process(state, pkts, sample_idx, chunks=buckets,
+                    shard=_placement(buckets))

@@ -36,9 +36,17 @@ Both scans also run in the JAX module's two-level form (``chunks=S``, the
 ``bucketed`` backend's, core/bucketed.py): S local scans over equal slices
 of the sorted array, an exclusive combine over the S slice tails, and an
 elementwise fix-up.  The linear scan reassociates once more (bit for bit
-the flat scan at S=1); the latest-value scan stays exact.  Only the
-unplaced form is ported: the JAX module's ``shard=`` (the slices placed
-over a device mesh) is not (ROADMAP queue 1 item 10c).
+the flat scan at S=1); the latest-value scan stays exact.  ``shard=`` (a
+``distributed.sharding.ShardContext``, built by core/bucketed.py from the
+ambient mesh) places the two-level form over the mesh, as the JAX module's
+``shard_map`` does: each place scans its slices, the slice tails are
+gathered to every place in slice order (the one collective, O(S)), every
+place runs the same tail combine and fixes up its own slices, and the
+slices come home.  Everything before and after the scans (sorts, decays,
+gathers, store-backs) runs unsplit on the caller's device, so the CPU's
+``exp2``, which rounds by call width, sees the unplaced run's calls; the
+scans are elementwise within a slice, so the placed run equals the
+unplaced one bit for bit.
 
 Requires ``pkts["ts"]`` sorted ascending (streams are time-ordered).
 """
@@ -104,7 +112,7 @@ def _odd_even(s: torch.Tensor, a: torch.Tensor, dim: int
 
 
 def seg_linear_scan(seg_start: torch.Tensor, delta: torch.Tensor,
-                    x: torch.Tensor, chunks: int = 1) -> torch.Tensor:
+                    x: torch.Tensor, chunks: int = 1, shard=None) -> torch.Tensor:
     """Segmented ``A_i = delta_i * A_{i-1} + x_i`` (A resets at segment
     starts), inclusive, as a Hillis-Steele doubling scan.
 
@@ -126,7 +134,8 @@ def seg_linear_scan(seg_start: torch.Tensor, delta: torch.Tensor,
     JAX module's association, so the two packages' chunked scans differ by
     XLA's rounding of ``exp2`` and of contracted multiply-adds only (SR
     sums cancel in float32, and in another order they drift further from
-    JAX's).  ``chunks=1`` is the flat scan.
+    JAX's).  ``chunks=1`` is the flat scan.  ``shard`` places the slices
+    over a mesh (module docstring), with the same values.
     """
     n = x.shape[0]
     s = torch.where(_expand(seg_start, delta.ndim), 0.0, delta)
@@ -139,28 +148,63 @@ def seg_linear_scan(seg_start: torch.Tensor, delta: torch.Tensor,
                 s[off:] = s[:-off] * s[off:]
             off *= 2
         return a
-    ls, la = _odd_even(_cut(s, chunks, 0.0), _cut(x, chunks, 0.0), 1)
-    _, ta = _odd_even(ls[:, -1], la[:, -1], 0)          # inclusive over tails
-    carry = torch.cat([torch.zeros_like(ta[:1]), ta[:-1]])
-    a = carry[:, None] * ls + la
+    cs, cx = _cut(s, chunks, 0.0), _cut(x, chunks, 0.0)
+    if shard is None:
+        ls, la = _odd_even(cs, cx, 1)
+        carry = _excl_carry(ls[:, -1], la[:, -1])
+        a = carry[:, None] * ls + la
+    else:
+        n_local = chunks // shard.size
+        local = shard.map(lambda s_, x_: _odd_even(s_, x_, 1),
+                          shard.scatter(cs), shard.scatter(cx))
+        ts = shard.gather_tails([ls[:, -1] for ls, _ in local])
+        ta = shard.gather_tails([la[:, -1] for _, la in local])
+        a = shard.join([
+            shard.local_chunks(_excl_carry(ts[i], ta[i]), i, n_local)[:, None]
+            * ls + la for i, (ls, la) in enumerate(local)], x.device)
     return a.reshape((-1,) + a.shape[2:])[:n]
 
 
-def _cummax(v: torch.Tensor, chunks: int = 1) -> torch.Tensor:
+def _excl_carry(ts: torch.Tensor, ta: torch.Tensor) -> torch.Tensor:
+    """Each slice's carry in: the exclusive scan of the slice tails
+    ``(prefix product, A)``, 0 into the first."""
+    _, ta = _odd_even(ts, ta, 0)                         # inclusive over tails
+    return torch.cat([torch.zeros_like(ta[:1]), ta[:-1]])
+
+
+def _cummax(v: torch.Tensor, chunks: int = 1, shard=None) -> torch.Tensor:
     """Running max along dim 1 of a (K, n) index array, flat or in the
     two-level form (local maxima, an exclusive max over the slice tails,
-    the max of the two): the same values either way."""
+    the max of the two; placed as :func:`seg_linear_scan`): the same
+    values either way."""
     if chunks <= 1:
         return torch.cummax(v, 1).values
     n = v.shape[1]
-    loc = torch.cummax(_cut(v.T, chunks, -1).permute(2, 0, 1), 2).values
-    tails = torch.cummax(loc[..., -1], 1).values                 # (K, S)
-    carry = torch.cat([torch.full_like(tails[:, :1], -1), tails[:, :-1]], 1)
-    return torch.maximum(loc, carry[..., None]).reshape(v.shape[0], -1)[:, :n]
+    cut = _cut(v.T, chunks, -1)                                  # (S, L, K)
+
+    def local(c):                                                # (K, S/D, L)
+        return torch.cummax(c.permute(2, 0, 1), 2).values
+
+    def carry_in(tails):                                         # (S, K)
+        tails = torch.cummax(tails.T, 1).values                  # (K, S)
+        return torch.cat([torch.full_like(tails[:, :1], -1), tails[:, :-1]], 1)
+
+    if shard is None:
+        loc = local(cut)
+        out = torch.maximum(loc, carry_in(loc[..., -1].T)[..., None])
+    else:
+        n_local = chunks // shard.size
+        locs = shard.map(local, shard.scatter(cut))
+        tails = shard.gather_tails([loc[..., -1].T for loc in locs])
+        out = shard.join([
+            torch.maximum(loc, carry_in(tails[i])[:, i * n_local:(i + 1) * n_local,
+                                                  None])
+            for i, loc in enumerate(locs)], v.device, dim=1)
+    return out.reshape(v.shape[0], -1)[:, :n]
 
 
 def seg_last_scan(seg_start: torch.Tensor, valid: torch.Tensor,
-                  value: torch.Tensor, chunks: int = 1
+                  value: torch.Tensor, chunks: int = 1, shard=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segmented latest valid value (inclusive), per column.
 
@@ -170,12 +214,13 @@ def seg_last_scan(seg_start: torch.Tensor, valid: torch.Tensor,
     row (zeros where not found).  An index ``cummax`` reset at segment
     starts (along the contiguous dimension, where the card's scan is
     parallel), in ``chunks`` slices as :func:`seg_linear_scan`: values are
-    gathered, never combined, so this is exact at any ``chunks``.
+    gathered, never combined, so this is exact at any ``chunks`` and
+    placement (``shard``).
     """
     n, k = valid.shape
     ar = torch.arange(n, device=valid.device)
     first = _seg_first(seg_start)
-    last = _cummax(torch.where(valid.T, ar, -1), chunks).T
+    last = _cummax(torch.where(valid.T, ar, -1), chunks, shard).T
     found = last >= first[:, None]
     val = value[last.clamp_min(0), torch.arange(k, device=valid.device)]
     return found, torch.where(_expand(found, val.ndim), val, 0.0)
@@ -253,7 +298,8 @@ def _store(tab: Dict[str, torch.Tensor], writes) -> None:
 def stream_pass(tab: Dict[str, torch.Tensor], stream_ids: torch.Tensor,
                 ts: torch.Tensor, lens: torch.Tensor, lam: torch.Tensor,
                 order: Optional[torch.Tensor] = None,
-                sample: Optional[torch.Tensor] = None, chunks: int = 1):
+                sample: Optional[torch.Tensor] = None, chunks: int = 1,
+                shard=None):
     """Decayed-atom update of one table of streams.
 
     ``tab``: ``{"last_t", "w", "ls", "ss"}`` flat (rows, N_DECAY) tables;
@@ -263,7 +309,7 @@ def stream_pass(tab: Dict[str, torch.Tensor], stream_ids: torch.Tensor,
     stream's last row) for :func:`_store`, which the caller applies once
     every pass that reads the pre-batch table is done.  ``order`` is the
     stable sort by stream id, when already known; ``chunks`` cuts the scan
-    (:func:`seg_linear_scan`).
+    and ``shard`` places it (:func:`seg_linear_scan`).
     """
     if order is None:
         order = torch.argsort(stream_ids, stable=True)
@@ -282,7 +328,7 @@ def stream_pass(tab: Dict[str, torch.Tensor], stream_ids: torch.Tensor,
                       (x * x)[:, None].expand(n, N_DECAY)], -1)   # (n, ND, 3)
     tab_a = torch.stack([tab["w"][sid], tab["ls"][sid], tab["ss"][sid]], -1)
     x0 = torch.where(start[:, None, None], xs + delta[..., None] * tab_a, xs)
-    atoms = seg_linear_scan(start, delta[..., None], x0, chunks)
+    atoms = seg_linear_scan(start, delta[..., None], x0, chunks, shard)
     last = _seg_last(end)
     at_end = atoms[last]
     writes = (sid, {"last_t": t[last][:, None].expand(-1, N_DECAY),
@@ -313,7 +359,8 @@ def channel_pass(tab: Dict[str, torch.Tensor], slots: torch.Tensor,
                  dirs: torch.Tensor, ts: torch.Tensor, lens: torch.Tensor,
                  own_atoms: torch.Tensor, lam: torch.Tensor,
                  order: torch.Tensor, dir_gather: torch.Tensor,
-                 sample: Optional[torch.Tensor] = None, chunks: int = 1):
+                 sample: Optional[torch.Tensor] = None, chunks: int = 1,
+                 shard=None):
     """Cross-direction state of the bi streams.
 
     ``tab``: the flat bi tables, still holding their pre-batch values
@@ -324,7 +371,7 @@ def channel_pass(tab: Dict[str, torch.Tensor], slots: torch.Tensor,
     directional permutation.  Returns ``(features (n|m, ND, 7), writes)``;
     ``sample`` restricts the emitted rows (the scans and store-backs always
     cover every packet, and a row's statistics are the same either way);
-    ``chunks`` cuts both scans.
+    ``chunks`` cuts both scans and ``shard`` places them.
     """
     inv = arith.invert_perm(order)
     sid = slots[order]
@@ -342,7 +389,7 @@ def channel_pass(tab: Dict[str, torch.Tensor], slots: torch.Tensor,
     lanes = torch.cat([own, r[..., None]], -1)               # (n, ND, 4)
     found, latest = seg_last_scan(start, torch.stack([d == 0, d == 1], 1),
                                   lanes[:, None].expand(n, 2, N_DECAY, 4),
-                                  chunks)
+                                  chunks, shard)
     res = [torch.where(found[:, X, None], latest[:, X, :, 3],
                        tab["brl"][2 * sid + X]) for X in (0, 1)]
     r_opp = torch.where((d == 0)[:, None], res[1], res[0])
@@ -351,7 +398,7 @@ def channel_pass(tab: Dict[str, torch.Tensor], slots: torch.Tensor,
     dsr = _decay(lam, start, t, tab["bslt"][sid])
     x_sr = r * r_opp
     x_sr = torch.where(start[:, None], x_sr + dsr * tab["bsr"][sid], x_sr)
-    sr = seg_linear_scan(start, dsr, x_sr, chunks)
+    sr = seg_linear_scan(start, dsr, x_sr, chunks, shard)
 
     # statistics, emitted at the requested rows only
     rows = inv if sample is None else inv[sample]
@@ -378,10 +425,11 @@ def channel_pass(tab: Dict[str, torch.Tensor], slots: torch.Tensor,
 # the whole batch
 # ---------------------------------------------------------------------------
 def _process(state: Dict, pkts: Dict[str, torch.Tensor],
-             sample_idx: Optional[torch.Tensor] = None, chunks: int = 1
-             ) -> Tuple[Dict, torch.Tensor]:
+             sample_idx: Optional[torch.Tensor] = None, chunks: int = 1,
+             shard=None) -> Tuple[Dict, torch.Tensor]:
     """One batch, every row or ``sample_idx``'s; ``chunks=S`` cuts each key
-    type's sorted run into S buckets (the ``bucketed`` backend).
+    type's sorted run into S buckets (the ``bucketed`` backend) and
+    ``shard`` places the buckets' scans over a mesh.
 
     Both key types of a group lie end to end in one sorted array of 2n
     positions (rows of key type 0 sort first), so S buckets a key type are
@@ -392,6 +440,8 @@ def _process(state: Dict, pkts: Dict[str, torch.Tensor],
     out-of-range index, where JAX drops the store), is never stored and is
     never emitted.  Key type 0's cuts are then JAX's; key type 1's fall
     ``-n % S`` positions later in its run, another legal reassociation.
+    Placed, a place holds 2S/D of the cuts, and the padding lies in the
+    last place's tail.
     """
     ts = pkts["ts"].to(torch.float32)
     lens = pkts["length"].to(torch.float32)
@@ -399,7 +449,7 @@ def _process(state: Dict, pkts: Dict[str, torch.Tensor],
     m = n if sample_idx is None else sample_idx.shape[0]
     if n == 0 or m == 0:
         if n:
-            _process(state, pkts, chunks=chunks)   # the state takes every packet
+            _process(state, pkts, chunks=chunks, shard=shard)   # every packet
         return state, torch.empty((m, N_FEATURES), dtype=torch.float32,
                                   device=ts.device)
     n_slots = state_slots(state)
@@ -418,7 +468,7 @@ def _process(state: Dict, pkts: Dict[str, torch.Tensor],
     uni_tab = {"last_t": tab["ult"], "w": tab["uw"], "ls": tab["uls"],
                "ss": tab["uss"]}
     atoms, writes = stream_pass(uni_tab, rows["urow"].T.reshape(-1), ts2, lens2,
-                                lam, sample=sample2, chunks=cuts)
+                                lam, sample=sample2, chunks=cuts, shard=shard)
     _store(uni_tab, writes)
     mu, _, sig = _stats(atoms[..., 0], atoms[..., 1], atoms[..., 2])
     uni_feats = torch.stack([atoms[..., 0], mu, sig], -1)       # (2m, ND, 3)
@@ -431,11 +481,12 @@ def _process(state: Dict, pkts: Dict[str, torch.Tensor],
     dir_tab = {"last_t": tab["blt"], "w": tab["bw"], "ls": tab["bls"],
                "ss": tab["bss"]}
     own, dir_writes = stream_pass(dir_tab, 2 * slots + dirs2, ts2, lens2, lam,
-                                  order=order[dir_gather], chunks=cuts)
+                                  order=order[dir_gather], chunks=cuts,
+                                  shard=shard)
     # the channel pass reads the pre-batch direction tables: store after it
     bi_feats, ch_writes = channel_pass(tab, slots, dirs2, ts2, lens2, own, lam,
                                        order, dir_gather, sample=sample2,
-                                       chunks=cuts)
+                                       chunks=cuts, shard=shard)
     _store(dir_tab, dir_writes)
     for w in ch_writes:
         _store(tab, w)

@@ -17,24 +17,31 @@ other table).  The step is the serial oracle's (``core/pipeline.py``), on
 rows of the sharded tables.  One care keeps the bits on the CPU: PyTorch's
 ``exp2`` rounds differently in its vectorised body and its scalar tail, so
 the same values can differ by width of the call.  Exact mode therefore
-evaluates each decay at the owning rows only, a call of the serial step's
-width, and gives the scratch rows a decay of 0 with no transcendental.
-Switch mode evaluates none.
+evaluates each packet's decays in one call of the serial step's width and
+layout, a (key type, decay) array holding the owning rows' arguments (0
+where a key type's owner is on another place), and gives the scratch rows
+a decay of 0.  Switch mode evaluates none.
 
-The shards run as one batch dimension of torch ops on one device.  The JAX
-package's placement of the shard axis over a device mesh (the
-``flow_shards`` rule) is not ported (ROADMAP queue 1 item 10c).
+Placement: unplaced, the shards run as one batch dimension of torch ops on
+one device.  Under a bound mesh whose ``flow_shards`` rule places S shards
+(``core/bucketed._resolve_placement``: S a multiple of the places D), place
+i holds shards ``[i*S/D, (i+1)*S/D)`` on its device and steps them for
+every packet; each key type's features come back from the place that owns
+its slot, and the tables come home when the batch is done.  The unplaced
+run is the one-place case, so the two are the same operations.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 from repro_torch.core import arith
 from repro_torch.core.pipeline import bi_step, flat_tables, uni_step
+from repro_torch.core.bucketed import _placement
 from repro_torch.core.state import (BI_KEYS, LAMBDAS, N_BI, N_DECAY, N_UNI,
-                                    UNI_KEYS, packet_slots, state_slots)
+                                    UNI_KEYS, packet_slots, state_device,
+                                    state_slots)
 
 # table leaves that mean "never seen" at -1 (scratch rows start fresh)
 _FRESH_AT_MINUS1 = ("last_t", "sr_last_t")
@@ -68,32 +75,52 @@ def unshard_tables(sharded: Dict, shards: int) -> Dict:
             for grp in ("uni", "bi")}
 
 
-def _owner_exp2(own: torch.Tensor):
-    """``exp2`` evaluated at rows ``own`` only (a call of the serial step's
-    width), 0 at every other row."""
+def _owner_exp2(pos: torch.Tensor, owned: torch.Tensor):
+    """``exp2`` of one packet's K (key type, decay) rows, called at the
+    serial step's width: ``pos`` (K,) the rows among the place's S_p*K
+    step rows (distinct, ``pos[kt] % K == kt``), ``owned`` (K,) whether the
+    key type's owner is on this place.  Every other row gets 0."""
     def exp2(y):
+        e = torch.exp2(torch.where(owned[:, None], y[pos], 0.0))
         out = torch.zeros_like(y)
-        out[own] = torch.exp2(y[own])
+        out[pos] = torch.where(owned[:, None], e, 0.0)
         return out
     return exp2
 
 
-def _routes(slots: torch.Tensor, shards: int, n_local: int):
-    """Per-packet rows of the flat sharded tables for one key group.
+def _routes(slots: torch.Tensor, shards: int, n_local: int, first: int,
+            count: int):
+    """Per-packet rows of one place's flat sharded tables for one key group.
 
-    ``slots``: (n, K).  Returns ``rows`` (n, S*K), shard-major, each the
-    owning shard's local row or the scratch row, and ``own`` (n, K), the
-    positions among those S*K rows that belong to the owning shards.
+    ``slots``: (n, K); the place holds shards ``[first, first + count)``.
+    Returns ``rows`` (n, count*K), shard-major, each the owning shard's
+    local row or the scratch row; ``pos`` (n, K), each key type's position
+    among those rows (its owner's, or a scratch row's off the place); and
+    ``owned`` (n, K).
     """
     n, k = slots.shape
     dev = slots.device
-    sid = torch.arange(shards, device=dev)
+    sid = torch.arange(count, device=dev)
     kt = torch.arange(k, device=dev)
-    base = (sid[:, None] * k + kt) * (n_local + 1)               # (S, K)
-    owner = slots % shards
+    base = (sid[:, None] * k + kt) * (n_local + 1)               # (S_p, K)
+    owner = slots % shards - first
+    owned = (owner >= 0) & (owner < count)
     local = torch.where(owner[:, None] == sid[None, :, None],
-                        (slots // shards)[:, None], n_local)     # (n, S, K)
-    return (base + local).reshape(n, -1), owner * k + kt
+                        (slots // shards)[:, None], n_local)     # (n, S_p, K)
+    pos = torch.where(owned, owner, 0) * k + kt
+    return (base + local).reshape(n, -1), pos, owned
+
+
+def place_shards(sharded: Dict, ctx) -> List[Dict]:
+    """Each place's shards of :func:`shard_tables`' tables, on its device:
+    place i holds shards ``[i*S/D, (i+1)*S/D)`` (``ctx`` a
+    ``ShardContext`` of D places; ``None`` is one place holding all)."""
+    if ctx is None:
+        return [sharded]
+    per = next(iter(sharded["uni"].values())).shape[0] // ctx.size
+    return [{g: {f: ctx.to_place(v[p * per:(p + 1) * per], p)
+                 for f, v in tabs.items()} for g, tabs in sharded.items()}
+            for p in range(ctx.size)]
 
 
 def process_sharded(state: Dict, pkts: Dict[str, torch.Tensor],
@@ -101,6 +128,7 @@ def process_sharded(state: Dict, pkts: Dict[str, torch.Tensor],
                     ) -> Tuple[Dict, torch.Tensor]:
     """Hash-partitioned FC: the same I/O as ``process_serial``, bit for bit
     its features and state in either ``mode``; ``state`` updated in place.
+    Under a bound mesh the shards are placed over it (module docstring).
 
     Raises ``ValueError`` unless ``shards`` divides the slot count (the
     tables partition the slot space evenly).
@@ -112,38 +140,69 @@ def process_sharded(state: Dict, pkts: Dict[str, torch.Tensor],
             f"n_slots={n_slots} not divisible by shards={shards}; "
             "flow tables partition the slot space evenly")
     n_local = n_slots // shards
+    home = state_device(state)
+    ctx = _placement(shards)
+    n_places = 1 if ctx is None else ctx.size
+    per = shards // n_places
+
+    def to_place(t, p):
+        return t if ctx is None else ctx.to_place(t, p)
+
     sharded = shard_tables(state, shards)
-    tab = flat_tables(sharded)
-    rr_u = rr_b = None
-    if mode == "switch":
-        rr_u, rr_b = sharded["uni"]["rr"].view(-1), sharded["bi"]["rr"].view(-1)
     sl = packet_slots(pkts, n_slots)
-    urow, own_u = _routes(torch.stack([sl[k] for k in UNI_KEYS], -1),
-                          shards, n_local)
-    brow_s, own_b = _routes(torch.stack([sl[k] for k in BI_KEYS], -1),
-                            shards, n_local)
-    d = sl["dir"][:, None]
-    brow_o = brow_s * 2 + d
-    brow_p = brow_s * 2 + (1 - d)
+    uslots = torch.stack([sl[k] for k in UNI_KEYS], -1)
+    bslots = torch.stack([sl[k] for k in BI_KEYS], -1)
     ts = pkts["ts"].to(torch.float32)
     lens = pkts["length"].to(torch.float32)
-    lam = torch.tensor(LAMBDAS, dtype=torch.float32, device=ts.device)
     n = ts.shape[0]
-    f_uni = torch.empty((n, shards * N_UNI, N_DECAY * 3), dtype=torch.float32,
-                        device=ts.device)
-    f_bi = torch.empty((n, shards * N_BI, N_DECAY * 7), dtype=torch.float32,
-                       device=ts.device)
+    places = []
+    for p, part in enumerate(place_shards(sharded, ctx)):
+        urow, upos, uown = (to_place(t, p) for t in
+                            _routes(uslots, shards, n_local, p * per, per))
+        brow_s, bpos, bown = (to_place(t, p) for t in
+                              _routes(bslots, shards, n_local, p * per, per))
+        d = to_place(sl["dir"], p)[:, None]
+        dev = urow.device
+        places.append({
+            "part": part, "tab": flat_tables(part),
+            "rr": ((part["uni"]["rr"].view(-1), part["bi"]["rr"].view(-1))
+                   if mode == "switch" else (None, None)),
+            "urow": urow, "upos": upos, "uown": uown,
+            "brow_o": brow_s * 2 + d, "brow_p": brow_s * 2 + (1 - d),
+            "brow_s": brow_s, "bpos": bpos, "bown": bown,
+            "ts": to_place(ts, p), "lens": to_place(lens, p),
+            "lam": torch.tensor(LAMBDAS, dtype=torch.float32, device=dev),
+            "f_uni": torch.empty((n, per * N_UNI, N_DECAY * 3),
+                                 dtype=torch.float32, device=dev),
+            "f_bi": torch.empty((n, per * N_BI, N_DECAY * 7),
+                                dtype=torch.float32, device=dev)})
     for i in range(n):
-        t, x = ts[i], lens[i]
-        f_uni[i] = uni_step(tab, lam, urow[i], t, x, mode, rr_u,
-                            _owner_exp2(own_u[i])).view(-1, N_DECAY * 3)
-        f_bi[i] = bi_step(tab, lam, brow_o[i], brow_p[i], brow_s[i], t, x,
-                          mode, rr_b, _owner_exp2(own_b[i])).view(-1, N_DECAY * 7)
-    # each key type's block from its owning shard
-    rows = torch.arange(n, device=ts.device)[:, None]
-    feats = torch.cat([f_uni[rows, own_u].reshape(n, -1),
-                       f_bi[rows, own_b].reshape(n, -1)], -1)
-    for grp, tabs in unshard_tables(sharded, shards).items():
+        for q in places:
+            t, x = q["ts"][i], q["lens"][i]
+            q["f_uni"][i] = uni_step(
+                q["tab"], q["lam"], q["urow"][i], t, x, mode, q["rr"][0],
+                _owner_exp2(q["upos"][i], q["uown"][i])).view(-1, N_DECAY * 3)
+            q["f_bi"][i] = bi_step(
+                q["tab"], q["lam"], q["brow_o"][i], q["brow_p"][i],
+                q["brow_s"][i], t, x, mode, q["rr"][1],
+                _owner_exp2(q["bpos"][i], q["bown"][i])).view(-1, N_DECAY * 7)
+    # each key type's block from its owning place
+    owner = torch.cat([((uslots % shards) // per).repeat_interleave(N_DECAY * 3, 1),
+                       ((bslots % shards) // per).repeat_interleave(N_DECAY * 7, 1)],
+                      -1)
+    feats = None
+    for p, q in enumerate(places):
+        rows = torch.arange(n, device=q["ts"].device)[:, None]
+        f = torch.cat([q["f_uni"][rows, q["upos"]].reshape(n, -1),
+                       q["f_bi"][rows, q["bpos"]].reshape(n, -1)], -1)
+        if ctx is not None:
+            f = ctx.to_home(f, p, home)
+        feats = f if feats is None else torch.where(owner == p, f, feats)
+    parts = [q["part"] for q in places]
+    tables = {g: {f: (parts[0][g][f] if ctx is None else
+                      ctx.join([part[g][f] for part in parts], home))
+                  for f in sharded[g]} for g in sharded}
+    for grp, tabs in unshard_tables(tables, shards).items():
         for f, v in tabs.items():
             state[grp][f].copy_(v)
     return state, feats

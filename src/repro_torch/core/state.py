@@ -13,6 +13,9 @@ The multi-tenant engine keeps N tenants' tables as one pool
 (``init_state_stacked``, :class:`StatePool`): every table gains a leading
 tenant axis, so tenant t's state is the contiguous view ``pool[g][k][t]``
 (``tenant_view``) and the tenant-batched FC kernel writes the pool in place.
+Built under a bound ``tenants`` rule (``distributed.sharding.flow_mesh``),
+the pool is a :class:`PlacedPool`: tenant t's tables live on place ``t %
+D`` for the pool's life, one stacked dict a place.
 
 The layout is pluggable (DESIGN.md §11): ``init_state(n, state_backend=...)``
 selects a registered :class:`StateBackend`, ``dense`` (the direct-indexed
@@ -28,12 +31,13 @@ the slot mapping bit-identical to the JAX package's uint32 arithmetic.
 from __future__ import annotations
 
 import importlib
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import tenant_placement
 
 LAMBDAS = (10.0, 1.0, 0.1, 1.0 / 60.0)
 N_DECAY = len(LAMBDAS)
@@ -216,22 +220,69 @@ def _map_state(fn, state: Dict) -> Dict:
                 else fn(v)) for g, v in state.items()}
 
 
-def init_state_stacked(n_tenants: int, n_slots: int,
-                       state_backend: str = "dense", device: DeviceLike = None,
-                       **state_kw) -> Dict:
-    """N fresh flow-table states as ONE stacked dict (a leading tenant axis
-    on every table, and on a sketch's ``evict_age``): the single-allocation
-    layout :class:`StatePool` manages.  Dense: ``uni/*`` (T, N_UNI, n_slots,
-    N_DECAY), ``bi/*`` (T, N_BI, n_slots, 2, N_DECAY)."""
-    one = init_state(n_slots, state_backend=state_backend, device=device,
-                     **state_kw)
+class PlacedPool:
+    """A stacked pool spread over the places of a mesh: tenant t lives on
+    place ``t % D`` at index ``t // D`` of that place's stacked dict
+    (``parts[t % D]``, on ``ctx.devices[t % D]``), for the pool's life.
+    Round robin, so the lowest tenants a pool hands out first spread over
+    every place; a tenant count need not divide the places."""
+
+    def __init__(self, parts: List[Dict], ctx):
+        self.parts = parts
+        self.ctx = ctx
+
+    @property
+    def size(self) -> int:
+        return self.ctx.size
+
+    def home(self, tid: int) -> Tuple[int, int]:
+        """(place, index in the place's stacked dict) of tenant ``tid``."""
+        return tid % self.size, tid // self.size
+
+    def groups(self, tids: Sequence[int]) -> List[Tuple[int, List[int], List[int]]]:
+        """The lanes of ``tids`` by home place, places in order: ``(place,
+        lane positions, tenants' indices on the place)`` for each place
+        that holds one of them."""
+        out = []
+        for p in range(self.size):
+            lanes = [j for j, t in enumerate(tids) if t % self.size == p]
+            if lanes:
+                out.append((p, lanes, [tids[j] // self.size for j in lanes]))
+        return out
+
+
+def _stacked(n_tenants: int, one: Dict) -> Dict:
     return _map_state(lambda t: t[None].expand((n_tenants,) + t.shape).clone(),
                       one)
 
 
-def tenant_view(pool: Dict, tid: int) -> Dict:
-    """Tenant ``tid``'s state in a stacked pool as views (same storage): a
-    step on it updates the pool in place."""
+def init_state_stacked(n_tenants: int, n_slots: int,
+                       state_backend: str = "dense", device: DeviceLike = None,
+                       **state_kw):
+    """N fresh flow-table states as ONE stacked dict (a leading tenant axis
+    on every table, and on a sketch's ``evict_age``): the single-allocation
+    layout :class:`StatePool` manages.  Dense: ``uni/*`` (T, N_UNI, n_slots,
+    N_DECAY), ``bi/*`` (T, N_BI, n_slots, 2, N_DECAY).
+
+    Under a bound ``tenants`` rule the pool is a :class:`PlacedPool`: place
+    p's stacked dict holds tenants p, p + D, ... on the place's device (the
+    mesh's devices, not ``device``)."""
+    ctx = tenant_placement()
+    if ctx is None:
+        return _stacked(n_tenants, init_state(n_slots, state_backend=state_backend,
+                                              device=device, **state_kw))
+    return PlacedPool([_stacked(len(range(p, n_tenants, ctx.size)),
+                                init_state(n_slots, state_backend=state_backend,
+                                           device=dev, **state_kw))
+                       for p, dev in enumerate(ctx.devices)], ctx)
+
+
+def tenant_view(pool, tid: int) -> Dict:
+    """Tenant ``tid``'s state in a stacked (or placed) pool as views (same
+    storage, on its home place): a step on it updates the pool in place."""
+    if isinstance(pool, PlacedPool):
+        p, tid = pool.home(tid)
+        pool = pool.parts[p]
     return _map_state(lambda t: t[tid], pool)
 
 
@@ -247,7 +298,10 @@ class StatePool:
     Lifecycle: ``alloc()`` claims a free slot (its state is freshly
     reset), ``free(tid)`` releases it, ``reset(tid)`` zeroes a live
     tenant's tables in place (a new capture on the same slot).  The stacked
-    dict lives at ``pool.stacked``; a step updates it in place.
+    dict lives at ``pool.stacked``; a step updates it in place.  Built
+    under a bound ``tenants`` rule, ``pool.stacked`` is a
+    :class:`PlacedPool` and every tenant keeps its home place: ``reset``,
+    ``read`` and ``write`` act there.
     """
 
     def __init__(self, n_tenants: int, n_slots: int,
@@ -264,15 +318,20 @@ class StatePool:
                                           state_backend=self.state_backend,
                                           device=self.device, **self.state_kw)
         self._live: List[bool] = [False] * n_tenants
-        # one fresh single-tenant state kept as the reset template so
-        # reset() never rebuilds it per call
-        self._fresh = init_state(n_slots, state_backend=self.state_backend,
-                                 device=self.device, **self.state_kw)
+        # one fresh single-tenant state (a place) kept as the reset
+        # template so reset() never rebuilds it per call
+        devices = (self.stacked.ctx.devices if self.placed else (self.device,))
+        self._fresh = [init_state(n_slots, state_backend=self.state_backend,
+                                  device=dev, **self.state_kw) for dev in devices]
         # pristine[t] <=> slot t is known to hold a fresh state, letting
         # alloc() skip the copy a reset costs; anything that writes a slot
         # outside reset() must clear the flag (write() and the engine's
         # dispatch do: mark_dirty)
         self._pristine: List[bool] = [True] * n_tenants
+
+    @property
+    def placed(self) -> bool:
+        return isinstance(self.stacked, PlacedPool)
 
     # ---- slot lifecycle ----
     @property
@@ -308,7 +367,8 @@ class StatePool:
         """Zero tenant ``tid``'s flow tables in place (fresh capture)."""
         if not 0 <= tid < self.n_tenants:
             raise IndexError(f"tenant {tid} out of range 0..{self.n_tenants - 1}")
-        self._install(tid, self._fresh)
+        self._install(tid, self._fresh[self.stacked.home(tid)[0]
+                                       if self.placed else 0])
         self._pristine[tid] = True
 
     def mark_dirty(self, tids) -> None:
@@ -326,22 +386,22 @@ class StatePool:
 
     def _install(self, tid: int, state: Dict) -> None:
         pairs = []
-        for g, k, dst in _leaves(self.stacked):
+        for g, k, dst in _leaves(tenant_view(self.stacked, tid)):
             src = (state.get(g, {}) if g is not None else state).get(k)
-            if src is None or tuple(src.shape) != tuple(dst.shape[1:]):
+            if src is None or tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(
                     f"state does not match the pool's layout at {g}/{k} "
                     f"({self.state_backend}, {self.n_slots} slots)")
             pairs.append((dst, src))
         for dst, src in pairs:
-            dst[tid].copy_(src)
+            dst.copy_(src)
 
     # ---- state access ----
     def read(self, tid: int) -> Dict:
         """A standalone COPY of tenant ``tid``'s state (safe to keep across
-        later steps of the pool)."""
+        later steps of the pool), on its home place."""
         self._check(tid)
-        return _map_state(lambda t: t[tid].clone(), self.stacked)
+        return _map_state(torch.Tensor.clone, tenant_view(self.stacked, tid))
 
     def write(self, tid: int, state: Dict) -> None:
         """Install a copy of a single-tenant state into slot ``tid``."""

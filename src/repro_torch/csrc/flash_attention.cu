@@ -852,12 +852,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       || !make_map<T, D>(&tv, v, Sk, K, B, st[6], st[7], st[8], C::BK))
     return cudaErrorInvalidValue;
   auto kern = flash_attention_kernel<T, D>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_ALLOC);
+  // the attribute is the current device's: set it once on each device that
+  // launches this instantiation (bit d of `configured`, devices 0-63)
+  static uint64_t configured = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(configured & bit)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM_ALLOC);
     if (e != cudaSuccess) return e;
-    configured = true;
+    configured |= bit;
   }
   const dim3 grid((Sq + C::BQ - 1) / C::BQ, B * H);
   kern<<<grid, C::THREADS, C::SMEM_ALLOC, stream>>>(

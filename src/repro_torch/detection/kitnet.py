@@ -94,6 +94,16 @@ class KitNet:
     def device(self) -> torch.device:
         return self.mask.device
 
+    def to(self, device) -> "KitNet":
+        """This net on ``device`` (itself when it lies there already)."""
+        device = torch.device(device)
+        if self.device == device:
+            return self
+        return KitNet(idx=self.idx.to(device), mask=self.mask.to(device),
+                      params={k: v.to(device) for k, v in self.params.items()},
+                      **{f: getattr(self, f).to(device) for f in
+                         ("norm_min", "norm_max", "out_min", "out_max")})
+
 
 def _pad_clusters(clusters: List[np.ndarray]):
     k = len(clusters)

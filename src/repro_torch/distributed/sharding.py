@@ -1,0 +1,365 @@
+"""Placement of the Peregrine path over a device mesh (port of the Peregrine
+half of ``repro.distributed.sharding``).
+
+Code names *logical* axes (``flow_shards``: the buckets of the bucketed FC
+and the shards of the sharded tables; ``tenants``: the multi-tenant
+engine's pool); the caller binds them to a mesh axis.  With no mesh or no
+rule bound, nothing is placed and the same code runs on one device.
+
+The mesh is single-controller, as in the JAX package: one process holds a
+list of ``torch.device``s and queues each place's work on its device.
+:func:`flow_mesh` takes ``devices=`` (repeats allowed), the stand-in for
+XLA's ``--xla_force_host_platform_device_count``: ``["cpu"] * 4`` gives four
+places on the CPU, ``["cuda:0"] * 4`` four places on one card.  A place is
+an index along the bound axes, so places that share a device are still
+counted apart.
+
+:class:`ShardContext` carries what the JAX module runs inside ``shard_map``:
+``scatter`` hands each place its slice of the leading (chunk) axis,
+``map`` runs a function on every place's slice, ``gather_tails`` copies the
+O(S) per-chunk tail summaries to every place (the one collective of the
+bucketed scans), ``local_chunks`` slices a place's chunks back out, and
+``join`` brings the places' results home.  The caller's tensors count as
+lying on place 0; every byte handed from one place to another is counted
+(:func:`transfer_counts`), whether or not the two places share a device.
+
+``lshard``, ``logical_spec`` and ``named_shardings`` serve the LM stack and
+wait for its mesh (ROADMAP queue 1 item 12g).  This module imports nothing
+of the JAX package.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+Axis = Union[None, str, Tuple[str, ...]]
+
+# Default production rules: batch over (pod, data); model-parallel dims over
+# model; experts over model (EP); sequence sharding (decode long-context KV)
+# over data.
+PRODUCTION_RULES: Dict[str, Axis] = {
+    "batch": ("pod", "data"),
+    "heads": "model",
+    "kv_heads": "model",
+    "ff": "model",
+    "experts": "model",
+    "expert_cap": ("pod", "data"),
+    "vocab": "model",
+    "embed": None,
+    "seq": None,
+    "kv_seq": None,          # overridden to ("pod", "data") for long-context
+    "ssm_inner": "model",
+    "opt": ("pod", "data"),  # ZeRO-1 optimizer-state axis
+    # Peregrine flow-table partitions (core/sharded.py): the shard axis of
+    # the hash-partitioned flow state spreads over the DP axes
+    "flow_shards": ("pod", "data"),
+    # Peregrine multi-tenant engine (serving/engine.py): the tenant lanes of
+    # the tenant-batched fused step spread over the DP axes
+    "tenants": ("pod", "data"),
+}
+
+
+class Mesh:
+    """Devices laid out row-major over named axes, held by one process.
+
+    ``devices``: ``prod(shape)`` ``torch.device``s (repeats allowed);
+    ``shape``: ``{axis: size}`` in axis order, as ``jax.sharding.Mesh``.
+    """
+
+    def __init__(self, devices: Sequence, axis_names: Sequence[str],
+                 shape: Optional[Sequence[int]] = None):
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.axis_names = tuple(axis_names)
+        sizes = (len(self.devices),) if shape is None else tuple(shape)
+        if len(sizes) != len(self.axis_names):
+            raise ValueError(f"shape {sizes} does not name axes {self.axis_names}")
+        n = 1
+        for s in sizes:
+            n *= s
+        if n != len(self.devices) or n < 1:
+            raise ValueError(f"shape {sizes} needs {n} devices, got "
+                             f"{len(self.devices)}")
+        self.shape = dict(zip(self.axis_names, sizes))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def _key(self):
+        return self.devices, self.axis_names, tuple(self.shape.values())
+
+    def __eq__(self, other):
+        return isinstance(other, Mesh) and self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __repr__(self):
+        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
+
+
+class AxisRules:
+    def __init__(self, rules: Dict[str, Axis]):
+        self.rules = dict(rules)
+
+
+class _State(threading.local):
+    def __init__(self):
+        self.rules: Optional[AxisRules] = None
+        self.mesh: Optional[Mesh] = None
+
+
+_STATE = _State()
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[Dict[str, Axis]]):
+    prev = _STATE.rules
+    _STATE.rules = AxisRules(rules) if rules is not None else None
+    try:
+        yield _STATE.rules
+    finally:
+        _STATE.rules = prev
+
+
+def current_rules() -> Optional[AxisRules]:
+    return _STATE.rules
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: Optional[Mesh]):
+    """Bind ``mesh`` as the ambient mesh (``jax.set_mesh``)."""
+    prev = _STATE.mesh
+    _STATE.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _STATE.mesh = prev
+
+
+def ambient_mesh() -> Optional[Mesh]:
+    """The mesh bound by :func:`set_mesh`, or ``None``."""
+    return _STATE.mesh
+
+
+def _rule_binding(name: str):
+    rules = current_rules()
+    binding = rules.rules.get(name) if rules is not None else None
+    if isinstance(binding, list):
+        binding = tuple(binding)
+    return binding
+
+
+def flow_shards_binding():
+    """The normalised ``flow_shards`` rule of the ambient axis rules, or
+    ``None`` when unbound: where the bucketed and sharded FC place
+    themselves (``core/bucketed._resolve_placement``)."""
+    return _rule_binding("flow_shards")
+
+
+def tenant_binding():
+    """The normalised ``tenants`` rule, the mesh axis (or axes) a tenant
+    pool spreads over (``core/state.init_state_stacked``), or ``None``."""
+    return _rule_binding("tenants")
+
+
+@contextlib.contextmanager
+def without_rule(name: str):
+    """The ambient rules with ``name`` unbound: a tenant's step runs whole
+    on its home place, its FC not placed again over the mesh."""
+    rules = current_rules()
+    if rules is None or name not in rules.rules:
+        yield rules
+        return
+    with use_rules({k: v for k, v in rules.rules.items() if k != name}) as r:
+        yield r
+
+
+# ---------------------------------------------------------------------------
+# bytes handed between places
+# ---------------------------------------------------------------------------
+_TRANSFERS = {"between_places": 0, "host_to_place": 0}
+
+
+def reset_transfer_counts() -> None:
+    for k in _TRANSFERS:
+        _TRANSFERS[k] = 0
+
+
+def transfer_counts() -> Dict[str, int]:
+    """Bytes handed from one place to another, and from the host to a
+    place, since :func:`reset_transfer_counts`."""
+    return dict(_TRANSFERS)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _to(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``; a copy to a card does not wait for the host (a
+    copy to the CPU must)."""
+    device = torch.device(device)
+    return t.to(device, non_blocking=device.type == "cuda")
+
+
+def count_transfer(t: torch.Tensor, src: Optional[int], dst: int) -> None:
+    """Count ``t``'s bytes as handed from place ``src`` (``None``: the host)
+    to place ``dst``; nothing when they are one place."""
+    if src is None:
+        _TRANSFERS["host_to_place"] += _nbytes(t)
+    elif src != dst:
+        _TRANSFERS["between_places"] += _nbytes(t)
+
+
+class ShardContext:
+    """Resolved placement of a leading axis over the bound mesh axes.
+
+    ``size`` places, place ``i`` on ``devices[i]`` (other axes of the mesh
+    at index 0).  Built once per (mesh, binding) and cached
+    (``core/bucketed._shard_ctx``).
+    """
+
+    def __init__(self, mesh: Mesh, binding):
+        self.mesh = mesh
+        self.binding = binding
+        self.axes: Tuple[str, ...] = (binding if isinstance(binding, tuple)
+                                      else (binding,))
+        size = 1
+        for a in self.axes:
+            size *= mesh.shape[a]
+        self.size = size
+        names = mesh.axis_names
+        strides = {}
+        s = 1
+        for a in reversed(names):
+            strides[a] = s
+            s *= mesh.shape[a]
+        devices = []
+        for i in range(size):
+            flat, rest = 0, i
+            for a in reversed(self.axes):
+                flat += (rest % mesh.shape[a]) * strides[a]
+                rest //= mesh.shape[a]
+            devices.append(mesh.devices[flat])
+        self.devices: Tuple[torch.device, ...] = tuple(devices)
+
+    def to_place(self, t: torch.Tensor, dst: int, src: Optional[int] = 0
+                 ) -> torch.Tensor:
+        """``t`` on place ``dst``'s device, counted as handed from ``src``."""
+        count_transfer(t, src, dst)
+        return _to(t, self.devices[dst])
+
+    def scatter(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Each place's equal slice of ``t``'s leading axis, on its device."""
+        n_local = t.shape[0] // self.size
+        return [self.to_place(t[i * n_local:(i + 1) * n_local], i)
+                for i in range(self.size)]
+
+    def map(self, fn: Callable, *per_place):
+        """``fn`` on every place's arguments (lists from :meth:`scatter`),
+        in place order: the per-place body of ``shard_map``."""
+        return [fn(*args) for args in zip(*per_place)]
+
+    def gather_tails(self, tails: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Per-place ``(chunks/size, ...)`` tail summaries -> the global
+        ``(chunks, ...)`` on every place, in chunk order: the one collective
+        the bucketed scans pay, O(S) elements."""
+        return [torch.cat([self.to_place(t, i, src=j)
+                           for j, t in enumerate(tails)])
+                for i in range(self.size)]
+
+    def local_chunks(self, x: torch.Tensor, place: int, n_local: int
+                     ) -> torch.Tensor:
+        """Place ``place``'s ``n_local`` chunks of a combined ``(chunks,
+        ...)`` array (the inverse of :meth:`gather_tails`)."""
+        return x[place * n_local:(place + 1) * n_local]
+
+    def to_home(self, t: torch.Tensor, src: int, device) -> torch.Tensor:
+        """Place ``src``'s ``t`` on ``device``, the caller's (place 0)."""
+        count_transfer(t, src, 0)
+        return _to(t, device)
+
+    def join(self, parts: Sequence[torch.Tensor], device, dim: int = 0
+             ) -> torch.Tensor:
+        """The places' parts, in place order, concatenated along ``dim`` on
+        ``device``, the caller's (place 0)."""
+        return torch.cat([self.to_home(p, j, device) for j, p in enumerate(parts)],
+                         dim)
+
+
+def resolve_placement(binding, count: Optional[int] = None
+                      ) -> Tuple[Optional[Mesh], Axis]:
+    """(mesh, binding) placing an axis of ``count`` over the ambient mesh,
+    or (None, None): no mesh bound, ``binding`` unbound, an axis the mesh
+    lacks, or ``count`` not a multiple of the places."""
+    if binding is None:
+        return None, None
+    mesh = ambient_mesh()
+    if mesh is None:
+        return None, None
+    axes = binding if isinstance(binding, tuple) else (binding,)
+    if not all(a in mesh.axis_names for a in axes):
+        return None, None
+    size = 1
+    for a in axes:
+        size *= mesh.shape[a]
+    if size < 1 or (count is not None and count % size):
+        return None, None
+    return mesh, binding
+
+
+@functools.lru_cache(maxsize=None)
+def shard_context(mesh: Optional[Mesh], binding) -> Optional[ShardContext]:
+    """The cached :class:`ShardContext` of (mesh, binding), or ``None``
+    when unplaced."""
+    if mesh is None:
+        return None
+    return ShardContext(mesh, binding)
+
+
+def tenant_placement() -> Optional[ShardContext]:
+    """Where a tenant pool built now spreads its tenants: the ambient
+    ``tenants`` rule on the ambient mesh (any tenant count), or ``None``."""
+    return shard_context(*resolve_placement(tenant_binding()))
+
+
+def _default_devices(n_devices: Optional[int]) -> List[torch.device]:
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = count if n_devices is None else int(n_devices)
+    if n < 1 or n > count:
+        raise RuntimeError(
+            f"flow_mesh needs {n if n_devices is not None else 'a'} CUDA "
+            f"device(s), {count} visible; pass devices=['cpu'] * N to place "
+            "on the CPU")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@contextlib.contextmanager
+def flow_mesh(n_devices: Optional[int] = None, axis: str = "data",
+              rules: Optional[Dict[str, Axis]] = None,
+              devices: Optional[Sequence] = None):
+    """Bind an N-place mesh with the Peregrine placement rules in one shot.
+
+    Builds a 1-D mesh on logical axis ``axis`` over ``devices`` (default:
+    ``cuda:0`` .. ``cuda:{n_devices-1}``, every card when ``n_devices`` is
+    None; raises without a card), sets it ambient, and binds
+    ``{"flow_shards": axis, "tenants": axis}`` (override with ``rules``):
+    the two rules the bucketed and sharded FC and the tenant pool place
+    themselves by.  ``devices`` may repeat a device (``["cpu"] * 4``).
+    """
+    if devices is None:
+        devices = _default_devices(n_devices)
+    elif n_devices is not None and int(n_devices) != len(devices):
+        raise ValueError(f"n_devices={n_devices} but {len(devices)} devices given")
+    mesh = Mesh(devices, (axis,))
+    with contextlib.ExitStack() as es:
+        es.enter_context(set_mesh(mesh))
+        es.enter_context(use_rules(
+            {"flow_shards": axis, "tenants": axis} if rules is None
+            else rules))
+        yield mesh

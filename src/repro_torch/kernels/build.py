@@ -7,6 +7,10 @@ flags, so an edited source is rebuilt).  The library is loaded with
 ``ctypes``; every pointer and the stream cross as ``c_void_p``.  Each C entry
 point launches on the stream it is given, allocates nothing, does not
 synchronise, and returns ``cudaGetLastError()``; a non-zero code raises here.
+``CudaKernel.launch`` makes the inputs' device current around the call and
+passes that device's current stream, so the launch, its attribute calls
+(``cudaFuncSetAttribute``) and the SM count it sizes by are that card's,
+whichever device was current before.
 
 Nothing is built when a module is imported: the first launch builds its
 kernel, and ``build_all`` builds several in parallel (one ``nvcc`` each).
@@ -27,6 +31,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -115,9 +121,13 @@ class CudaKernel:
             self._fn, self._err = fn, err
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Launch the kernel; raise on a non-zero ``cudaGetLastError()``."""
-        code = self.load()(*args)
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch the kernel on ``device`` (the inputs' card), made current
+        for the call, on its current stream (the entry point's last
+        argument); raise on a non-zero ``cudaGetLastError()``."""
+        fn = self.load()
+        with torch.cuda.device(device):
+            code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if code != 0:
             msg = self._err(code).decode()
             raise RuntimeError(f"{self.name}: kernel launch failed with "

@@ -28,7 +28,10 @@ them in one launch.  The combined key becomes ``(t*4 + kt)*n_slots + slot``
 with t the packet's pool tenant, so one stable sort over every lane's keys
 gives each lane the segments of a solo launch, and the kernels address the
 pool's rows in place (``fc_full.cu``'s ``key_row``, :func:`fc_key_rows`).
-``feature_update_full`` is its one-tenant case, with today's keys.
+``feature_update_full`` is its one-tenant case, with today's keys.  A pool
+placed over a mesh (``core.state.PlacedPool``) takes one launch a place,
+over that place's lanes, on that place's stacked tables: the int32 key
+limit applies to each place's tenants.
 
 ``feature_update`` replaces ``repro/kernels/feature_update.py::
 feature_update`` (``_fc_kernel``), the JAX package's public single-key entry
@@ -54,7 +57,8 @@ from repro_torch.core import arith
 from repro_torch.core.pipeline import (_stats, flat_tables, packet_rows,
                                        process_serial)
 from repro_torch.core.state import (LAMBDAS, N_DECAY, N_FEATURES, N_UNI,
-                                    state_device, state_slots, tenant_view)
+                                    PlacedPool, state_device, state_slots,
+                                    tenant_view)
 from repro_torch.kernels.build import INT, VOIDP, CudaKernel
 
 FC_FULL = CudaKernel("fc_full.cu", "fc_full_launch",
@@ -145,11 +149,10 @@ def _fc_full_launch(tab: Dict[str, torch.Tensor], n_slots: int,
     skey, perm = fc_segments(rows, n_slots, lane_keys)
     dirb = rows["dir"].to(torch.int32)
     scratch = torch.empty(fc_scratch_words(n), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    FC_FULL.launch(perm.data_ptr(), skey.data_ptr(), dirb.data_ptr(),
+    FC_FULL.launch(device, perm.data_ptr(), skey.data_ptr(), dirb.data_ptr(),
                    ts.data_ptr(), lens.data_ptr(),
                    *(tab[k].data_ptr() for k in _TABLE_ORDER),
-                   feats.data_ptr(), scratch.data_ptr(), n, n_slots, stream)
+                   feats.data_ptr(), scratch.data_ptr(), n, n_slots)
     return feats
 
 
@@ -172,18 +175,23 @@ def feature_update_full(state: Dict, pkts: Dict[str, torch.Tensor]
     return state, _fc_full_launch(flat_tables(state), n_slots, pkts, None)
 
 
-def feature_update_full_tenants_ref(pool: Dict, tenant_ids: Sequence[int],
+def feature_update_full_tenants_ref(pool, tenant_ids: Sequence[int],
                                     pkts: Dict[str, torch.Tensor]
                                     ) -> Tuple[Dict, torch.Tensor]:
     """Plain version of :func:`feature_update_full_tenants`:
-    ``process_serial`` lane by lane on each tenant's view of the pool."""
-    feats = [process_serial(tenant_view(pool, t),
-                            {k: v[lane] for k, v in pkts.items()})[1]
-             for lane, t in enumerate(tenant_ids)]
+    ``process_serial`` lane by lane on each tenant's view of the pool (on
+    its home place, features back on the packets' device)."""
+    dev = pkts["ts"].device
+    feats = []
+    for lane, t in enumerate(tenant_ids):
+        view = tenant_view(pool, t)
+        home = state_device(view)
+        feats.append(process_serial(view, {k: v[lane].to(home)
+                                           for k, v in pkts.items()})[1].to(dev))
     return pool, torch.stack(feats)
 
 
-def feature_update_full_tenants(pool: Dict, tenant_ids: Sequence[int],
+def feature_update_full_tenants(pool, tenant_ids: Sequence[int],
                                 pkts: Dict[str, torch.Tensor]
                                 ) -> Tuple[Dict, torch.Tensor]:
     """:func:`feature_update_full` for L tenants of a stacked dense pool in
@@ -196,7 +204,23 @@ def feature_update_full_tenants(pool: Dict, tenant_ids: Sequence[int],
     each lane equals ``process_serial`` on its tenant's state bit for bit,
     as a launch of that lane alone does: tenants share no key, so each
     lane's segments are those of a solo launch.
+
+    A :class:`~repro_torch.core.state.PlacedPool` takes one launch a place
+    over its lanes, on the place's stacked dict (``pool.parts[p]``), the
+    features back on the packets' device in lane order.
     """
+    if isinstance(pool, PlacedPool):
+        tids = [int(t) for t in tenant_ids]
+        dev = pkts["ts"].device
+        feats = [None] * len(tids)
+        for p, lanes, local in pool.groups(tids):
+            idx = torch.tensor(lanes, device=dev)
+            _, f = feature_update_full_tenants(
+                pool.parts[p], local, {k: pool.ctx.to_place(v[idx], p)
+                                       for k, v in pkts.items()})
+            for j, lane in enumerate(lanes):
+                feats[lane] = pool.ctx.to_home(f[j], p, dev)
+        return pool, torch.stack(feats)
     tids = [int(t) for t in tenant_ids]
     uw = pool["uni"]["w"]
     if uw.dim() != 4 or "rr" not in pool["uni"]:
@@ -485,11 +509,10 @@ def feature_update(table: Dict[str, torch.Tensor], slots: torch.Tensor,
     # atoms, time, length, index, run end
     scratch = torch.empty((4 * N_DECAY + 4) * (n + CHAIN_PAD), dtype=torch.float32,
                           device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    FEATURE_UPDATE.launch(perm.data_ptr(), skey.data_ptr(), ts.data_ptr(),
+    FEATURE_UPDATE.launch(device, perm.data_ptr(), skey.data_ptr(), ts.data_ptr(),
                           lens.data_ptr(),
                           *(table[k].data_ptr() for k in TABLE_KEYS),
-                          stats.data_ptr(), scratch.data_ptr(), n, stream)
+                          stats.data_ptr(), scratch.data_ptr(), n)
     return table, stats
 
 

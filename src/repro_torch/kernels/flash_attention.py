@@ -159,11 +159,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"B*H={B * H} exceeds the grid's 65535")
     if Sq == 0:
         return out[..., :D]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     FLASH_ATTENTION.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, K, Sq, Sk, Dp, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), int(window), float(softcap),
-        int(q.dtype == torch.bfloat16), stream)
+        int(q.dtype == torch.bfloat16))
     return out[..., :D]

@@ -158,11 +158,10 @@ def kitnet_ensemble(x_sub, w1, b1, w2, b2, mask, *, design: str = "auto") -> tor
                          f"a block's {SMEM_MAX - 16}")
     hid = (torch.empty((B, k, h), dtype=f32, device=x_sub.device)
            if m > REGISTER_WIDTH else None)
-    stream = torch.cuda.current_stream(x_sub.device).cuda_stream
-    KITNET_AE.launch(x_sub.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+    KITNET_AE.launch(x_sub.device, x_sub.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                      w2.data_ptr(), b2.data_ptr(), mask.data_ptr(),
                      out.data_ptr(), None if hid is None else hid.data_ptr(),
-                     B, k, m, h, DESIGNS[design], stream)
+                     B, k, m, h, DESIGNS[design])
     return out
 
 
@@ -204,8 +203,7 @@ def kitnet_score(X, idx, mask, w1, b1, w2, b2, v1, c1, v2, c2,
     rec = (F | 1) + k * (h + m + 1) + kh
     rows = 0 if _record_fits(rec) else min(B, SCORE_SCRATCH_BLOCKS)
     scratch = torch.empty(rows * rec, dtype=f32, device=X.device) if rows else None
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    KITNET_SCORE.launch(*(t.data_ptr() for t in args), out.data_ptr(),
+    KITNET_SCORE.launch(X.device, *(t.data_ptr() for t in args), out.data_ptr(),
                         None if scratch is None else scratch.data_ptr(), rows,
-                        B, F, k, m, h, kh, stream)
+                        B, F, k, m, h, kh)
     return out

@@ -185,11 +185,10 @@ def sketch_update_full(state: Dict, pkts: Dict[str, torch.Tensor],
         return state, feats
     idx, dirb = kernel_rows(pkts, R, W)
     scratch = torch.empty(scratch_size(n), dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    SKETCH_UPDATE.launch(idx.data_ptr(), dirb.data_ptr(), ts.data_ptr(),
+    SKETCH_UPDATE.launch(device, idx.data_ptr(), dirb.data_ptr(), ts.data_ptr(),
                          lens.data_ptr(), age.data_ptr(),
                          *(tab[k].data_ptr() for k in _TABLE_ORDER),
-                         feats.data_ptr(), scratch.data_ptr(), n, R, W, stream)
+                         feats.data_ptr(), scratch.data_ptr(), n, R, W)
     if schedule is not None:
         schedule.update(schedule_views(scratch, n))
     return state, feats

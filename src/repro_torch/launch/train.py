@@ -14,7 +14,7 @@ Any ``--arch`` trains on ``lm_batches``' token ids, as the JAX launcher
 feeds every family (a model that takes embeddings, hubert, then trains
 through ``embed``, its ``in_proj`` getting a zero gradient).  ``--mesh``
 (data x model placement over several devices) is not ported (ROADMAP
-queue 1 items 10c and 12g).
+queue 1 item 12g).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def train_lm(args) -> dict:
     if args.mesh:
         raise NotImplementedError(
             "--mesh (data x model placement over several devices) is not "
-            "ported: ROADMAP queue 1 items 10c and 12g")
+            "ported: ROADMAP queue 1 item 12g")
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:

@@ -1,5 +1,5 @@
-"""Multi-tenant detection engine: N tenant streams, one device (port of
-``repro.serving.engine``).
+"""Multi-tenant detection engine: N tenant streams, one device or a mesh
+(port of ``repro.serving.engine``).
 
 ``DetectionService`` is one synchronous loop over one stream; deployment is
 a switch feeding MANY concurrent tenant streams into one control-plane
@@ -31,6 +31,15 @@ detector.  ``DetectionEngine`` multiplexes them (DESIGN.md §10):
   (``core.state.slot_collisions_lanes``) and drained with its records; the
   JAX package counts them on the host, a lane at a time.
 
+* **Placement.**  An engine built under ``distributed.sharding.flow_mesh``
+  (a bound ``tenants`` rule) places its pool: tenant t's tables live on
+  place ``t % D`` for the pool's life (``core.state.PlacedPool``), and the
+  net is copied to every place once.  A batch then sends each lane's
+  packets straight to its tenant's place, runs one step a place
+  (``make_tenant_step``), counts slot collisions there, and brings back
+  only the records' positions, scores, alarms and counts.  The state
+  never moves.
+
 One fitted detector (net + threshold) serves every tenant; isolation is
 state isolation, not model isolation.
 """
@@ -43,6 +52,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.backends import (check_backend_options, default_backend,
                                        resolve_backend)
@@ -52,7 +62,8 @@ from repro_torch.core.state import (StatePool, slot_collisions_lanes,
 from repro_torch.detection.md_backends import (default_md_backend,
                                                validate_md_options)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.serving.fused import make_tenant_step
+from repro_torch.distributed.sharding import count_transfer
+from repro_torch.serving.fused import make_tenant_step, place_net
 from repro_torch.traffic.generator import to_torch
 
 
@@ -97,6 +108,8 @@ class DetectionEngine:
     device:
         Where the pool and the steps live: ``cuda`` unless ``"cpu"`` is
         asked for (the plain versions then run); the net must be there.
+        Built under a bound ``tenants`` rule, the pool lives on the mesh's
+        places instead, and the net is copied to each.
 
     ``from_service`` inherits the service's net, threshold, epoch, backends
     and their options, mode, state layout, ``state_config`` and device.
@@ -143,6 +156,7 @@ class DetectionEngine:
         self.n_slots = int(n_slots)
         self.pool = StatePool(n_tenants, n_slots, state_backend=state_backend,
                               device=self.device, **self.state_kw)
+        self._net = place_net(net, self.pool.stacked)
         self.alarm_dir = alarm_dir
         self.alarm_format = alarm_format
         self._step = make_tenant_step(backend=self.backend, mode=self.mode,
@@ -291,20 +305,38 @@ class DetectionEngine:
         tenant-batched step.  Returns with the batch queued on the device;
         the pool is updated in place."""
         chunks = [self._pop(t, size) for t in tids]
-        pk = to_torch({k: np.stack([c[k] for c in chunks]) for k in chunks[0]},
-                      self.device)
+
+        def stack(lanes, device):
+            return to_torch({k: np.stack([chunks[j][k] for j in lanes])
+                             for k in chunks[0]}, device)
+
+        pool = self.pool.stacked
+        if self.pool.placed:      # each lane's packets straight to its place
+            groups = pool.groups(tids)
+            pk = [stack(lanes, pool.ctx.devices[p]) for p, lanes, _ in groups]
+            for (p, _, _), part in zip(groups, pk):
+                for v in part.values():
+                    count_transfer(v, None, p)
+        else:
+            pk = stack(range(len(tids)), self.device)
         base_mods = [self._pkt_count[t] % self.epoch for t in tids]
         t0 = time.perf_counter()
-        out = self._step(self.pool.stacked, tids, self.net, self.threshold,
-                         base_mods, pk)
+        out = self._step(pool, tids, self._net, self.threshold, base_mods, pk)
         self.pool.stacked = out[0]
         self.pool.mark_dirty(tids)
         # dense-mode aliasing telemetry: distinct flow keys whose slots
         # collide inside each lane's chunk, counted on the device beside the
-        # step and drained with its records.  Sketch pools absorb
-        # collisions by design and keep it at zero.
-        coll = (slot_collisions_lanes(pk, self.n_slots)
-                if self.state_backend == "dense" else None)
+        # step (on each place) and drained with its records.  Sketch pools
+        # absorb collisions by design and keep it at zero.
+        coll = None
+        if self.state_backend == "dense" and self.pool.placed:
+            dev0 = pool.ctx.devices[0]
+            coll = torch.empty(len(tids), dtype=torch.int64, device=dev0)
+            for (p, lanes, _), part in zip(groups, pk):
+                coll[torch.tensor(lanes, device=dev0)] = pool.ctx.to_home(
+                    slot_collisions_lanes(part, self.n_slots), p, dev0)
+        elif self.state_backend == "dense":
+            coll = slot_collisions_lanes(pk, self.n_slots)
         bases = [self._pkt_count[t] for t in tids]
         for t in tids:
             self._pkt_count[t] += size

@@ -34,12 +34,19 @@ sketch layout run the single-stream step lane by lane on each tenant's view
 of the pool.
 
 PyTorch runs eagerly, so each step is a plain function; there is no
-compilation cache and no placement token (the JAX package's mesh placement
-of tenants, ``_tenant_sharding``, is not ported: ROADMAP queue 2).
+compilation cache and so no placement token: the partitioned FC backends
+resolve the ambient mesh (``distributed.sharding.flow_mesh``) at every
+call.  A pool built under a bound ``tenants`` rule is placed
+(``core.state.PlacedPool``), and the tenant step spreads its lanes by
+home place, the port's ``_tenant_sharding``: on each place one ``fc_full``
+launch over that place's lanes and one ``kitnet_score`` launch with the
+place's copy of the net (:func:`place_net`); other backends run each lane
+on its home place.  Only packets go to a place, and only the records'
+positions, scores and alarms come back, to place 0.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -48,8 +55,9 @@ from repro_torch.core.backends import (check_backend_mode,
                                        compute_features_sampled,
                                        resolve_backend)
 from repro_torch.core.records import epoch_gather, epoch_gather_lanes
-from repro_torch.core.state import state_backend_of, tenant_view
+from repro_torch.core.state import PlacedPool, state_backend_of, tenant_view
 from repro_torch.detection.md_backends import md_score_fn
+from repro_torch.distributed.sharding import without_rule
 from repro_torch.kernels.feature_update import feature_update_full_tenants
 
 
@@ -86,6 +94,14 @@ def make_fused_step(backend: str = "cuda", mode: str = "exact",
     return step
 
 
+def place_net(net, pool):
+    """One copy of ``net`` on each place of a placed pool (the net itself
+    for an unplaced pool): what the tenant step scores with."""
+    if not isinstance(pool, PlacedPool):
+        return net
+    return tuple(net.to(dev) for dev in pool.ctx.devices)
+
+
 def make_tenant_step(backend: str = "cuda", mode: str = "exact",
                      backend_kw: Optional[Dict] = None,
                      md_backend: str = "cuda", md_kw: Optional[Dict] = None,
@@ -113,6 +129,15 @@ def make_tenant_step(backend: str = "cuda", mode: str = "exact",
     ``sharded``, ``serial``, sketch pools, switch mode) runs
     :func:`make_fused_step` lane by lane.  ``backend_kw``/``md_kw`` as
     there.
+
+    A :class:`~repro_torch.core.state.PlacedPool` runs that per home place,
+    in place order: the batched step on each place's lanes, or each lane's
+    step there with the ``flow_shards`` rule unbound (a tenant's FC is not
+    spread again).  ``net`` is then a copy a place (:func:`place_net`) or
+    one net that lies on every place's device; ``pkts`` is ``(L, chunk)``
+    tensors on place 0's device, or a list of each place's ``(L_p,
+    chunk)`` tensors already there, in the order of ``pool.groups``.  The
+    results come back to place 0's device in lane order.
     """
     lane_step = make_fused_step(backend=backend, mode=mode,
                                 backend_kw=backend_kw, md_backend=md_backend,
@@ -120,12 +145,8 @@ def make_tenant_step(backend: str = "cuda", mode: str = "exact",
     backend = resolve_backend(backend)
     score = md_score_fn(md_backend, **dict(md_kw or {}))
 
-    @torch.no_grad()
-    def step(pool, tenant_ids: Sequence[int], net, threshold: float,
-             base_mods: Sequence[int], pkts):
-        tids = [int(t) for t in tenant_ids]
-        if len(set(tids)) != len(tids):
-            raise ValueError(f"tenant_ids must not repeat a tenant, got {tids}")
+    def run(pool, tids, net, threshold, base_mods, pkts):
+        """The step on one stacked dict (an unplaced pool or a place's)."""
         L, n = pkts["ts"].shape
         if backend == "cuda" and mode == "exact" and state_backend_of(pool) == "dense":
             dev = pkts["ts"].device
@@ -134,12 +155,49 @@ def make_tenant_step(backend: str = "cuda", mode: str = "exact",
             lane0 = torch.arange(L, dtype=torch.int64, device=dev)[:, None] * n
             recs = feats.reshape(L * n, -1)[(idx + lane0).reshape(-1)]
             scores = score(net, recs).view(idx.shape)
-            return pool, idx, scores, scores > threshold, counts
+            return idx, scores, scores > threshold, counts
         outs = [lane_step(tenant_view(pool, t), net, threshold, int(bm),
                           {k: v[lane] for k, v in pkts.items()})
                 for lane, (t, bm) in enumerate(zip(tids, base_mods))]
         idx, scores, alarms = (torch.stack([o[j] for o in outs])
                                for j in (1, 2, 3))
-        return pool, idx, scores, alarms, tuple(o[4] for o in outs)
+        return idx, scores, alarms, tuple(o[4] for o in outs)
+
+    def run_placed(pool: PlacedPool, tids, nets, threshold, base_mods,
+                   pkts: Union[Dict, List[Dict]]):
+        ctx = pool.ctx
+        groups = pool.groups(tids)
+        if isinstance(pkts, dict):
+            home = pkts["ts"].device
+            pkts = [{k: ctx.to_place(v[torch.tensor(lanes, device=home)], p)
+                     for k, v in pkts.items()} for p, lanes, _ in groups]
+        dev0 = ctx.devices[0]
+        parts, counts, order = [], {}, []
+        with without_rule("flow_shards"):
+            for (p, lanes, local), pk in zip(groups, pkts):
+                idx, scores, alarms, cnt = run(
+                    pool.parts[p], local, nets[p], threshold,
+                    [base_mods[j] for j in lanes], pk)
+                parts.append([ctx.to_home(t, p, dev0)
+                              for t in (idx, scores, alarms)])
+                counts.update(zip(lanes, cnt))
+                order += lanes
+        inv = torch.tensor(order).argsort().to(dev0)
+        idx, scores, alarms = (torch.cat([q[j] for q in parts])[inv]
+                               for j in range(3))
+        return idx, scores, alarms, tuple(counts[j] for j in range(len(tids)))
+
+    @torch.no_grad()
+    def step(pool, tenant_ids: Sequence[int], net, threshold: float,
+             base_mods: Sequence[int], pkts):
+        tids = [int(t) for t in tenant_ids]
+        if len(set(tids)) != len(tids):
+            raise ValueError(f"tenant_ids must not repeat a tenant, got {tids}")
+        if isinstance(pool, PlacedPool):
+            nets = (net if isinstance(net, (tuple, list))
+                    else (net,) * pool.size)
+            return (pool,) + run_placed(pool, tids, nets, threshold,
+                                        base_mods, pkts)
+        return (pool,) + run(pool, tids, net, threshold, base_mods, pkts)
 
     return step

@@ -969,3 +969,215 @@ def test_family_train_steps_on_card_match_cpu(dev, arch):
         assert d.max() <= 2 * sum(lrs)
         assert (d > TRAIN_F32_TOL + TRAIN_F32_TOL * want.abs()).float().mean() <= 1e-4
     assert not any(launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# placement over a mesh (-k mesh) and launches on another card (-k other_card)
+# ---------------------------------------------------------------------------
+@pytest.fixture(params=["one_card", "cards"])
+def places(request, dev):
+    """The mesh's devices: four places on cuda:0, or one place a card
+    (at most four) where the host has two or more."""
+    if request.param == "one_card":
+        return [torch.device("cuda", 0)] * 4
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards for a place a card ({n} visible)")
+    return [torch.device("cuda", i) for i in range(min(n, 4))]
+
+
+def _mesh_service(dev, **kw):
+    from repro_torch.serving import DetectionService
+    data = synth_trace("mirai", n_train=4096, n_benign_eval=1024, n_attack=1024,
+                       seed=0)
+    svc = DetectionService(epoch=256, n_slots=1024, device=dev, **kw)
+    svc.observe_stream(data["train"], chunk=1024)
+    svc.fit(fpr=0.05)
+    return svc, clone_state(svc.state), svc.pkt_count, data["eval"]
+
+
+@pytest.mark.parametrize("S", [4, 16])
+def test_mesh_bucketed_service_matches_unplaced(places, S):
+    """The bucketed service's eval stream under ``flow_mesh(devices=places)``
+    equals the unplaced run on the card: the same indices, the same score
+    bits, the same tables; no FC kernel; bytes cross only between places
+    that differ."""
+    from repro_torch.distributed.sharding import (flow_mesh, reset_transfer_counts,
+                                                  transfer_counts)
+    svc, snap, c0, ev = _mesh_service(places[0], backend="bucketed", buckets=S)
+    want = svc.process_stream(ev, chunk=1024)
+    want_state = clone_state(svc.state)
+    svc.state, svc.pkt_count = clone_state(snap), c0
+    reset_launch_counts()
+    reset_transfer_counts()
+    with flow_mesh(devices=places):
+        got = svc.process_stream(ev, chunk=1024)
+    assert launch_counts()["fc_full"] == 0 and launch_counts()["kitnet_score"] == 2
+    assert transfer_counts()["between_places"] > 0
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+    for g in want_state:
+        for k in want_state[g]:
+            assert torch.equal(svc.state[g][k], want_state[g][k]), (g, k)
+
+
+def test_mesh_sharded_matches_serial(places):
+    """``sharded`` at 4 shards over the places equals the card's serial
+    oracle bit for bit in both modes; each place's shard tables lie on its
+    device."""
+    from repro_torch.core import compute_features
+    from repro_torch.core.bucketed import _placement
+    from repro_torch.core.sharded import place_shards, shard_tables
+    from repro_torch.distributed.sharding import flow_mesh
+    home = places[0]
+    pk = to_torch(synth_trace("ssh_bruteforce", n_train=64, n_benign_eval=150,
+                              n_attack=150, seed=3)["eval"], home)
+    for mode in ("exact", "switch"):
+        st_s, f_s = process_serial(init_state(512, device=home), pk, mode=mode)
+        with flow_mesh(devices=places):
+            st_h, f_h = compute_features(init_state(512, device=home), pk,
+                                         backend="sharded", shards=4, mode=mode)
+            ctx = _placement(4)
+            parts = place_shards(shard_tables(st_s, 4), ctx)
+        assert torch.equal(f_h, f_s), (mode, float((f_h - f_s).abs().max()))
+        for g in st_s:
+            for k in st_s[g]:
+                assert torch.equal(st_h[g][k], st_s[g][k]), (mode, g, k)
+        assert [p["uni"]["w"].device for p in parts] == list(ctx.devices)
+        assert list(ctx.devices) == places
+
+
+def test_mesh_sketch_service_unchanged(places):
+    """The sketch service under a bound mesh runs its kernel as unplaced,
+    bit for bit."""
+    from repro_torch.distributed.sharding import flow_mesh
+    svc, snap, c0, ev = _mesh_service(places[0], state_backend="sketch",
+                                      state_kw={"rows": 2})
+    want = svc.process_stream(ev, chunk=1024)
+    svc.state, svc.pkt_count = clone_state(snap), c0
+    reset_launch_counts()
+    with flow_mesh(devices=places):
+        got = svc.process_stream(ev, chunk=1024)
+    assert launch_counts()["sketch_update"] == 2
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+
+
+def test_mesh_engine_matches_unplaced(places):
+    """Four tenants through an engine built under the mesh: tenant t's
+    tables on places[t % D] for the engine's life, never moved; one
+    ``fc_full`` and one ``kitnet_score`` launch a place a batch; results,
+    end states and collision counts those of the unplaced engine."""
+    from repro_torch.distributed.sharding import flow_mesh
+    from repro_torch.serving import DetectionEngine
+    svc, _, _, ev = _mesh_service(places[0])
+    traces = {t: {k: v[t * 100:] for k, v in ev.items()} for t in range(4)}
+
+    def engine():
+        eng = DetectionEngine.from_service(svc, n_tenants=4, chunk=512,
+                                           queue_depth=2)
+        assert [eng.add_tenant() for _ in range(4)] == [0, 1, 2, 3]
+        return eng
+
+    ref = engine()
+    want = ref.run(traces)
+    with flow_mesh(devices=places):
+        eng = engine()
+    pool = eng.pool.stacked
+    D = len(places)
+    ptrs = {}
+    for t in range(4):
+        p, local = pool.home(t)
+        assert p == t % D
+        w = pool.parts[p]["uni"]["w"]
+        assert w.device == places[p]
+        ptrs[t] = w[local].data_ptr()
+    reset_launch_counts()
+    got = eng.run(traces)
+    batches = -(-len(traces[0]["ts"]) // 512)
+    places_used = len({t % D for t in range(4)})
+    assert launch_counts()["fc_full"] == launch_counts()["kitnet_score"]
+    assert batches * places_used <= launch_counts()["fc_full"] <= (batches + 3) * places_used
+    for t in range(4):
+        for w, g in zip(want[t], got[t]):
+            np.testing.assert_array_equal(w, g)
+        p, local = pool.home(t)
+        assert pool.parts[p]["uni"]["w"][local].data_ptr() == ptrs[t]
+        mine, theirs = eng.pool.read(t), ref.pool.read(t)
+        for g in ("uni", "bi"):
+            for k in mine[g]:
+                assert torch.equal(mine[g][k].cpu(), theirs[g][k].cpu()), (t, g, k)
+        assert (eng.stats()["tenants"][t]["slot_collisions"]
+                == ref.stats()["tenants"][t]["slot_collisions"])
+
+
+def _other_cards():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards to launch on cuda:1 with cuda:0 current "
+                    f"({n} visible)")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _kernel_outputs(kernel: str, dev) -> list:
+    """One seeded call of ``kernel``'s wrapper on ``dev``; its outputs."""
+    from repro_torch.core.state import init_state_stacked
+    from repro_torch.kernels.feature_update import feature_update_full_tenants
+    tr = synth_trace("mirai", n_train=64, n_benign_eval=300, n_attack=300,
+                     seed=2)["eval"]
+    if kernel in ("fc_full", "sketch_update"):
+        kw = {"state_backend": "sketch", "rows": 2} if kernel == "sketch_update" else {}
+        fn = sketch_update_full if kernel == "sketch_update" else feature_update_full
+        st, f = fn(init_state(512, device=dev, **kw), to_torch(tr, dev))
+        return [f] + [st[g][k] for g in ("uni", "bi") for k in st[g]]
+    if kernel == "fc_full_tenants":
+        pool = init_state_stacked(4, 256, device=dev)
+        pk = to_torch({k: np.stack([v[:200], v[100:300]]) for k, v in tr.items()}, dev)
+        _, f = feature_update_full_tenants(pool, [3, 1], pk)
+        return [f] + [pool[g][k] for g in ("uni", "bi") for k in pool[g]]
+    if kernel == "feature_update":
+        g = torch.Generator().manual_seed(7)
+        slots = torch.randint(0, 128, (500,), generator=g).to(dev)
+        ts = torch.sort(torch.rand(500, generator=g) * 5)[0].to(dev)
+        lens = torch.randint(60, 1500, (500,), generator=g).float().to(dev)
+        table = {f: torch.full((128, 4), -1.0 if f == "last_t" else 0.0, device=dev)
+                 for f in TABLE_KEYS}
+        table, stats = feature_update(table, slots, ts, lens)
+        return [stats] + [table[k] for k in TABLE_KEYS]
+    if kernel == "kitnet_ae":
+        g = torch.Generator().manual_seed(3)
+        k, m, h, B = 7, 10, 8, 1000
+        x = torch.rand(B, k, m, generator=g).to(dev)
+        args = [(torch.randn(*s, generator=g) * 0.3).to(dev)
+                for s in ((k, m, h), (k, h), (k, h, m), (k, m))]
+        mask = (torch.rand(k, m, generator=g) > 0.2).float().to(dev)
+        return [kitnet_ensemble(x, *args, mask)]
+    if kernel == "kitnet_score":
+        X, args = _score_inputs(dev, 1000, 80, 14, 10, 8, seed=5)
+        return [kitnet_score(X, *args)]
+    q, k, v = _flash_inputs(dev, 1, 8, 4, 200, 200, 256, torch.bfloat16
+                            if kernel == "flash_attention_bf16" else torch.float32)
+    return [flash_attention(q, k, v, causal=True, window=64, softcap=50.0)]
+
+
+@pytest.mark.parametrize("kernel", ["fc_full", "fc_full_tenants", "feature_update",
+                                    "sketch_update", "kitnet_ae", "kitnet_score",
+                                    "flash_attention", "flash_attention_bf16"])
+def test_kernel_on_other_card_matches_cuda0(kernel):
+    """Each kernel launched on cuda:1 while cuda:0 is current: it launches
+    once, there (its outputs on cuda:1), the current device stays cuda:0,
+    and it gives the bits of the same launch on cuda:0."""
+    d0, d1 = _other_cards()
+    torch.cuda.set_device(d0)
+    want = _kernel_outputs(kernel, d0)
+    name = kernel.replace("_tenants", "").replace("_bf16", "")
+    reset_launch_counts()
+    got = _kernel_outputs(kernel, d1)
+    torch.cuda.synchronize(d1)
+    assert launch_counts()[name] == 1
+    assert torch.cuda.current_device() == 0
+    for w, g in zip(want, got):
+        assert g.device == d1
+        assert torch.equal(w.cpu(), g.cpu())

@@ -506,11 +506,13 @@ def test_single_tenant_engine_matches_jax_engine(jax_fitted):
 # ---------------------------------------------------------------------------
 def test_serving_import_graph_stays_detection_only():
     """Importing ``repro_torch.serving`` imports neither JAX nor the JAX
-    package, nor the LM stack (``repro_torch.models``/``configs``).  Runs
-    in a fresh interpreter so it is immune to import order."""
+    package, nor the LM stack (``repro_torch.models``/``configs``); the
+    placement rules (``repro_torch.distributed``) are allowed, as
+    ``repro.distributed`` is in the JAX package's test.  Runs in a fresh
+    interpreter so it is immune to import order."""
     allowed = ("repro_torch.core", "repro_torch.data", "repro_torch.detection",
-               "repro_torch.kernels", "repro_torch.serving",
-               "repro_torch.traffic", "repro_torch.device")
+               "repro_torch.distributed", "repro_torch.kernels",
+               "repro_torch.serving", "repro_torch.traffic", "repro_torch.device")
     code = ("import sys, repro_torch.serving\n"
             "print('\\n'.join(sorted(m for m in sys.modules\n"
             "    if m.split('.')[0] in ('jax', 'repro', 'repro_torch', 'jaxlib'))))\n")

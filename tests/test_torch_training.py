@@ -586,7 +586,7 @@ def test_launcher_mesh_raises(tmp_path):
     args = train_launcher.parser().parse_args(
         ["--arch", "gemma2-2b", "--reduced", "--mesh", "1x1", "--device", "cpu",
          "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="10c"):
+    with pytest.raises(NotImplementedError, match="12g"):
         train_launcher.train_lm(args)
     with pytest.raises(NotImplementedError):
         train_launcher.train_lm(argparse.Namespace(**{**vars(args), "mesh": "2x4"}))
