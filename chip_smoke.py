@@ -249,6 +249,24 @@ back-to-back call, which includes the wrapper's host overhead.
                aux and grad norm 1e-5 relative, the xLSTM's grad norm from
                step 2 on 5e-5; parameters within 2 * sum(lr), at most 1e-4
                past 1e-5 + 1e-5 |p|); no kernel launches.
+  lm_mesh — the LM stack placed over a mesh (places repeated on cuda:0,
+               and a card a place where the host has four): the placed train
+               step (gemma2-2b at full width cut to LM_MESH_LAYERS of 26
+               layers, bf16 compute, AdamW, ZeRO-1, 2x2, batch 8 x 128, 5
+               steps) against the one-device step at microbatches=2 within
+               train_resume's envelope; s a step both ways (median of steps
+               2-4), tokens/s, peak memory, bytes a place of the parameters
+               and of m and v, bytes handed between places a step, device
+               launches of the traced step 5.  moe_ffn_local at phi3.5-moe's
+               width (d 4096, 16 experts, top-2, d_ff_expert 6400, 4 x 512
+               tokens) on 2x4 places against the dense dispatch at capacity
+               factor 8 (forward 1e-4, gradients 1e-3), each dispatch's
+               dropped slots at the config's factor 1.25 and at 1.0.
+               Sequence-parallel decode (B=4, H=8, K=4, D=256, an 8192-token
+               cache) over 4 places against decode_attention (1e-4).
+               Reduced gemma2-2b's placed state saved on 2x2 and restored
+               on 4x1 and 1x1 bit for bit; the launcher's --mesh 2x2 at 1
+               layer.  The five kernels' counts stay 0.
 Then the kernel table line, the card line, and the result line last.  The
 phases' records also go to chiprun_out/chip_smoke.json.
 
@@ -257,6 +275,7 @@ script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -3000,6 +3019,367 @@ def phase_train_families_reference(log) -> None:
         raise RuntimeError(f"train_families_reference: kernels launched {launches}")
 
 
+# phase lm_mesh: the LM stack placed over a mesh.  The placed step's depth cut
+# (16 of gemma2-2b's 26 layers, P = 7.3 GB of float32 parameters): four
+# places on one card hold the parameters twice (replicated over data) and m
+# and v once (ZeRO-1), 4P; a replica's step adds its gathered copy, the bf16
+# copy, its gradients and the float32 sum, 3.5P, so 7.5P = 55 GB before
+# activations; the whole depth (P = 10.4 GB) would need 78 GB.  The launcher
+# runs 1 layer (P = 2.7 GB): it writes the whole state to disk twice (steps
+# 0 and 4), 8 GB a checkpoint.  The re-mesh case is reduced gemma2-2b.
+LM_MESH_LAYERS = 16
+LM_MESH_STEPS = 5          # steps 2-4 timed, step 5 traced
+LM_MESH_LAUNCHER_LAYERS = 1
+RESUME_TOL = dict(rtol=1e-5, atol=1e-6)     # phase train_resume's envelope
+MOE_FWD_TOL, MOE_GRAD_TOL = 1e-4, 1e-3     # tests/test_moe_dispatch.py
+SEQ_PAR_TOL = 1e-4                         # tests/test_distributed.py:106
+
+
+def block_bytes(placed_tree) -> list:
+    """Bytes each place holds of a tree of Placed leaves."""
+    from repro_torch import tree
+    leaves = tree.leaves(placed_tree)
+    return [sum(t.blocks[i].numel() * t.blocks[i].element_size() for t in leaves)
+            for i in range(len(leaves[0].blocks))]
+
+
+def mesh_train_setup(cfg, tc, D: int, M: int, devices, B: int, S: int):
+    """(model, placed step, placed state, rules) of a (D, M) mesh over
+    ``devices``, the state from seed tc.seed, as the launcher builds them."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.mesh_rules import make_rules
+    from repro_torch.distributed.params import batch_specs, opt_specs, param_specs
+    from repro_torch.distributed.sharding import AxisRules, P
+    from repro_torch.launch.mesh import make_host_mesh, mesh_shape_dict
+    from repro_torch.models import build_model
+    from repro_torch.training import init_train_state
+    from repro_torch.training.train_step import make_placed_train_step
+
+    model = build_model(cfg, device=devices[0])
+    mesh = make_host_mesh(D, M, devices=devices)
+    shp = ShapeConfig("cli", S, B, "train")
+    rules_d = make_rules(cfg, shp, model_size=M, dp_size=D)
+    rules = AxisRules(rules_d)
+    state = init_train_state(model, tc, tc.seed)
+    ps = param_specs(state["params"], cfg, rules, M)
+    os_ = opt_specs(state["opt"], ps, cfg, rules, mesh_shape_dict(mesh), tc.zero1)
+    step = make_placed_train_step(model, tc, mesh, {"params": ps, "opt": os_, "step": P()},
+                                  batch_specs(cfg, shp, rules))
+    return model, step, step.place_state(state), rules_d
+
+
+def lm_mesh_placed(cfg, tc, devices, batches) -> Tuple[dict, list]:
+    """One placed step a batch on (2, 2) over ``devices``, the last under
+    torch.profiler; the record and the final parameters gathered to
+    ``devices[0]``."""
+    import gc
+    from repro_torch import tree
+    from repro_torch.distributed.sharding import (gather, reset_transfer_counts,
+                                                  transfer_counts, use_rules)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, step, state, rules_d = mesh_train_setup(cfg, tc, 2, 2, devices, 8, 128)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    times, mets, moved = [], [], []
+
+    def one(b):
+        nonlocal state
+        reset_transfer_counts()
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        moved.append(transfer_counts())
+        mets.append({k: float(v) for k, v in met.items()})
+
+    with use_rules(rules_d):
+        for b in batches[:-1]:
+            one(b)
+        traced = traced_window(lambda: one(batches[-1]))
+    step_s = float(np.median(times[1:-1]))
+    rec = {"devices": [str(d) for d in devices], "setup_s": setup_s, "step_s": times,
+           "losses": [m["loss"] for m in mets], "grad_norms": [m["grad_norm"] for m in mets],
+           "step_s_median_untraced": step_s, "tokens_per_s": 8 * 128 / step_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "param_bytes_per_place": block_bytes(state["params"]),
+           "m_bytes_per_place": block_bytes(state["opt"]["m"]),
+           "v_bytes_per_place": block_bytes(state["opt"]["v"]),
+           "bytes_between_places_per_step": [c["between_places"] for c in moved],
+           "device_launches_traced_step": traced["device_events"],
+           "busy_share_traced_step": traced["busy_share_traced"],
+           "top_device_traced_step": traced["top_device"]}
+    final = [gather(p, devices[0]) for p in tree.leaves(state["params"])]
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, final
+
+
+def lm_mesh_moe(log_rec: dict, cfg=None, dev: str = "cuda", tokens=(4, 512)) -> None:
+    """moe_ffn_local at phi3.5-moe's full width (d 4096, 16 experts, top-2,
+    d_ff_expert 6400), one layer, 4 x 512 tokens, on (2, 4) places of
+    cuda:0: at capacity factor 8 against the dense dispatch (forward and
+    every gradient of sum(y^2) + 0.01 aux); at the config's own factor each
+    dispatch's dropped slots; forward ms of both."""
+    import dataclasses
+    import gc
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import flags
+    from repro_torch.distributed.sharding import (reset_transfer_counts,
+                                                  transfer_counts, use_rules)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+
+    cfg = cfg or get_arch("phi3.5-moe-42b-a6.6b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = {k: (v.detach() if torch.is_tensor(v) else {kk: vv.detach() for kk, vv in v.items()})
+         for k, v in moe.moe_init(gen, cfg, torch.float32).items()}
+    x = torch.randn((*tokens, cfg.d_model), generator=gen, device=dev) * 0.5
+    mesh = make_host_mesh(2, 4, devices=[dev] * 8)
+    rules = {"batch": ("data",), "experts": "model", "expert_cap": ("data",),
+             "ff": None, "fsdp": None}
+
+    def local():
+        return flags.use_local_moe_dispatch(mesh, ("data",), "model")
+
+    def run(c, ctx):
+        leaves = [t.clone().requires_grad_(True) for t in tree.leaves(p)]
+        xx = x.clone().requires_grad_(True)
+        with torch.enable_grad(), ctx:
+            y, aux = moe.moe_ffn(tree.unflatten(p, leaves), xx, c)
+            grads = torch.autograd.grad((y ** 2).sum() + 0.01 * aux, leaves + [xx])
+        return y.detach(), grads
+
+    cf8 = dataclasses.replace(cfg, capacity_factor=8.0)
+    with use_rules(rules):
+        y_d, g_d = run(cf8, contextlib.nullcontext())
+        reset_transfer_counts()
+        y_l, g_l = run(cf8, local())
+        moved = transfer_counts()["between_places"]
+        fwd_err = max_abs(y_l, y_d)
+        grad_err = [max_abs(a, b) for a, b in zip(g_l, g_d)]
+        grad_scale = [float(b.abs().max()) for b in g_d]
+        del g_d, g_l
+        gc.collect()
+        drops = {}
+        with torch.no_grad():
+            for cf in (cfg.capacity_factor, 1.0):
+                for name, ctx in (("dense", contextlib.nullcontext()), ("local", local())):
+                    with ctx, moe.count_drops() as dr:
+                        moe.moe_ffn(p, x, dataclasses.replace(cfg, capacity_factor=cf))
+                    drops[f"{name}_cf{cf}"] = [int(d) for d in dr]
+            ms = {"dense": cuda_ms(lambda: moe.moe_ffn(p, x, cf8), reps=3)}
+            with local():
+                ms["local"] = cuda_ms(lambda: moe.moe_ffn(p, x, cf8), reps=3)
+    log_rec["moe_local"] = {
+        "arch": cfg.name, "d_model": cfg.d_model, "experts": cfg.n_experts,
+        "top_k": cfg.top_k, "d_ff_expert": cfg.d_ff_expert,
+        "tokens": tokens[0] * tokens[1], "places": "2x4", "fwd_max_abs_err": fwd_err,
+        "grad_max_abs_err": grad_err, "grad_max_abs": grad_scale,
+        "bytes_between_places_fwd_bwd": moved,
+        "capacity_factor_own": cfg.capacity_factor, "dropped_slots": drops,
+        "slots": tokens[0] * tokens[1] * cfg.top_k, "fwd_ms_cf8": ms}
+    if not fwd_err <= MOE_FWD_TOL or not max(grad_err) <= MOE_GRAD_TOL:
+        raise RuntimeError(f"lm_mesh: local MoE dispatch against dense: forward {fwd_err}, "
+                           f"gradients {grad_err}")
+    if any(len(d) != 1 for d in drops.values()):
+        raise RuntimeError(f"lm_mesh: a dispatch not counted once: {drops}")
+    del p, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_mesh_seq_parallel(devices, shape=(4, 8, 4, 256, 8192)) -> dict:
+    """Sequence-parallel decode at gemma2-2b's decode shape (B=4, H=8, K=4,
+    D=256, an 8192-token cache, float32; JAX's combine has no softcap, so
+    the reference takes deepseek-7b's config, as tests/test_distributed.py)
+    over len(devices) places, against decode_attention."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.seq_parallel import make_seq_parallel_decode
+    from repro_torch.distributed.sharding import Mesh, NamedSharding, P, place
+    from repro_torch.models.attention import decode_attention
+
+    B, H, K, D, S = shape
+    dev = torch.device(devices[0])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, kc, vc = (torch.randn(s, generator=gen, device=dev)
+                 for s in ((B, 1, H, D), (B, S, K, D), (B, S, K, D)))
+    cache_len = torch.tensor([S, S * 3 // 4, S // 3 + 1, 17][:B], device=dev)
+    cfg = get_arch("deepseek-7b")
+    want = decode_attention(q, kc, vc, cfg, cache_len, window=0)
+    mesh = Mesh(devices, ("data",))
+    kv_spec = P(None, "data", None, None)
+    fn = make_seq_parallel_decode(mesh, ("data",), kv_spec, P(None, None, None, None))
+    kp, vp = (place(t, NamedSharding(mesh, kv_spec)) for t in (kc, vc))
+    got = fn(q, kp, vp, cache_len)
+    err = max_abs(got, want)
+    rec = {"devices": [str(d) for d in devices], "shape": [B, H, K, D, S],
+           "cache_len": cache_len.tolist(), "max_abs_err": err,
+           "ms": cuda_ms(lambda: fn(q, kp, vp, cache_len), reps=10),
+           "decode_attention_ms": cuda_ms(
+               lambda: decode_attention(q, kc, vc, cfg, cache_len, window=0), reps=10)}
+    if not err <= SEQ_PAR_TOL:
+        raise RuntimeError(f"lm_mesh: sequence-parallel decode against decode_attention: {err}")
+    return rec
+
+
+def lm_mesh_remesh(root: Path, dev: str = "cuda:0") -> dict:
+    """Reduced gemma2-2b's placed state (2x2 on cuda:0, ZeRO-1, after one
+    step) saved, then restored on 4x1 and 1x1 by their own specs: every
+    leaf bit for bit, every block its slice."""
+    from repro_torch import tree
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_arch, reduced
+    from repro_torch.distributed.mesh_rules import make_rules
+    from repro_torch.distributed.params import opt_specs, param_specs
+    from repro_torch.distributed.sharding import (AxisRules, Placed, gather,
+                                                  named_shardings, use_rules)
+    from repro_torch.launch.mesh import make_host_mesh, mesh_shape_dict
+    from repro_torch.training import CheckpointManager
+
+    cfg = reduced(get_arch("gemma2-2b"))
+    tc = TrainConfig(zero1=True, warmup_steps=1)
+    _, step, state, rules_d = mesh_train_setup(cfg, tc, 2, 2, [dev] * 4, 8, 32)
+    with use_rules(rules_d):
+        state, _ = step(state, train_batches(cfg.vocab, 8, 32, 1, 0, dev)[0])
+    mgr = CheckpointManager(str(root / "remesh"))
+    mgr.save(1, state)
+    saved = [gather(t, dev) if isinstance(t, Placed) else t for t in tree.leaves(state)]
+    out = {}
+    for D, M in ((4, 1), (1, 1)):
+        mesh = make_host_mesh(D, M, devices=[dev] * (D * M))
+        rules = AxisRules(make_rules(cfg, ShapeConfig("cli", 32, 8, "train"),
+                                     model_size=M, dp_size=D))
+        ps = param_specs(state["params"], cfg, rules, M)
+        os_ = opt_specs(state["opt"], ps, cfg, rules, mesh_shape_dict(mesh), tc.zero1)
+        os_["step"] = None
+        shardings = named_shardings(mesh, {"params": ps, "opt": os_, "step": None})
+        restored, _ = mgr.restore(state, shardings=shardings)
+        same = True
+        for t, want in zip(tree.leaves(restored), saved):
+            if isinstance(t, Placed):
+                same &= torch.equal(gather(t, dev), want) and all(
+                    torch.equal(t.blocks[i], want[t.slices(i)]) for i in range(D * M))
+            else:
+                same &= torch.equal(t, want)
+        out[f"{D}x{M}"] = same
+    if not all(out.values()):
+        raise RuntimeError(f"lm_mesh: re-meshed checkpoint differs: {out}")
+    return out
+
+
+def phase_lm_mesh(log) -> None:
+    """The LM stack placed over a mesh, places repeated on cuda:0 (and a
+    card a place where the host has four): the placed train step (gemma2-2b
+    at full width, LM_MESH_LAYERS layers, bf16 compute, AdamW, ZeRO-1, 2x2,
+    batch 8 x 128 from lm_batches(seed=0), LM_MESH_STEPS steps: 2-4 timed,
+    the last traced) against the one-device step at microbatches=2 within
+    RESUME_TOL, with the same timing and trace; moe_ffn_local at phi3.5-moe's
+    width; sequence-parallel decode at gemma2-2b's decode shape over 4
+    places; a re-meshed checkpoint; the launcher's --mesh 2x2.  The five
+    kernels' counts stay 0 (this path runs none of them)."""
+    import dataclasses
+    import gc
+    import io
+    import shutil
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import build_model
+    from repro_torch.training import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    cfg = dataclasses.replace(get_arch("gemma2-2b"), n_layers=LM_MESH_LAYERS)
+    tc = TrainConfig(zero1=True, warmup_steps=1)
+    batches = train_batches(cfg.vocab, 8, 128, LM_MESH_STEPS, tc.seed, "cuda")
+    cards = torch.cuda.device_count()
+    runs = {"one_card": ["cuda:0"] * 4}
+    if cards >= 4:
+        runs["card_a_place"] = [f"cuda:{i}" for i in range(4)]
+    rec = {"phase": "lm_mesh", "arch": cfg.name, "layers": cfg.n_layers,
+           "layers_full": get_arch("gemma2-2b").n_layers, "params": cfg.param_count(),
+           "batch": 8, "seq": 128, "mesh": "2x2", "optimizer": tc.optimizer,
+           "zero1": tc.zero1, "compute_dtype": tc.compute_dtype, "placed": {},
+           "cards": cards}
+    finals = {}
+    for name, devices in runs.items():
+        rec["placed"][name], finals[name] = lm_mesh_placed(cfg, tc, devices, batches)
+
+    # the one-device step at microbatches = 2 from the same seed and batches
+    ref_tc = dataclasses.replace(tc, microbatches=2)
+    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, ref_tc, ref_tc.seed)
+    step = make_train_step(model, ref_tc)
+    times, losses = [], []
+
+    def one(b):
+        nonlocal state
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+
+    for b in batches[:-1]:
+        one(b)
+    traced = traced_window(lambda: one(batches[-1]))
+    step_s = float(np.median(times[1:-1]))
+    rec["unplaced"] = {"step_s": times, "losses": losses,
+                       "step_s_median_untraced": step_s, "tokens_per_s": 8 * 128 / step_s,
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "device_launches_traced_step": traced["device_events"],
+                       "busy_share_traced_step": traced["busy_share_traced"]}
+    errs = {}
+    for name, final in finals.items():
+        e = max(max_abs(a, b) for a, b in zip(final, tree.leaves(state["params"])))
+        errs[name] = e
+        for a, b in zip(final, tree.leaves(state["params"])):
+            assert_close(a, b, f"lm_mesh {name}: placed vs one-device parameters", **RESUME_TOL)
+        pl = rec["placed"][name]["losses"]
+        if any(abs(a - b) > RESUME_TOL["rtol"] * abs(b) for a, b in zip(pl, losses)):
+            raise RuntimeError(f"lm_mesh {name}: losses {pl} against one-device {losses}")
+    rec["params_max_abs_err"] = errs
+    del state, step, model, finals
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lm_mesh_moe(rec)
+    rec["seq_parallel"] = {"one_card": lm_mesh_seq_parallel(["cuda:0"] * 4)}
+    if cards >= 4:
+        rec["seq_parallel"]["card_a_place"] = lm_mesh_seq_parallel(
+            [f"cuda:{i}" for i in range(4)])
+    root = Path(tempfile.mkdtemp(prefix="lm_mesh_"))
+    try:
+        rec["remesh_bitwise"] = lm_mesh_remesh(root)
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            train_main(["--arch", "gemma2-2b", "--mesh", "2x2", "--steps", "4",
+                        "--layers", str(LM_MESH_LAUNCHER_LAYERS), "--ckpt-every", "100",
+                        "--ckpt-dir", str(root / "launcher")])
+        line = out.getvalue().strip().splitlines()[-1]
+        rec["launcher"] = {"layers": LM_MESH_LAUNCHER_LAYERS, "line": line,
+                           "seconds": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["launches"] = launch_counts()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec, log)
+    if not line.startswith("steps=4 restarts=0 ") or "loss=nan" in line:
+        raise RuntimeError(f"lm_mesh: launcher line {line!r}")
+    if any(rec["launches"].values()):
+        raise RuntimeError(f"lm_mesh: kernels launched {rec['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def ensemble_designs(dev, x_sub, args, batches) -> dict:
     """kitnet_ae's two designs (csrc/kitnet_ae.cu), each forced, on the same
     inputs: their results equal bit for bit, and each one's device time a
@@ -3278,6 +3658,9 @@ def main() -> int:
     # ---- 8b. training of the MoE, hybrid, xLSTM, VLM and audio families ----
     phase_train_families(log)
     phase_train_families_reference(log)
+
+    # ---- 9. the LM stack placed over a mesh ----
+    phase_lm_mesh(log)
 
     # ---- report ----
     fc["launches"] = launches["fc_full"]

@@ -1,5 +1,7 @@
-"""Placement and training's distributed-optimization pieces: the Peregrine
-path's device mesh (``sharding``: ``flow_mesh``, the ``flow_shards`` and
-``tenants`` rules, ``ShardContext``), the remat policy context and int8
-error-feedback gradient compression.  The LM stack's mesh half of the JAX
-package's ``distributed/`` is not ported (ROADMAP queue 1 item 12g)."""
+"""Placement and training's distributed-optimization pieces: the device
+mesh (``sharding``: ``flow_mesh`` and the ``flow_shards`` and ``tenants``
+rules of the Peregrine path; the LM stack's specs, ``NamedSharding`` and
+``Placed`` blocks), ``mesh_rules.make_rules``, the parameter, optimizer
+(ZeRO-1), batch and cache specs (``params``), sequence-parallel decode
+(``seq_parallel``), the run-time flags (``flags``: local MoE dispatch), the
+remat policy context and int8 error-feedback gradient compression."""

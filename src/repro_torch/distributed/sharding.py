@@ -23,9 +23,17 @@ bucketed scans), ``local_chunks`` slices a place's chunks back out, and
 lying on place 0; every byte handed from one place to another is counted
 (:func:`transfer_counts`), whether or not the two places share a device.
 
-``lshard``, ``logical_spec`` and ``named_shardings`` serve the LM stack and
-wait for its mesh (ROADMAP queue 1 item 12g).  This module imports nothing
-of the JAX package.
+The LM half: ``P`` (a PartitionSpec: a mesh-axis name, a tuple of them or
+None a dimension), ``AxisRules.spec`` and ``logical_spec`` (logical names to
+a ``P``), ``NamedSharding`` and ``named_shardings``, and ``Placed``: a tensor
+held over the mesh as a spec cuts it, every place holding exactly its block
+(replicated axes give copies).  :func:`place` cuts a tensor into a
+``Placed``, :func:`gather` joins one again; both count the bytes they hand
+between places.  ``lshard`` checks a logical annotation's rank and returns
+its tensor unchanged: the port has no compiler that propagates layouts, so
+the placed step (``training/train_step.make_placed_train_step``) and
+``moe_ffn_local`` decide where each block lives.  This module imports
+nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -89,6 +97,14 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
+    def coords(self, place: int) -> Dict[str, int]:
+        """Place ``place``'s index along each axis (row-major)."""
+        out = {}
+        for a in reversed(self.axis_names):
+            out[a] = place % self.shape[a]
+            place //= self.shape[a]
+        return out
+
     def _key(self):
         return self.devices, self.axis_names, tuple(self.shape.values())
 
@@ -102,9 +118,32 @@ class Mesh:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
 
 
+def _canonical(entry):
+    """A spec entry as ``jax.sharding.PartitionSpec`` keeps it: a list or
+    tuple of one name is the name, an empty one None."""
+    if isinstance(entry, (list, tuple)):
+        entry = tuple(entry)
+        return None if not entry else entry[0] if len(entry) == 1 else entry
+    return entry
+
+
+class P(tuple):
+    """A PartitionSpec: for each dimension a mesh-axis name, a tuple of
+    them (the dimension cut over their product, row-major) or None."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (_canonical(e) for e in entries))
+
+    def __repr__(self):
+        return f"P{tuple(self)!r}"
+
+
 class AxisRules:
     def __init__(self, rules: Dict[str, Axis]):
         self.rules = dict(rules)
+
+    def spec(self, names: Sequence[Optional[str]]) -> P:
+        return P(*[self.rules.get(n) if n else None for n in names])
 
 
 class _State(threading.local):
@@ -216,6 +255,13 @@ def count_transfer(t: torch.Tensor, src: Optional[int], dst: int) -> None:
         _TRANSFERS["between_places"] += _nbytes(t)
 
 
+def hand(t: torch.Tensor, src: Optional[int], dst: int, device) -> torch.Tensor:
+    """``t`` on ``device``, counted as handed from place ``src`` (``None``:
+    the host) to place ``dst``."""
+    count_transfer(t, src, dst)
+    return _to(t, device)
+
+
 class ShardContext:
     """Resolved placement of a leading axis over the bound mesh axes.
 
@@ -251,8 +297,7 @@ class ShardContext:
     def to_place(self, t: torch.Tensor, dst: int, src: Optional[int] = 0
                  ) -> torch.Tensor:
         """``t`` on place ``dst``'s device, counted as handed from ``src``."""
-        count_transfer(t, src, dst)
-        return _to(t, self.devices[dst])
+        return hand(t, src, dst, self.devices[dst])
 
     def scatter(self, t: torch.Tensor) -> List[torch.Tensor]:
         """Each place's equal slice of ``t``'s leading axis, on its device."""
@@ -281,8 +326,7 @@ class ShardContext:
 
     def to_home(self, t: torch.Tensor, src: int, device) -> torch.Tensor:
         """Place ``src``'s ``t`` on ``device``, the caller's (place 0)."""
-        count_transfer(t, src, 0)
-        return _to(t, device)
+        return hand(t, src, 0, device)
 
     def join(self, parts: Sequence[torch.Tensor], device, dim: int = 0
              ) -> torch.Tensor:
@@ -363,3 +407,139 @@ def flow_mesh(n_devices: Optional[int] = None, axis: str = "data",
             {"flow_shards": axis, "tenants": axis} if rules is None
             else rules))
         yield mesh
+
+
+# ---------------------------------------------------------------------------
+# the LM half: logical specs, shardings and placed tensors
+# ---------------------------------------------------------------------------
+def logical_spec(names: Sequence[Optional[str]]) -> P:
+    r = _STATE.rules
+    if r is None:
+        return P(*[None] * len(names))
+    return r.spec(names)
+
+
+def lshard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
+    """JAX's sharding constraint on logical axis ``names``: with rules bound
+    it checks that ``x`` has one name a dimension, and returns ``x``
+    unchanged either way.  The port has no compiler to propagate a layout
+    from it; the placed step and ``moe_ffn_local`` place their blocks
+    themselves."""
+    if _STATE.rules is not None and x.dim() != len(names):
+        raise ValueError(f"lshard: {tuple(x.shape)} against names {names}")
+    return x
+
+
+class NamedSharding:
+    """A spec ``P`` bound to a ``Mesh`` (``jax.sharding.NamedSharding``)."""
+
+    def __init__(self, mesh: Mesh, spec: P):
+        self.mesh = mesh
+        self.spec = P(*spec)
+
+    def __eq__(self, other):
+        return (isinstance(other, NamedSharding) and self.mesh == other.mesh
+                and self.spec == other.spec)
+
+    def __hash__(self):
+        return hash((self.mesh, self.spec))
+
+    def __repr__(self):
+        return f"NamedSharding({self.spec!r}, {self.mesh!r})"
+
+
+def named_shardings(mesh: Mesh, t):
+    """``P`` leaves -> ``NamedSharding(mesh, spec)``; ``None`` leaves pass
+    through (nothing placed)."""
+    if isinstance(t, P):
+        return NamedSharding(mesh, t)
+    if isinstance(t, dict):
+        return {k: named_shardings(mesh, v) for k, v in t.items()}
+    if type(t) in (list, tuple):
+        return type(t)(named_shardings(mesh, v) for v in t)
+    return t
+
+
+def _spec_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def block_slices(sharding: NamedSharding, shape, place: int) -> Tuple[slice, ...]:
+    """The slices of a tensor of ``shape`` that place ``place`` holds.
+    Raises ``ValueError`` for a spec longer than the shape, an axis the mesh
+    lacks or names twice, or a dimension its axes do not divide."""
+    mesh, spec = sharding.mesh, sharding.spec
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {tuple(shape)}")
+    used = [a for e in spec for a in _spec_axes(e)]
+    if len(set(used)) != len(used) or not set(used) <= set(mesh.axis_names):
+        raise ValueError(f"spec {spec} against mesh axes {mesh.axis_names}")
+    coords = mesh.coords(place)
+    out = []
+    for dim, size in enumerate(shape):
+        n, idx = 1, 0
+        for a in _spec_axes(spec[dim] if dim < len(spec) else None):
+            idx = idx * mesh.shape[a] + coords[a]
+            n *= mesh.shape[a]
+        if size % n:
+            raise ValueError(f"dimension {dim} of {tuple(shape)} does not divide "
+                             f"over {n} places (spec {spec})")
+        b = size // n
+        out.append(slice(idx * b, (idx + 1) * b))
+    return tuple(out)
+
+
+class Placed:
+    """A tensor of ``shape`` held over ``sharding.mesh``: ``blocks[i]`` is
+    exactly place i's block as the spec cuts it, on ``mesh.devices[i]``
+    (places on a replicated axis hold copies of one block)."""
+
+    def __init__(self, blocks: List[torch.Tensor], shape, sharding: NamedSharding):
+        self.blocks = list(blocks)
+        self.shape = torch.Size(shape)
+        self.sharding = sharding
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    def slices(self, place: int) -> Tuple[slice, ...]:
+        return block_slices(self.sharding, self.shape, place)
+
+    def __repr__(self):
+        return f"Placed({tuple(self.shape)}, {self.dtype}, {self.sharding.spec!r})"
+
+
+def place(t: torch.Tensor, sharding: NamedSharding, src: Optional[int] = 0) -> Placed:
+    """``t`` cut by ``sharding``: every place gets its own copy of its
+    block on its device, counted as handed from place ``src`` (``None``:
+    the host)."""
+    mesh = sharding.mesh
+    blocks = []
+    for i, dev in enumerate(mesh.devices):
+        b = t[block_slices(sharding, t.shape, i)]
+        count_transfer(b, src, i)
+        blocks.append(b.to(dev, copy=True, memory_format=torch.contiguous_format,
+                           non_blocking=dev.type == "cuda"))
+    return Placed(blocks, t.shape, sharding)
+
+
+def gather(p: Placed, device, dst: Optional[int] = 0) -> torch.Tensor:
+    """The whole tensor on ``device``, counted as landing on place ``dst``
+    (``None``: the host, not counted): each block taken from ``dst`` where
+    it holds it, else from its first holder."""
+    out = torch.empty(p.shape, dtype=p.dtype, device=device)
+    done = set()
+    for i in range(len(p.blocks)):
+        sl = p.slices(i)
+        if sl in done:
+            continue
+        done.add(sl)
+        j = dst if dst is not None and p.slices(dst) == sl else i
+        if dst is not None:
+            count_transfer(p.blocks[j], j, dst)
+        out[sl].copy_(p.blocks[j])
+    return out
+

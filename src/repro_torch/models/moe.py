@@ -12,12 +12,16 @@ to row C of an (E, C + 1, d) buffer whose last row is then cut off (JAX's
 ``n_tokens * top_k * capacity_factor / n_experts`` rounded up to a multiple
 of 8, and at least 8.
 
-The mesh dispatch (JAX's ``moe_ffn_local``, a shard_map over an expert axis,
-and the ``flags.moe_dispatch()`` switch) waits for placement over several
-cards (ROADMAP queue 1 item 12g).
+Under ``flags.use_local_moe_dispatch(mesh, dp_axes, ep_axis)`` the FFN
+takes ``moe_ffn_local``, JAX's shard_map dispatch on the port's
+single-controller mesh: place (data d, expert shard e) routes its N/dp
+tokens into its own (E/ep, C_loc, d) slab, C_loc the capacity of N/dp
+tokens (so its drops differ from the dense dispatch's by design), runs its
+experts, and the token outputs sum over the EP axis at home.
 
 ``count_drops()`` collects each call's dropped token slots as 0-dim device
-tensors, without a wait on the card.
+tensors, without a wait on the card; a layer recomputed under remat is not
+counted again.
 """
 from __future__ import annotations
 
@@ -28,6 +32,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import flags
+from repro_torch.distributed.rematctx import recomputing
+from repro_torch.distributed.sharding import Mesh, current_rules, hand
 from repro_torch.models.layers import (act_fn, dense_init, mlp_fwd, mlp_init,
                                        normal_init)
 
@@ -85,8 +92,15 @@ def _dispatch_positions(expert_idx: torch.Tensor, n: int, k: int, E: int, C: int
     return flat_e, flat_t, pos, pos < C
 
 
+def _count(drops: torch.Tensor) -> None:
+    if _DROPS is not None and not recomputing():
+        _DROPS.append(drops)
+
+
 def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux loss, a 0-dim float32 tensor)."""
+    if flags.moe_dispatch() is not None:
+        return moe_ffn_local(p, x, cfg)
     B, S, d = x.shape
     N = B * S
     E, k = cfg.n_experts, cfg.top_k
@@ -94,8 +108,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Te
     xt = x.reshape(N, d)
     gate_vals, expert_idx, aux = _routing(xt, p["router"], cfg)
     flat_e, flat_t, pos, keep = _dispatch_positions(expert_idx, N, k, E, C)
-    if _DROPS is not None:
-        _DROPS.append((~keep).sum())
+    _count((~keep).sum())
 
     # dispatch: a dropped slot lands in row C, which is cut off
     buf = x.new_zeros((E, C + 1, d))
@@ -111,6 +124,109 @@ def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Te
     gathered = out_buf[flat_e, torch.clamp_max(pos, C - 1)]       # (N*k, d)
     w = (gate_vals.reshape(-1) * keep).to(x.dtype)
     y = (gathered * w[:, None]).reshape(N, k, d).sum(1)
+    if cfg.n_shared_experts:
+        y = y + mlp_fwd(p["shared"], x, cfg.act).reshape(N, d)
+    return y.reshape(B, S, d), aux
+
+
+def _place_of(mesh: Mesh, coords) -> int:
+    flat = 0
+    for a in mesh.axis_names:
+        flat = flat * mesh.shape[a] + coords.get(a, 0)
+    return flat
+
+
+def _dp_coords(mesh: Mesh, dp_axes, d: int):
+    out = {}
+    for a in reversed(dp_axes):
+        out[a] = d % mesh.shape[a]
+        d //= mesh.shape[a]
+    return out
+
+
+def moe_ffn_local(p, x: torch.Tensor, cfg: ArchConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's shard_map MoE on the ambient ``flags.moe_dispatch()`` mesh:
+    place (d, e) routes tokens [d N/dp, (d+1) N/dp) into its (E_loc, C_loc,
+    d) slab for experts [e E_loc, (e+1) E_loc), runs them and combines its
+    token slots; the outputs sum over e (the one collective) and ``aux`` is
+    the mean of the data places'.  Weights whose ``fsdp`` rule is bound are
+    cut over the data places too and gathered back on each place, as JAX's
+    explicit FSDP gather.  ``x`` and the weights come whole on the caller's
+    device (place 0); every copy between places is counted and carries
+    autograd.  Places off the data and EP axes are not run (they would
+    repeat place 0's)."""
+    mesh, dp_axes, ep_axis = flags.moe_dispatch()
+    B, S, d = x.shape
+    N = B * S
+    E, k = cfg.n_experts, cfg.top_k
+    ep = int(mesh.shape[ep_axis])
+    dp = 1
+    for a in dp_axes:
+        dp *= int(mesh.shape[a])
+    if E % ep or N % dp:
+        raise ValueError(f"moe_ffn_local: {E} experts over {ep} places, "
+                         f"{N} tokens over {dp}")
+    E_loc, N_loc = E // ep, N // dp
+    C_loc = capacity(cfg, N_loc)
+    rules = current_rules()
+    fsdp_sharded = (rules is not None and rules.rules.get("fsdp") is not None
+                    and d % dp == 0 and p["wi"].dim() == 3)
+    xt = x.reshape(N, d)
+    devs, home = mesh.devices, x.device
+
+    def weights(e, dst):
+        """Place dst's (E_loc, ...) slices of wi, wg, wo: its expert shard,
+        gathered over the data places under FSDP."""
+        out = []
+        for name in ("wi", "wg", "wo"):
+            w = p[name][e * E_loc:(e + 1) * E_loc]
+            if not fsdp_sharded:
+                out.append(hand(w, 0, dst, devs[dst]))
+                continue
+            if w.shape[1] % dp:
+                raise ValueError(f"moe_ffn_local: {name} dim 1 of {tuple(w.shape)} "
+                                 f"does not divide over {dp} data places")
+            n1 = w.shape[1] // dp
+            parts = []
+            for j in range(dp):                     # place (j, e)'s FSDP block
+                src = _place_of(mesh, {**_dp_coords(mesh, dp_axes, j), ep_axis: e})
+                blk = hand(w[:, j * n1:(j + 1) * n1], 0, src, devs[src])
+                parts.append(hand(blk, src, dst, devs[dst]))
+            out.append(torch.cat(parts, 1))
+        return out
+
+    ys, auxes, drops = [], [], []
+    for d_idx in range(dp):
+        y_d = None
+        for e in range(ep):
+            me = _place_of(mesh, {**_dp_coords(mesh, dp_axes, d_idx), ep_axis: e})
+            x_loc = hand(xt[d_idx * N_loc:(d_idx + 1) * N_loc], 0, me, devs[me])
+            wi, wg, wo = weights(e, me)
+            gates, idx, aux = _routing(x_loc, hand(p["router"], 0, me, devs[me]), cfg)
+            flat_e, flat_t, pos, keep = _dispatch_positions(idx, N_loc, k, E, C_loc)
+            local_e = flat_e - e * E_loc
+            mine = (local_e >= 0) & (local_e < E_loc) & keep
+            # scatter into this place's slab; slots not its own land in the
+            # row past its experts and the column past its capacity, cut off
+            buf = x_loc.new_zeros((E_loc + 1, C_loc + 1, d))
+            buf[torch.where(mine, local_e, E_loc),
+                torch.where(mine, pos, C_loc)] = x_loc[flat_t]
+            buf = buf[:E_loc, :C_loc]
+            h = torch.bmm(buf, wi)
+            h = act_fn(cfg.act)(torch.bmm(buf, wg)) * h
+            out = torch.bmm(h, wo)
+            vals = out[torch.clamp(local_e, 0, E_loc - 1), torch.clamp_max(pos, C_loc - 1)]
+            w = (gates.reshape(-1) * mine).to(x.dtype)
+            y_loc = hand((vals * w[:, None]).reshape(N_loc, k, d).sum(1), me, 0, home)
+            y_d = y_loc if y_d is None else y_d + y_loc
+            if e == 0:
+                auxes.append(hand(aux, me, 0, home))
+                drops.append(hand((~keep).sum(), me, 0, home))
+        ys.append(y_d)
+    _count(torch.stack(drops).sum())
+    y = torch.cat(ys, 0)
+    aux = torch.stack(auxes).sum() / dp
     if cfg.n_shared_experts:
         y = y + mlp_fwd(p["shared"], x, cfg.act).reshape(N, d)
     return y.reshape(B, S, d), aux

@@ -23,16 +23,28 @@ class Model:
     loss: Callable
 
 
+class _MetaGenerator(torch.Generator):
+    """A host generator whose draws land on the meta device: parameters
+    with shapes and dtypes and no storage."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     """The model's functions on ``device`` (``cuda`` unless given; raises
     without a card).  ``init_params(seed_or_generator=0, dtype=float32)``
-    draws its parameters on that device; ``loss(params, batch)`` is
-    ``transformer.lm_loss``."""
+    draws its parameters on that device (on ``"meta"``: shapes only, what
+    the spec functions of ``distributed/params.py`` read at full width);
+    ``loss(params, batch)`` is ``transformer.lm_loss``."""
     dev = resolve_device(device)
 
     def init_params(seed: Union[int, torch.Generator] = 0, dtype=torch.float32):
         gen = seed
-        if not isinstance(seed, torch.Generator):
+        if dev.type == "meta":
+            gen = _MetaGenerator()
+        elif not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
         return tf.init_params(gen, cfg, dtype)
 

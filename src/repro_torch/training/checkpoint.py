@@ -13,6 +13,11 @@ into ``<dir>/.tmp_step_<n>`` and ``os.replace``d into place, so a crash
 mid-save never corrupts the latest valid checkpoint.  ``save_async``
 copies every leaf to the host before it returns (a train step updates the
 state in place) and writes on a worker thread.
+
+A state placed over a mesh (``distributed.sharding.Placed`` leaves) is
+gathered to the host when it is saved, so its checkpoint is the same file;
+``restore(..., shardings=)`` cuts each leaf for the mesh its sharding names,
+which may differ from the mesh it was saved on (JAX's elastic re-mesh).
 """
 from __future__ import annotations
 
@@ -27,12 +32,15 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed.sharding import Placed, gather, place
 
 
 def _host_copies(state):
     """Key paths and a host copy of every leaf (bfloat16 as float32, which
     numpy cannot hold)."""
     def host(t):
+        if isinstance(t, Placed):
+            t = gather(t, "cpu", dst=None)
         t = torch.as_tensor(t).detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -105,10 +113,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, target, step: Optional[int] = None):
-        """Restore into the structure of ``target`` (a state tree of
-        tensors): new tensors with each target leaf's shape, dtype and
-        device.  Returns (state, step)."""
+    def restore(self, target, step: Optional[int] = None, shardings=None):
+        """Restore into the structure of ``target`` (a state tree of tensors
+        or ``Placed`` leaves): new leaves with each target leaf's shape and
+        dtype, on its device.  ``shardings``: a matching tree of
+        ``NamedSharding`` (or ``None``) leaves, the mesh to place each leaf
+        on; by default a ``Placed`` target leaf's own.  Returns (state,
+        step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -117,11 +128,18 @@ class CheckpointManager:
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         by_key = {k: data[f"a{i}"] for i, k in enumerate(manifest["keys"])}
+        leaves = tree.leaves(target)
+        shs = (tree.leaves(shardings) if shardings is not None
+               else [t.sharding if isinstance(t, Placed) else None for t in leaves])
+        if len(shs) != len(leaves):
+            raise ValueError(f"{len(shs)} shardings for {len(leaves)} leaves")
         out = []
-        for k, tgt in zip(tree.key_paths(target), tree.leaves(target)):
+        for k, tgt, sh in zip(tree.key_paths(target), leaves, shs):
             arr = by_key[k]
             if tuple(arr.shape) != tuple(tgt.shape):
                 raise ValueError(f"checkpoint leaf {k} has shape {arr.shape}, "
                                  f"the target {tuple(tgt.shape)}")
-            out.append(torch.from_numpy(arr).to(tgt.device, tgt.dtype))
+            t = torch.from_numpy(arr).to(tgt.dtype)
+            out.append(place(t, sh, src=None) if sh is not None
+                       else t.to(tgt.device))
         return tree.unflatten(target, out), step

@@ -1,6 +1,7 @@
 """Nested dicts (and lists) of tensors read as the JAX package's pytrees:
 leaves in ``jax.tree_util`` order (dict keys sorted), each with its key
-path, joined by "/" as the JAX package's checkpoints name it."""
+path, joined by "/" as the JAX package's checkpoints name it.  As in JAX, a
+subclass of tuple (a spec ``P``) is a leaf."""
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
@@ -9,7 +10,7 @@ from typing import Any, Callable, List, Tuple
 def _items(tree):
     if isinstance(tree, dict):
         return [(k, tree[k]) for k in sorted(tree)]
-    if isinstance(tree, (list, tuple)):
+    if type(tree) in (list, tuple):
         return list(enumerate(tree))
     return None
 

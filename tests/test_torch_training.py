@@ -583,13 +583,14 @@ def test_launcher_cpu_reduced(tmp_path, capsys):
 
 
 def test_launcher_mesh_raises(tmp_path):
+    """``--mesh`` runs (tests/test_torch_lm_mesh.py); a mesh that is not
+    DxM with positive sizes raises before anything is built."""
     args = train_launcher.parser().parse_args(
         ["--arch", "gemma2-2b", "--reduced", "--mesh", "1x1", "--device", "cpu",
          "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="12g"):
-        train_launcher.train_lm(args)
-    with pytest.raises(NotImplementedError):
-        train_launcher.train_lm(argparse.Namespace(**{**vars(args), "mesh": "2x4"}))
+    for bad in ("2", "2x", "0x2", "2x2x2", "axb"):
+        with pytest.raises(ValueError, match="DxM"):
+            train_launcher.train_lm(argparse.Namespace(**{**vars(args), "mesh": bad}))
 
 
 
