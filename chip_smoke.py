@@ -3030,6 +3030,13 @@ def phase_train_families_reference(log) -> None:
 LM_MESH_LAYERS = 16
 LM_MESH_STEPS = 5          # steps 2-4 timed, step 5 traced
 LM_MESH_LAUNCHER_LAYERS = 1
+LM_MESH_PROMPT = (4, 512)  # the placed prefill's batch and tokens
+LM_MESH_DECODE = 16        # teacher-forced decode steps after it
+LM_MESH_LOGIT_TOL = 1e-4   # placed prefill and decode against one device
+META_PEAK_TOL = 0.10       # the dry run's meta peak against the card's growth
+DRYRUN_CELLS = (("gemma2-2b", "train_4k", False), ("qwen2-vl-72b", "prefill_32k", False),
+                ("zamba2-2.7b", "long_500k", False), ("kimi-k2-1t-a32b", "decode_32k", True))
+DRYRUN_BUDGET_S = 120
 RESUME_TOL = dict(rtol=1e-5, atol=1e-6)     # phase train_resume's envelope
 MOE_FWD_TOL, MOE_GRAD_TOL = 1e-4, 1e-3     # tests/test_moe_dispatch.py
 SEQ_PAR_TOL = 1e-4                         # tests/test_distributed.py:106
@@ -3070,8 +3077,9 @@ def mesh_train_setup(cfg, tc, D: int, M: int, devices, B: int, S: int):
 
 def lm_mesh_placed(cfg, tc, devices, batches) -> Tuple[dict, list]:
     """One placed step a batch on (2, 2) over ``devices``, the last under
-    torch.profiler; the record and the final parameters gathered to
-    ``devices[0]``."""
+    torch.profiler.  The record (bytes between places a step by kind, the
+    growth of the card's allocated memory over one step) and the final
+    parameters gathered to ``devices[0]``."""
     import gc
     from repro_torch import tree
     from repro_torch.distributed.sharding import (gather, reset_transfer_counts,
@@ -3081,15 +3089,19 @@ def lm_mesh_placed(cfg, tc, devices, batches) -> Tuple[dict, list]:
     _, step, state, rules_d = mesh_train_setup(cfg, tc, 2, 2, devices, 8, 128)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    times, mets, moved = [], [], []
+    times, mets, moved, growth = [], [], [], []
 
     def one(b):
         nonlocal state
         reset_transfer_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, met = step(state, b)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        growth.append(torch.cuda.max_memory_allocated() - base)
         moved.append(transfer_counts())
         mets.append({k: float(v) for k, v in met.items()})
 
@@ -3102,10 +3114,13 @@ def lm_mesh_placed(cfg, tc, devices, batches) -> Tuple[dict, list]:
            "losses": [m["loss"] for m in mets], "grad_norms": [m["grad_norm"] for m in mets],
            "step_s_median_untraced": step_s, "tokens_per_s": 8 * 128 / step_s,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "step_growth_bytes": growth,
            "param_bytes_per_place": block_bytes(state["params"]),
            "m_bytes_per_place": block_bytes(state["opt"]["m"]),
            "v_bytes_per_place": block_bytes(state["opt"]["v"]),
            "bytes_between_places_per_step": [c["between_places"] for c in moved],
+           "bytes_by_kind_last_step": moved[-2]["bytes"],
+           "hand_overs_by_kind_last_step": moved[-2]["count"],
            "device_launches_traced_step": traced["device_events"],
            "busy_share_traced_step": traced["busy_share_traced"],
            "top_device_traced_step": traced["top_device"]}
@@ -3114,6 +3129,215 @@ def lm_mesh_placed(cfg, tc, devices, batches) -> Tuple[dict, list]:
     gc.collect()
     torch.cuda.empty_cache()
     return rec, final
+
+
+def lm_mesh_hold(cfg, tc, devices, batches) -> Tuple[dict, list]:
+    """The placed step of ``lm_mesh_placed`` again from the same seed and
+    batches, each step in its two halves (``compute_grads``, then
+    ``apply_grads``): at every step the one-device step's update (its
+    ``clip_grads`` and optimizer, on the state gathered whole) of the placed
+    step's own gradients, held against the placed update (the clip at place
+    0, AdamW on each place's ZeRO-1 block, the hand-overs) on every
+    parameter, first and second moment: bit for bit, else within RESUME_TOL
+    (a failure raises).  The record and the step-1 gradients on the host."""
+    import gc
+    from repro_torch import tree
+    from repro_torch.distributed.sharding import gather, use_rules
+    from repro_torch.training.optim import lr_schedule, make_optimizer
+    from repro_torch.training.train_step import clip_grads
+
+    t0 = time.perf_counter()
+    _, step, state, rules_d = mesh_train_setup(cfg, tc, 2, 2, devices, 8, 128)
+    _, opt_update = make_optimizer(tc)
+    dev = devices[0]
+    rec = {"steps": 0, "leaves": 0, "leaves_bitwise": 0, "max_abs_err": 0.0}
+    grads1 = None
+
+    def placed_leaves():
+        return [tree.leaves(state["params"]), tree.leaves(state["opt"]["m"]),
+                tree.leaves(state["opt"]["v"])]
+
+    with use_rules(rules_d):
+        for b in batches:
+            loss, met, grads = step.compute_grads(state["params"], b)
+            if grads1 is None:
+                grads1 = [g.cpu() for g in grads]
+            clipped, gn = clip_grads([g.clone() for g in grads], tc)
+            lr = lr_schedule(tc, state["step"])
+            want = [[], [], []]
+            for n, (p, m, v) in enumerate(zip(*placed_leaves())):
+                w = [gather(t, dev) for t in (p, m, v)]
+                opt_update([clipped[n]], {"m": [w[1]], "v": [w[2]],
+                                          "step": state["opt"]["step"]}, [w[0]], lr)
+                clipped[n] = None
+                for acc, t in zip(want, w):
+                    acc.append(t)
+            del clipped
+            state, met = step.apply_grads(state, loss, met, grads)
+            del grads
+            if not torch.equal(met["grad_norm"].to(gn.device), gn):
+                raise RuntimeError(f"lm_mesh hold: grad norm {met['grad_norm']} against {gn}")
+            for name, ws, ps in zip(("params", "m", "v"), want, placed_leaves()):
+                for n, (w, p) in enumerate(zip(ws, ps)):
+                    got = gather(p, dev)
+                    rec["leaves"] += 1
+                    if torch.equal(got, w):
+                        rec["leaves_bitwise"] += 1
+                        continue
+                    rec["max_abs_err"] = max(rec["max_abs_err"], max_abs(got, w))
+                    assert_close(got, w, f"lm_mesh hold step {rec['steps'] + 1}: placed {name} "
+                                 f"leaf {n} against the one-device update", **RESUME_TOL)
+            del want
+            rec["steps"] += 1
+    rec["update_bitwise"] = rec["leaves"] == rec["leaves_bitwise"]
+    rec["seconds"] = time.perf_counter() - t0
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, grads1
+
+
+def lm_mesh_meta_peak(cfg, tc) -> dict:
+    """The dry run's count of the same placed step (2x2, batch 8 x 128) on
+    the meta device: the state placed from the host first, then one step
+    under ``launch/dryrun.PlaceCount``; its peak as one card holding every
+    place would hold it, and each place's."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.mesh_rules import make_rules
+    from repro_torch.distributed.params import batch_specs, opt_specs, param_specs
+    from repro_torch.distributed.sharding import AxisRules, P, use_rules
+    from repro_torch.launch.dryrun import PlaceCount, from_host
+    from repro_torch.launch.mesh import make_host_mesh, mesh_shape_dict
+    from repro_torch.launch.specs import abstract_state
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import make_placed_train_step
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(2, 2, devices=["meta"] * 4)
+    shp = ShapeConfig("cli", 128, 8, "train")
+    rules_d = make_rules(cfg, shp, model_size=2, dp_size=2)
+    rules = AxisRules(rules_d)
+    state = abstract_state(cfg, tc)
+    ps = param_specs(state["params"], cfg, rules, 2)
+    specs = {"params": ps, "opt": opt_specs(state["opt"], ps, cfg, rules,
+                                            mesh_shape_dict(mesh), tc.zero1), "step": P()}
+    step = make_placed_train_step(build_model(cfg, device="meta"), tc, mesh, specs,
+                                  batch_specs(cfg, shp, rules))
+    batch = {k: torch.empty((8, 128), dtype=torch.int64, device="meta")
+             for k in ("tokens", "labels")}
+    with use_rules(rules_d):
+        state = step.place_state(from_host(state, specs, mesh))
+        count = PlaceCount(mesh.size)
+        with count:
+            step(state, batch)
+    return {"peak_bytes_one_device": count.one_peak, "peak_bytes_per_place": count.peak,
+            "flops_per_place": count.flops, "seconds": time.perf_counter() - t0}
+
+
+def lm_mesh_prefill_decode(cfg, devices) -> dict:
+    """The placed prefill (LM_MESH_PROMPT, cache placed by cache_specs) and
+    LM_MESH_DECODE teacher-forced decode steps of ``cfg`` at full width on
+    (2, 2) places over ``devices``, against the one-device run (logits within
+    LM_MESH_LOGIT_TOL); the flash kernel per place against its plain version
+    at a place's shapes.  Flash launches of the placed prefill counted from
+    0: 16 layers x 2 replicas x 2 model places."""
+    import gc
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.mesh_rules import make_rules
+    from repro_torch.distributed.params import batch_specs, cache_specs, param_specs
+    from repro_torch import tree
+    from repro_torch.distributed.sharding import (AxisRules, NamedSharding, place,
+                                                  reset_transfer_counts, transfer_counts,
+                                                  use_rules)
+    from repro_torch.distributed.tensor_parallel import (make_placed_decode,
+                                                         make_placed_prefill)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import params_tree
+
+    B, S = LM_MESH_PROMPT
+    n_dec, dev = LM_MESH_DECODE, torch.device(devices[0])
+    Smax = S + n_dec                    # the cache: the prompt and every decoded token
+    model = build_model(cfg, device=dev)
+    params = params_tree(model.init_params(0))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (B, Smax), generator=gen, device=dev)
+    with torch.no_grad():
+        lg, _, cache = model.forward(params, {"tokens": toks[:, :S]}, build_cache=True,
+                                     max_seq=Smax)
+        want = [lg[:, -1].clone()]
+        del lg
+        for t in range(S, Smax):
+            lg, cache = model.decode_step(params, toks[:, t:t + 1], cache)
+            want.append(lg[:, 0])
+    ref_cache_k = cache["k"].clone()
+    del cache
+    gc.collect()
+    mesh = make_host_mesh(2, 2, devices=devices)
+    rules_d = make_rules(cfg, ShapeConfig("p", Smax, B, "prefill"), model_size=2, dp_size=2)
+    rules = AxisRules(rules_d)
+    ps = param_specs(params, cfg, rules, 2)
+    cs = cache_specs(model.init_cache(1, 1, torch.float32), cfg, rules)
+    got, times = [], {}
+    placed = tree.tree_map(lambda t, s: place(t, NamedSharding(mesh, s)), params, ps)
+    del params
+    gc.collect()
+    with use_rules(rules_d), torch.no_grad():
+        prefill = make_placed_prefill(cfg, mesh, ps, batch_specs(
+            cfg, ShapeConfig("p", S, B, "prefill"), rules), cs, max_seq=Smax)
+        decode = make_placed_decode(cfg, mesh, ps, rules.spec(("batch", None)))
+        reset_launch_counts()
+        reset_transfer_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, pcache = prefill(placed, {"tokens": toks[:, :S]})
+        torch.cuda.synchronize()
+        times["prefill_s"] = time.perf_counter() - t0
+        launches = launch_counts()
+        moved_prefill = transfer_counts()
+        got.append(lg[:, 0])
+        reset_transfer_counts()
+        t0 = time.perf_counter()
+        for t in range(S, Smax):
+            lg, pcache = decode(placed, toks[:, t:t + 1], pcache)
+            got.append(lg[:, 0])
+        torch.cuda.synchronize()
+        times["decode_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / n_dec
+        moved_decode = transfer_counts()
+    from repro_torch.distributed.sharding import gather
+    cache_err = max_abs(gather(pcache["k"], dev), ref_cache_k)
+    errs = [max_abs(a, b) for a, b in zip(got, want)]
+    # the kernel at a place's shapes: B/2 rows, H/2 q heads, K/2 kv heads
+    H, K, D = cfg.n_heads // 2, cfg.n_kv_heads // 2, cfg.hd
+    q = torch.randn((B // 2, H, S, D), generator=gen, device=dev)
+    kv = [torch.randn((B // 2, K, S, D), generator=gen, device=dev) for _ in range(2)]
+    kw = dict(causal=True, window=cfg.window, softcap=cfg.attn_softcap)
+    flash_err = max_abs(flash_attention(q, *kv, **kw), flash_attention_ref(q, *kv, **kw))
+    rec = {"batch": B, "prompt": S, "decode_steps": n_dec, "tol": LM_MESH_LOGIT_TOL,
+           "logits_max_abs_err": max(errs), "prefill_logits_err": errs[0],
+           "cache_k_err": cache_err, "flash_launches_prefill": launches["flash_attention"],
+           "launches_prefill": launches,
+           "bytes_between_places_prefill": moved_prefill["between_places"],
+           "bytes_by_kind_prefill": moved_prefill["bytes"],
+           "bytes_between_places_decode_per_step": moved_decode["between_places"] / n_dec,
+           "flash_per_place": {"shape": {"B": B // 2, "H": H, "K": K, "S": S, "D": D, **kw},
+                               "max_abs_err": flash_err}, **times}
+    want_launches = cfg.n_layers * 2 * 2
+    if (max(errs) > LM_MESH_LOGIT_TOL or cache_err > LM_MESH_LOGIT_TOL
+            or not all(bool(torch.isfinite(t).all()) for t in got)):
+        raise RuntimeError(f"lm_mesh: placed prefill/decode against one device: {errs}, "
+                           f"cache {cache_err}")
+    if launches["flash_attention"] != want_launches:
+        raise RuntimeError(f"lm_mesh: the placed prefill launched flash "
+                           f"{launches['flash_attention']} times, not {want_launches}")
+    if not flash_err <= LM_REF_TOL:
+        raise RuntimeError(f"lm_mesh: flash at a place's shapes against plain: {flash_err}")
+    del placed, pcache, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def lm_mesh_moe(log_rec: dict, cfg=None, dev: str = "cuda", tokens=(4, 512)) -> None:
@@ -3269,16 +3493,26 @@ def lm_mesh_remesh(root: Path, dev: str = "cuda:0") -> dict:
     return out
 
 
-def phase_lm_mesh(log) -> None:
+def phase_lm_mesh(log) -> int:
     """The LM stack placed over a mesh, places repeated on cuda:0 (and a
-    card a place where the host has four): the placed train step (gemma2-2b
-    at full width, LM_MESH_LAYERS layers, bf16 compute, AdamW, ZeRO-1, 2x2,
-    batch 8 x 128 from lm_batches(seed=0), LM_MESH_STEPS steps: 2-4 timed,
-    the last traced) against the one-device step at microbatches=2 within
-    RESUME_TOL, with the same timing and trace; moe_ffn_local at phi3.5-moe's
-    width; sequence-parallel decode at gemma2-2b's decode shape over 4
-    places; a re-meshed checkpoint; the launcher's --mesh 2x2.  The five
-    kernels' counts stay 0 (this path runs none of them)."""
+    card a place where the host has four): the placed train step with the
+    dense layers' compute split over the model places (gemma2-2b at full
+    width, LM_MESH_LAYERS layers, float32 compute, AdamW, ZeRO-1, 2x2, batch
+    8 x 128 from lm_batches(seed=0), LM_MESH_STEPS steps: 2-4 timed, the
+    last traced) against the one-device step at microbatches=2: every
+    step's loss and the step-1 gradients at the optimizer's scale within
+    RESUME_TOL, and at every step of a second run the placed update against
+    the one-device update of the same gradients (``lm_mesh_hold``; the
+    final parameters of the two runs' error reported beside: AdamW turns a
+    gradient's rounding below its eps into a step of lr |g| / eps); the
+    dry run's
+    meta peak of the same step against the card's growth (META_PEAK_TOL);
+    the placed prefill and LM_MESH_DECODE decode steps against one device,
+    flash per place; moe_ffn_local at phi3.5-moe's width; sequence-parallel
+    decode at gemma2-2b's decode shape over 4 places; a re-meshed
+    checkpoint; the launcher's --mesh 2x2.  The five kernels' counts stay 0
+    over the training paths; the placed prefill's flash launches are counted
+    apart.  Returns those launches."""
     import dataclasses
     import gc
     import io
@@ -3290,13 +3524,14 @@ def phase_lm_mesh(log) -> None:
     from repro_torch.launch.train import main as train_main
     from repro_torch.models import build_model
     from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.train_step import global_norm
 
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     reset_launch_counts()
     cfg = dataclasses.replace(get_arch("gemma2-2b"), n_layers=LM_MESH_LAYERS)
-    tc = TrainConfig(zero1=True, warmup_steps=1)
+    tc = TrainConfig(zero1=True, warmup_steps=1, compute_dtype="float32")
     batches = train_batches(cfg.vocab, 8, 128, LM_MESH_STEPS, tc.seed, "cuda")
     cards = torch.cuda.device_count()
     runs = {"one_card": ["cuda:0"] * 4}
@@ -3307,8 +3542,10 @@ def phase_lm_mesh(log) -> None:
            "batch": 8, "seq": 128, "mesh": "2x2", "optimizer": tc.optimizer,
            "zero1": tc.zero1, "compute_dtype": tc.compute_dtype, "placed": {},
            "cards": cards}
-    finals = {}
-    for name, devices in runs.items():
+    finals, grads1 = {}, {}
+    rec["hold"] = {}
+    for name, devices in runs.items():     # the hold first: it holds ~60 GiB on one card
+        rec["hold"][name], grads1[name] = lm_mesh_hold(cfg, tc, devices, batches)
         rec["placed"][name], finals[name] = lm_mesh_placed(cfg, tc, devices, batches)
 
     # the one-device step at microbatches = 2 from the same seed and batches
@@ -3317,6 +3554,17 @@ def phase_lm_mesh(log) -> None:
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(model, ref_tc, ref_tc.seed)
     step = make_train_step(model, ref_tc)
+    _, _, want1 = step.compute_grads(state["params"], batches[0])
+    want1 = tree.leaves(want1)
+    scale = min(1.0, ref_tc.grad_clip / float(global_norm(want1)))   # the clip's
+    grad_errs = {}
+    for name, gl in grads1.items():
+        for g, w in zip(gl, want1):
+            assert_close(g.to(w.device) * scale, w * scale,
+                         f"lm_mesh {name}: placed vs one-device step-1 gradients", **RESUME_TOL)
+        grad_errs[name] = max(max_abs(g.to(w.device), w) * scale for g, w in zip(gl, want1))
+    del want1, grads1
+    gc.collect()
     times, losses = [], []
 
     def one(b):
@@ -3336,20 +3584,38 @@ def phase_lm_mesh(log) -> None:
                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                        "device_launches_traced_step": traced["device_events"],
                        "busy_share_traced_step": traced["busy_share_traced"]}
-    errs = {}
+    rec["grads1_max_abs_err_at_clip_scale"] = grad_errs
+    params_err = {}
     for name, final in finals.items():
-        e = max(max_abs(a, b) for a, b in zip(final, tree.leaves(state["params"])))
-        errs[name] = e
-        for a, b in zip(final, tree.leaves(state["params"])):
-            assert_close(a, b, f"lm_mesh {name}: placed vs one-device parameters", **RESUME_TOL)
+        pairs = list(zip(final, tree.leaves(state["params"])))
+        params_err[name] = {
+            "max_abs_err": max(max_abs(a, b) for a, b in pairs),
+            "outside_envelope": sum(int(((a - b).abs() > RESUME_TOL["atol"]
+                                         + RESUME_TOL["rtol"] * b.abs()).sum())
+                                    for a, b in pairs),
+            "of": sum(b.numel() for _, b in pairs)}
         pl = rec["placed"][name]["losses"]
         if any(abs(a - b) > RESUME_TOL["rtol"] * abs(b) for a, b in zip(pl, losses)):
             raise RuntimeError(f"lm_mesh {name}: losses {pl} against one-device {losses}")
-    rec["params_max_abs_err"] = errs
+    rec["params_after_steps"] = params_err
     del state, step, model, finals
     gc.collect()
     torch.cuda.empty_cache()
+    train_launches = launch_counts()
 
+    meta = lm_mesh_meta_peak(cfg, tc)
+    card_growth = max(rec["placed"]["one_card"]["step_growth_bytes"][1:-1])
+    rec["meta_dry_run"] = {"peak_bytes_one_device": meta["peak_bytes_one_device"],
+                           "card_step_growth_bytes": card_growth,
+                           "ratio": meta["peak_bytes_one_device"] / card_growth,
+                           "peak_bytes_per_place": meta["peak_bytes_per_place"],
+                           "seconds": meta["seconds"]}
+    if abs(meta["peak_bytes_one_device"] / card_growth - 1) > META_PEAK_TOL:
+        raise RuntimeError(f"lm_mesh: the meta dry run's peak {meta['peak_bytes_one_device']} "
+                           f"against the card's step growth {card_growth}")
+
+    rec["prefill_decode"] = lm_mesh_prefill_decode(cfg, runs["one_card"])
+    reset_launch_counts()
     lm_mesh_moe(rec)
     rec["seq_parallel"] = {"one_card": lm_mesh_seq_parallel(["cuda:0"] * 4)}
     if cards >= 4:
@@ -3369,15 +3635,53 @@ def phase_lm_mesh(log) -> None:
                            "seconds": time.perf_counter() - t0}
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    rec["launches"] = launch_counts()
+    rec["launches"] = {k: train_launches[k] + v for k, v in launch_counts().items()}
     rec["seconds"] = time.perf_counter() - t_phase
+    one_card = rec["placed"]["one_card"]
+    rec["summary"] = {
+        "s_a_step_placed": one_card["step_s_median_untraced"],
+        "s_a_step_unplaced": rec["unplaced"]["step_s_median_untraced"],
+        "device_launches_traced_step": one_card["device_launches_traced_step"],
+        "bytes_between_places_a_step": one_card["bytes_between_places_per_step"][-2],
+        "bytes_by_kind": one_card["bytes_by_kind_last_step"],
+        "peak_gib": one_card["peak_mem_gib"],
+        "update_held_bitwise": rec["hold"]["one_card"]["update_bitwise"]}
     emit(rec, log)
     if not line.startswith("steps=4 restarts=0 ") or "loss=nan" in line:
         raise RuntimeError(f"lm_mesh: launcher line {line!r}")
     if any(rec["launches"].values()):
-        raise RuntimeError(f"lm_mesh: kernels launched {rec['launches']}")
+        raise RuntimeError(f"lm_mesh: kernels launched on the training paths {rec['launches']}")
     gc.collect()
     torch.cuda.empty_cache()
+    return rec["prefill_decode"]["flash_launches_prefill"]
+
+
+def phase_dryrun(log) -> None:
+    """The dry run (``launch/dryrun.py``) of four production cells on the
+    meta device, one replica of each run and the rest counted from it:
+    gemma2-2b train_4k and qwen2-vl-72b prefill_32k and zamba2-2.7b long_500k
+    on 16x16, kimi-k2 decode_32k on 2x16x16.  Each cell's record and
+    seconds printed (its lists a place only in the log, not printed); within
+    DRYRUN_BUDGET_S."""
+    from repro_torch.launch.dryrun import lower_cell
+
+    t0 = time.perf_counter()
+    cells = {}
+    for arch, shape, mp in DRYRUN_CELLS:
+        rec = lower_cell(arch, shape, mp, check_flops=False)
+        cells[f"{arch}__{shape}__{'multipod' if mp else 'singlepod'}"] = rec
+        brief = {k: v for k, v in rec.items() if k not in ("memory", "flops")}
+        brief["memory"] = {k: v for k, v in rec["memory"].items() if "per_place" not in k}
+        brief["flops"] = {k: v for k, v in rec["flops"].items() if k != "per_place"}
+        print(json.dumps({"dryrun_cell": brief}), flush=True)
+        if not (rec["flops"]["total"] > 0 and rec["memory"]["peak_bytes_largest_place"] > 0):
+            raise RuntimeError(f"dryrun: {arch} {shape} counted nothing: {brief}")
+    seconds = time.perf_counter() - t0
+    emit({"phase": "dryrun", "cells": list(cells), "seconds": seconds,
+          "cell_seconds": {k: r["seconds"] for k, r in cells.items()}}, log)
+    log.append({"phase": "dryrun_records", "records": cells})
+    if seconds > DRYRUN_BUDGET_S:
+        raise RuntimeError(f"dryrun: {seconds:.1f} s over the {DRYRUN_BUDGET_S} s budget")
 
 
 def ensemble_designs(dev, x_sub, args, batches) -> dict:
@@ -3659,8 +3963,9 @@ def main() -> int:
     phase_train_families(log)
     phase_train_families_reference(log)
 
-    # ---- 9. the LM stack placed over a mesh ----
-    phase_lm_mesh(log)
+    # ---- 9. the LM stack placed over a mesh, the dry run on the meta device ----
+    flash["launches"] += phase_lm_mesh(log)
+    phase_dryrun(log)
 
     # ---- report ----
     fc["launches"] = launches["fc_full"]

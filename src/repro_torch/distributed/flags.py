@@ -4,8 +4,8 @@ A port of the JAX package's ``distributed/flags.py``: three thread-local
 contexts and their readers.
   * ``use_scan_unroll``: JAX unrolls its layer scans for the dry run's cost
     analysis.  The port's layer loops are Python loops already, so the flag
-    changes nothing here; it is kept for the meta-device dry run (ROADMAP
-    item 12g(c)) to read.
+    changes nothing here: its meta-device dry run (``launch/dryrun.py``)
+    counts every layer as it runs.
   * ``use_local_moe_dispatch(mesh, dp_axes, ep_axis)``: ``models/moe.moe_ffn``
     takes ``moe_ffn_local``, each place routing its own tokens to its own
     experts, on the port's single-controller ``Mesh``.
@@ -30,8 +30,7 @@ _STATE = _State()
 
 @contextlib.contextmanager
 def use_scan_unroll(on: bool = True):
-    """Unroll the layer scans (read by the dry run; the port's loops are
-    unrolled already)."""
+    """Unroll the layer scans (the port's loops are unrolled already)."""
     prev = _STATE.scan_unroll
     _STATE.scan_unroll = on
     try:

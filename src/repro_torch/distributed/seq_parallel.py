@@ -22,25 +22,45 @@ from repro_torch.distributed.sharding import (Mesh, NamedSharding, P, Placed,
 NEG_INF = -1e30
 
 
-def _local_partial(q, k, v, start, cache_len, scale):
+def _local_partial(q, k, v, start, cache_len, scale, softcap: float = 0.0,
+                   window: int = 0):
     """Partial attention over a local KV slice.
 
     q: (B,H,d); k/v: (B,S_loc,K,d); start: global offset of this slice.
-    Returns (acc (B,H,d), m (B,H), l (B,H)), in float32.
+    ``softcap`` and ``window`` as ``models/attention.decode_attention``
+    applies them (0: none), for the model's decode; JAX's combine has
+    neither.  Returns (acc (B,H,d), m (B,H), l (B,H)), in float32.
     """
     B, H, hd = q.shape
     K = k.shape[2]
     G = H // K
     qg = q.reshape(B, K, G, hd).float()
     s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
     t = start + torch.arange(k.shape[1], device=q.device)[None, :]
-    ok = (t < cache_len[:, None])[:, None, None, :]
+    ok = t < cache_len[:, None]
+    if window > 0:
+        ok = ok & (t >= cache_len[:, None] - window)
+    ok = ok[:, None, None, :]
     s = torch.where(ok, s, NEG_INF)
     m = s.amax(-1)                                           # (B,K,G)
     p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(-1)
     acc = torch.einsum("bkgt,btkd->bkgd", p, v.float())
     return acc.reshape(B, H, hd), m.reshape(B, H), l.reshape(B, H)
+
+
+def lse_combine(parts) -> torch.Tensor:
+    """The (acc, m, l) partials of one query block, in sequence order and
+    on one device, combined: the global max, then the corrected sums.
+    Returns (B, H, d) in float32."""
+    accs, ms, ls = zip(*parts)
+    m_glob = torch.stack(ms).amax(0)
+    corr = [torch.exp(m - m_glob) for m in ms]
+    l_glob = sum(l * c for l, c in zip(ls, corr))
+    acc_glob = sum(a * c[..., None] for a, c in zip(accs, corr))
+    return acc_glob / torch.clamp_min(l_glob, 1e-30)[..., None]
 
 
 def make_seq_parallel_decode(mesh: Mesh, seq_axes, kv_spec: P, q_spec: P):
@@ -76,19 +96,13 @@ def make_seq_parallel_decode(mesh: Mesh, seq_axes, kv_spec: P, q_spec: P):
             for a in axes:
                 idx = idx * mesh.shape[a] + coords[a]
             kb = kp.blocks[i]
-            qb = hand(q[q_sl][:, 0], 0, i, dev)
-            cl = hand(cache_len, 0, i, dev)
+            qb = hand(q[q_sl][:, 0], 0, i, dev, "seq_q")
+            cl = hand(cache_len, 0, i, dev, "seq_q")
             part = _local_partial(qb, kb, vp.blocks[i], idx * kb.shape[1], cl, scale)
-            g["members"].append([hand(t, i, 0, home) for t in part])
+            g["members"].append([hand(t, i, 0, home, "seq_partial") for t in part])
         out = torch.empty(q.shape, dtype=q.dtype, device=home)
         for q_sl, g in groups.items():
-            accs, ms, ls = zip(*g["members"])
-            m_glob = torch.stack(ms).amax(0)
-            corr = [torch.exp(m - m_glob) for m in ms]
-            l_glob = sum(l * c for l, c in zip(ls, corr))
-            acc_glob = sum(a * c[..., None] for a, c in zip(accs, corr))
-            o = acc_glob / torch.clamp_min(l_glob, 1e-30)[..., None]
-            out[q_sl] = o[:, None].to(q.dtype)
+            out[q_sl] = lse_combine(g["members"])[:, None].to(q.dtype)
         return out
 
     return fn

@@ -31,9 +31,12 @@ held over the mesh as a spec cuts it, every place holding exactly its block
 ``Placed``, :func:`gather` joins one again; both count the bytes they hand
 between places.  ``lshard`` checks a logical annotation's rank and returns
 its tensor unchanged: the port has no compiler that propagates layouts, so
-the placed step (``training/train_step.make_placed_train_step``) and
-``moe_ffn_local`` decide where each block lives.  This module imports
-nothing of the JAX package.
+the placed steps (``training/train_step.make_placed_train_step``,
+``distributed/tensor_parallel.py``: the dense layers' compute split over the
+model axis, the placed prefill and decode) and ``moe_ffn_local`` decide
+where each block lives and runs.  ``at_place`` and ``work_scope`` say which
+place and which part of a step the work inside belongs to (the dry run's
+counts read them).  This module imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -104,6 +107,14 @@ class Mesh:
             out[a] = place % self.shape[a]
             place //= self.shape[a]
         return out
+
+    def place_at(self, coords: Dict[str, int]) -> int:
+        """The place at ``coords`` (an axis left out is at 0): the inverse
+        of :meth:`coords`."""
+        flat = 0
+        for a in self.axis_names:
+            flat = flat * self.shape[a] + coords.get(a, 0)
+        return flat
 
     def _key(self):
         return self.devices, self.axis_names, tuple(self.shape.values())
@@ -219,47 +230,148 @@ def without_rule(name: str):
 
 
 # ---------------------------------------------------------------------------
-# bytes handed between places
+# bytes handed between places, and the place a step's work runs on
 # ---------------------------------------------------------------------------
 _TRANSFERS = {"between_places": 0, "host_to_place": 0}
+_KIND_BYTES: Dict[str, int] = {}
+_KIND_COUNT: Dict[str, int] = {}
+_SCOPED: Dict[str, Dict[str, Dict[str, int]]] = {}
 
 
 def reset_transfer_counts() -> None:
     for k in _TRANSFERS:
         _TRANSFERS[k] = 0
+    _KIND_BYTES.clear()
+    _KIND_COUNT.clear()
+    _SCOPED.clear()
 
 
-def transfer_counts() -> Dict[str, int]:
-    """Bytes handed from one place to another, and from the host to a
-    place, since :func:`reset_transfer_counts`."""
-    return dict(_TRANSFERS)
+def transfer_counts() -> Dict:
+    """Bytes handed from one place to another (``between_places``) and from
+    the host to a place (``host_to_place``) since
+    :func:`reset_transfer_counts`; ``bytes`` and ``count`` split the
+    hand-overs between places by kind (the caller's name for what moved),
+    ``scoped`` the same inside each :func:`work_scope`."""
+    return {**_TRANSFERS, "bytes": dict(_KIND_BYTES), "count": dict(_KIND_COUNT),
+            "scoped": {k: {"bytes": dict(v["bytes"]), "count": dict(v["count"])}
+                       for k, v in _SCOPED.items()}}
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _to(t: torch.Tensor, device) -> torch.Tensor:
-    """``t`` on ``device``; a copy to a card does not wait for the host (a
-    copy to the CPU must)."""
-    device = torch.device(device)
-    return t.to(device, non_blocking=device.type == "cuda")
-
-
-def count_transfer(t: torch.Tensor, src: Optional[int], dst: int) -> None:
+def count_transfer(t: torch.Tensor, src: Optional[int], dst: int,
+                   kind: str = "other") -> None:
     """Count ``t``'s bytes as handed from place ``src`` (``None``: the host)
-    to place ``dst``; nothing when they are one place."""
+    to place ``dst``, under ``kind``; nothing when they are one place."""
     if src is None:
         _TRANSFERS["host_to_place"] += _nbytes(t)
     elif src != dst:
-        _TRANSFERS["between_places"] += _nbytes(t)
+        n = _nbytes(t)
+        _TRANSFERS["between_places"] += n
+        _KIND_BYTES[kind] = _KIND_BYTES.get(kind, 0) + n
+        _KIND_COUNT[kind] = _KIND_COUNT.get(kind, 0) + 1
+        if _PLACE.scope is not None:
+            sc = _SCOPED.setdefault(_PLACE.scope, {"bytes": {}, "count": {}})
+            sc["bytes"][kind] = sc["bytes"].get(kind, 0) + n
+            sc["count"][kind] = sc["count"].get(kind, 0) + 1
 
 
-def hand(t: torch.Tensor, src: Optional[int], dst: int, device) -> torch.Tensor:
+class _Place(threading.local):
+    def __init__(self):
+        self.place: Optional[int] = None      # the place whose share runs now
+        self.forced = False                   # a copy landing on ``place``
+        self.alias = False                    # ... that one card would not make
+        self.scope: Optional[str] = None      # the step's part running now
+
+
+_PLACE = _Place()
+
+
+@contextlib.contextmanager
+def work_scope(name: Optional[str]):
+    """The step's work inside is of part ``name``: ``"replica"`` (a data
+    replica's work on its own places) or ``"sink"`` (a replica's results
+    handed to place 0).  Hand-overs inside are counted apart too
+    (``transfer_counts()["scoped"]``); the dry run reads it to run one
+    replica of several alike (``launch/dryrun.py``)."""
+    prev = _PLACE.scope
+    _PLACE.scope = name
+    try:
+        yield
+    finally:
+        _PLACE.scope = prev
+
+
+def current_scope() -> Optional[str]:
+    return _PLACE.scope
+
+
+@contextlib.contextmanager
+def at_place(place: Optional[int], forced: bool = False, alias: bool = False):
+    """The work inside runs on mesh place ``place``: what it creates lives
+    there.  ``forced``: even what it makes from tensors of other places (a
+    copy landing on ``place``); ``alias``: a copy that places sharing one
+    card would not make (a hand-over on the meta device).  Read by the dry
+    run's memory count (``launch/dryrun.py``); nothing else depends on it."""
+    prev = _PLACE.place, _PLACE.forced, _PLACE.alias
+    _PLACE.place, _PLACE.forced, _PLACE.alias = place, forced, alias
+    try:
+        yield
+    finally:
+        _PLACE.place, _PLACE.forced, _PLACE.alias = prev
+
+
+def current_place() -> Tuple[Optional[int], bool, bool]:
+    """(the place set by :func:`at_place`, whether forced, whether an
+    alias)."""
+    return _PLACE.place, _PLACE.forced, _PLACE.alias
+
+
+def _to(t: torch.Tensor, device, copy: bool = False) -> torch.Tensor:
+    """``t`` on ``device``; a copy to a card does not wait for the host (a
+    copy to the CPU must)."""
+    device = torch.device(device)
+    return t.to(device, non_blocking=device.type == "cuda", copy=copy)
+
+
+class _Hand(torch.autograd.Function):
+    """A hand-over that carries autograd: the gradient goes back from
+    ``dst`` to ``src`` and is counted as handed, under ``kind + "_grad"``."""
+
+    @staticmethod
+    def forward(ctx, t, src, dst, device, kind):
+        ctx.back = (t.device, src, dst, kind)
+        out = _moved(t, src, dst, device)
+        return out.view_as(out) if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        device, src, dst, kind = ctx.back
+        count_transfer(g, dst, src, kind + "_grad")
+        return _moved(g, dst, src, device), None, None, None, None
+
+
+def _moved(t, src, dst, device) -> torch.Tensor:
+    """``t`` on ``device`` as it lands on place ``dst``.  On the meta device
+    (the dry run), a hand-over between two places is a new tensor, as it
+    would be between two cards; on one card it is the same memory."""
+    device = torch.device(device)
+    copy = device.type == "meta" and src != dst
+    with at_place(dst, forced=True, alias=copy):
+        return _to(t, device, copy=copy)
+
+
+def hand(t: torch.Tensor, src: Optional[int], dst: int, device,
+         kind: str = "other") -> torch.Tensor:
     """``t`` on ``device``, counted as handed from place ``src`` (``None``:
-    the host) to place ``dst``."""
-    count_transfer(t, src, dst)
-    return _to(t, device)
+    the host) to place ``dst`` under ``kind``; under autograd its gradient
+    is handed back, counted too."""
+    count_transfer(t, src, dst, kind)
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Hand.apply(t, src, dst, device, kind)
+    return _moved(t, src, dst, device)
 
 
 class ShardContext:
@@ -297,7 +409,7 @@ class ShardContext:
     def to_place(self, t: torch.Tensor, dst: int, src: Optional[int] = 0
                  ) -> torch.Tensor:
         """``t`` on place ``dst``'s device, counted as handed from ``src``."""
-        return hand(t, src, dst, self.devices[dst])
+        return hand(t, src, dst, self.devices[dst], "flow")
 
     def scatter(self, t: torch.Tensor) -> List[torch.Tensor]:
         """Each place's equal slice of ``t``'s leading axis, on its device."""
@@ -326,7 +438,7 @@ class ShardContext:
 
     def to_home(self, t: torch.Tensor, src: int, device) -> torch.Tensor:
         """Place ``src``'s ``t`` on ``device``, the caller's (place 0)."""
-        return hand(t, src, 0, device)
+        return hand(t, src, 0, device, "flow")
 
     def join(self, parts: Sequence[torch.Tensor], device, dim: int = 0
              ) -> torch.Tensor:
@@ -423,8 +535,8 @@ def lshard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
     """JAX's sharding constraint on logical axis ``names``: with rules bound
     it checks that ``x`` has one name a dimension, and returns ``x``
     unchanged either way.  The port has no compiler to propagate a layout
-    from it; the placed step and ``moe_ffn_local`` place their blocks
-    themselves."""
+    from it; the placed steps split the compute themselves
+    (``distributed/tensor_parallel.py``)."""
     if _STATE.rules is not None and x.dim() != len(names):
         raise ValueError(f"lshard: {tuple(x.shape)} against names {names}")
     return x
@@ -520,9 +632,10 @@ def place(t: torch.Tensor, sharding: NamedSharding, src: Optional[int] = 0) -> P
     blocks = []
     for i, dev in enumerate(mesh.devices):
         b = t[block_slices(sharding, t.shape, i)]
-        count_transfer(b, src, i)
-        blocks.append(b.to(dev, copy=True, memory_format=torch.contiguous_format,
-                           non_blocking=dev.type == "cuda"))
+        count_transfer(b, src, i, "place")
+        with at_place(i, forced=True):
+            blocks.append(b.to(dev, copy=True, memory_format=torch.contiguous_format,
+                               non_blocking=dev.type == "cuda"))
     return Placed(blocks, t.shape, sharding)
 
 
@@ -530,7 +643,8 @@ def gather(p: Placed, device, dst: Optional[int] = 0) -> torch.Tensor:
     """The whole tensor on ``device``, counted as landing on place ``dst``
     (``None``: the host, not counted): each block taken from ``dst`` where
     it holds it, else from its first holder."""
-    out = torch.empty(p.shape, dtype=p.dtype, device=device)
+    with at_place(dst, forced=True):
+        out = torch.empty(p.shape, dtype=p.dtype, device=device)
     done = set()
     for i in range(len(p.blocks)):
         sl = p.slices(i)
@@ -539,7 +653,7 @@ def gather(p: Placed, device, dst: Optional[int] = 0) -> torch.Tensor:
         done.add(sl)
         j = dst if dst is not None and p.slices(dst) == sl else i
         if dst is not None:
-            count_transfer(p.blocks[j], j, dst)
+            count_transfer(p.blocks[j], j, dst, "gather")
         out[sl].copy_(p.blocks[j])
     return out
 

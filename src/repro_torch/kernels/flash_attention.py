@@ -38,7 +38,12 @@ pointers, as TMA takes them), so the model's (B, S, H, D) projections go
 in as transposed views without a copy.
 
 For CPU tensors the wrapper runs :func:`flash_attention_ref`; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises.  The launch is the custom op
+``torch.ops.repro_torch.flash_attention`` (registered here; nothing is
+built at import), whose fake version gives the output's shape on the meta
+device without an S x S score tensor, and whose FLOP formula (4 B H Sq Sk
+D, ``torch.utils.flop_counter``'s for attention) the dry run counts: so
+the meta dry run takes the card's route.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.build import INT, VOIDP, CudaKernel
 
@@ -116,6 +122,50 @@ def _pad_head_dim(t: torch.Tensor, Dp: int) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: int, softcap: float, head_dim: int) -> torch.Tensor:
+    """The kernel on q (B, H, Sq, Dp), k/v (B, K, Sk, Dp) at a built head
+    dim Dp (``head_dim`` the true D, for the scale): (B, H, Sq, Dp), laid
+    out in memory as q is."""
+    B, H, Sq, Dp = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        step = 16 // t.element_size()        # TMA: 16-byte strides
+        if (t.stride(3) != 1 or any(s % step or s <= 0 for s in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must have a contiguous last dimension, "
+                             f"positive strides that are multiples of {step} "
+                             f"elements (16 bytes) and 16-byte alignment, got "
+                             f"strides {t.stride()}")
+    if B * H > 65535:
+        raise ValueError(f"B*H={B * H} exceeds the grid's 65535")
+    if Sq == 0:
+        return out
+    FLASH_ATTENTION.launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, H, K, Sq, Sk, Dp, head_dim,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        int(causal), int(window), float(softcap),
+        int(q.dtype == torch.bfloat16))
+    return out
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window, softcap, head_dim):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """4 B H Sq Sk D at the true head dim (the args' last), as the flop
+    counter counts attention: the mask's skipped pairs are not subtracted."""
+    B, H, Sq, _ = q_shape
+    head_dim = args[-1]
+    return 4 * B * H * Sq * k_shape[2] * head_dim
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, K, Sk, D) with H a multiple of K.
@@ -129,15 +179,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu, cuda or meta, not {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise ValueError("the flash kernel has no backward (nor has the JAX "
                          "package's flash_attention): its output would carry no "
                          "gradient; train through attn_impl='plain' (lm_loss's "
                          "default)")
-    B, H, Sq, D = q.shape
-    K, Sk = k.shape[1], k.shape[2]
+    D = q.shape[3]
     Dp = built_head_dim(D)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.device != q.device or t.dtype != q.dtype
@@ -146,23 +195,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                              f"like q, got {t.dtype} on {t.device}")
     if Dp != D:
         q, k, v = (_pad_head_dim(t, Dp) for t in (q, k, v))
-    out = torch.empty_like(q)
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        step = 16 // t.element_size()        # TMA: 16-byte strides
-        if (t.stride(3) != 1 or any(s % step or s <= 0 for s in t.stride()[:3])
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name} must have a contiguous last dimension, "
-                             f"positive strides that are multiples of {step} "
-                             f"elements (16 bytes) and 16-byte alignment, got "
-                             f"strides {t.stride()}")
-    if B * H > 65535:
-        raise ValueError(f"B*H={B * H} exceeds the grid's 65535")
-    if Sq == 0:
-        return out[..., :D]
-    FLASH_ATTENTION.launch(
-        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, K, Sq, Sk, Dp, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(causal), int(window), float(softcap),
-        int(q.dtype == torch.bfloat16))
+    out = torch.ops.repro_torch.flash_attention(q, k, v, bool(causal), int(window),
+                                                float(softcap), D)
     return out[..., :D]

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, softcap
 
@@ -46,12 +47,14 @@ def qkv_proj(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied:
     M-RoPE on positions (B, S, 3) where the config asks for it, else 1-D
-    RoPE on positions (B, S) (or on the first stream of (B, S, 3))."""
+    RoPE on positions (B, S) (or on the first stream of (B, S, 3)).  The
+    head counts are the weights' (a model place's share of them under the
+    split)."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = (x @ p["wq"]).reshape(B, S, -1, hd)
+    k = (x @ p["wk"]).reshape(B, S, -1, hd)
+    v = (x @ p["wv"]).reshape(B, S, -1, hd)
     if cfg.mrope:
         q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -183,8 +186,11 @@ def decode_attention(q, k_cache, v_cache, cfg: ArchConfig,
                      cache_len: torch.Tensor, window: Optional[int] = None):
     """Single-step decode. q: (B,1,H,d); caches: (B,Smax,K,d); cache_len:
     (B,).  Masks cache positions >= cache_len, and those before
-    cache_len - window."""
+    cache_len - window.  Caches cut along their positions over places
+    (``tensor_parallel.SeqCache``) attend by the partial-softmax combine."""
     window = cfg.window if window is None else window
+    if isinstance(k_cache, tensor_parallel.SeqCache):
+        return tensor_parallel.seq_attend(q, k_cache, v_cache, cfg, cache_len, window)
     B, _, H, hd = q.shape
     Smax, K = k_cache.shape[1], k_cache.shape[2]
     qg = _grouped(q, K).float()[:, 0]                      # (B,K,G,d)
@@ -203,3 +209,25 @@ def decode_attention(q, k_cache, v_cache, cfg: ArchConfig,
 def attn_out(p, o: torch.Tensor) -> torch.Tensor:
     B, S, H, hd = o.shape
     return o.reshape(B, S, H * hd) @ p["wo"]
+
+
+def self_attention(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                   attend, *extra):
+    """``qkv_proj`` -> ``attend(q, k, v, positions, *extra)`` -> ``attn_out``:
+    (the output, (k, v)).  With ``p`` cut by heads over the model places
+    (``tensor_parallel.Blocks``), each place runs it on its own heads (and
+    its pieces of any ``Blocks`` in ``extra``: its cache), the partial
+    outputs summed at home and (k, v) returned as each place's; with a
+    cache cut along its positions (``tensor_parallel.SeqCache``) it runs
+    once at home, its products split over the places.  One body either
+    way."""
+    def body(p, x, positions, *extra):
+        q, k, v = qkv_proj(p, x, cfg, positions)
+        kq, vq = tensor_parallel.kv_for_heads(k, v, q.shape[2], cfg)
+        return attn_out(p, attend(q, kq, vq, positions, *extra)), k, v
+
+    if any(isinstance(e, tensor_parallel.SeqCache) for e in extra):
+        out, k, v = body(p, x, positions, *extra)
+    else:
+        out, k, v = tensor_parallel.row_parallel(body, p, x, positions, *extra)
+    return out, (k, v)

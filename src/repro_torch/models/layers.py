@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel
+
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -138,11 +140,18 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype,
     return nn.ParameterDict(p)
 
 
-def mlp_fwd(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """x: (B, S, d); gated when ``p`` holds "wg", classic otherwise."""
+def _mlp_body(p, x: torch.Tensor, act: str):
     h = x @ p["wi"]
     if "wg" in p:
         h = act_fn(act)(x @ p["wg"]) * h
     else:
         h = act_fn(act)(h)
-    return h @ p["wo"]
+    return (h @ p["wo"],)
+
+
+def mlp_fwd(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """x: (B, S, d); gated when ``p`` holds "wg", classic otherwise.  With
+    ``p`` cut by ff over the model places (``tensor_parallel.Blocks``), each
+    place runs its columns of ``wi``/``wg`` and its rows of ``wo``, the
+    partial outputs summed at home."""
+    return tensor_parallel.row_parallel(_mlp_body, p, x, act)[0]

@@ -19,6 +19,13 @@ tokens into its own (E/ep, C_loc, d) slab, C_loc the capacity of N/dp
 tokens (so its drops differ from the dense dispatch's by design), runs its
 experts, and the token outputs sum over the EP axis at home.
 
+Inside a placed step whose experts are cut over the model places (a
+``tensor_parallel.Blocks``), ``moe_ffn`` takes ``moe_ffn_local`` too, its
+layout read from the blocks: the replica's tokens are one data shard (dp
+1, so C_loc = capacity(N) and the drops are the dense dispatch's of those
+tokens), each model place routes them and runs its E/M experts, the
+outputs summed at the replica's home.
+
 ``count_drops()`` collects each call's dropped token slots as 0-dim device
 tensors, without a wait on the card; a layer recomputed under remat is not
 counted again.
@@ -32,7 +39,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import flags
+from repro_torch.distributed import flags, tensor_parallel
 from repro_torch.distributed.rematctx import recomputing
 from repro_torch.distributed.sharding import Mesh, current_rules, hand
 from repro_torch.models.layers import (act_fn, dense_init, mlp_fwd, mlp_init,
@@ -99,7 +106,7 @@ def _count(drops: torch.Tensor) -> None:
 
 def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux loss, a 0-dim float32 tensor)."""
-    if flags.moe_dispatch() is not None:
+    if isinstance(p["wi"], tensor_parallel.Blocks) or flags.moe_dispatch() is not None:
         return moe_ffn_local(p, x, cfg)
     B, S, d = x.shape
     N = B * S
@@ -129,11 +136,27 @@ def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Te
     return y.reshape(B, S, d), aux
 
 
-def _place_of(mesh: Mesh, coords) -> int:
-    flat = 0
-    for a in mesh.axis_names:
-        flat = flat * mesh.shape[a] + coords.get(a, 0)
-    return flat
+def _experts_part(xt, flat_e, flat_t, pos, keep, gates, wi, wg, wo, e0: int,
+                  C: int, cfg: ArchConfig) -> torch.Tensor:
+    """One place's experts [e0, e0 + E_loc) (``wi``/``wg``/``wo`` its
+    (E_loc, ...) slices) on the token slots routed to them: the slots
+    scattered into its (E_loc, C, d) slab (others land in the row past its
+    experts and the column past its capacity, cut off), the three products,
+    and each token's gated outputs of its slots summed: (N, d), zero for a
+    token none of whose slots is here."""
+    N, d = xt.shape
+    E_loc = wi.shape[0]
+    local_e = flat_e - e0
+    mine = (local_e >= 0) & (local_e < E_loc) & keep
+    buf = xt.new_zeros((E_loc + 1, C + 1, d))
+    buf[torch.where(mine, local_e, E_loc), torch.where(mine, pos, C)] = xt[flat_t]
+    buf = buf[:E_loc, :C]
+    h = torch.bmm(buf, wi)
+    h = act_fn(cfg.act)(torch.bmm(buf, wg)) * h
+    out = torch.bmm(h, wo)
+    vals = out[torch.clamp(local_e, 0, E_loc - 1), torch.clamp_max(pos, C - 1)]
+    w = (gates.reshape(-1) * mine).to(xt.dtype)
+    return (vals * w[:, None]).reshape(N, cfg.top_k, d).sum(1)
 
 
 def _dp_coords(mesh: Mesh, dp_axes, d: int):
@@ -146,43 +169,63 @@ def _dp_coords(mesh: Mesh, dp_axes, d: int):
 
 def moe_ffn_local(p, x: torch.Tensor, cfg: ArchConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """JAX's shard_map MoE on the ambient ``flags.moe_dispatch()`` mesh:
-    place (d, e) routes tokens [d N/dp, (d+1) N/dp) into its (E_loc, C_loc,
-    d) slab for experts [e E_loc, (e+1) E_loc), runs them and combines its
-    token slots; the outputs sum over e (the one collective) and ``aux`` is
-    the mean of the data places'.  Weights whose ``fsdp`` rule is bound are
-    cut over the data places too and gathered back on each place, as JAX's
-    explicit FSDP gather.  ``x`` and the weights come whole on the caller's
-    device (place 0); every copy between places is counted and carries
-    autograd.  Places off the data and EP axes are not run (they would
-    repeat place 0's)."""
-    mesh, dp_axes, ep_axis = flags.moe_dispatch()
+    """JAX's shard_map MoE: place (d, e) routes tokens [d N/dp, (d+1) N/dp)
+    into its (E_loc, C_loc, d) slab for experts [e E_loc, (e+1) E_loc), runs
+    them and combines its token slots; the outputs sum over e (the one
+    collective) and ``aux`` is the mean of the data places'.  The places
+    are those of the ambient ``flags.moe_dispatch()`` mesh, ``x`` and the
+    weights whole on the caller's device (place 0), weights whose ``fsdp``
+    rule is bound cut over the data places too and gathered back on each
+    place, as JAX's explicit FSDP gather; or, inside a placed step's data
+    replica, the model places its experts are cut over
+    (``tensor_parallel.Blocks`` along E): dp 1, each place's experts already
+    assembled there, the replica's home the caller's place.  Every copy
+    between places is counted and carries autograd.  Places off the data
+    and EP axes are not run (they would repeat place 0's)."""
     B, S, d = x.shape
     N = B * S
     E, k = cfg.n_experts, cfg.top_k
-    ep = int(mesh.shape[ep_axis])
-    dp = 1
-    for a in dp_axes:
-        dp *= int(mesh.shape[a])
+    names = ("wi", "wg", "wo")
+    if isinstance(p["wi"], tensor_parallel.Blocks):
+        blocks = p["wi"]
+        if blocks.dim != 0:
+            raise ValueError(f"moe_ffn_local: experts cut along dimension {blocks.dim}")
+        dp, ep, home = 1, blocks.n, blocks.places[0]
+        devs = dict(zip(blocks.places, blocks.devices))
+        fsdp_sharded = False
+
+        def place_of(d_idx, e):
+            return blocks.places[e]
+    else:
+        mesh, dp_axes, ep_axis = flags.moe_dispatch()
+        ep, home, devs = int(mesh.shape[ep_axis]), 0, mesh.devices
+        dp = 1
+        for a in dp_axes:
+            dp *= int(mesh.shape[a])
+        rules = current_rules()
+        fsdp_sharded = (rules is not None and rules.rules.get("fsdp") is not None
+                        and d % dp == 0 and p["wi"].dim() == 3)
+
+        def place_of(d_idx, e):
+            return mesh.place_at({**_dp_coords(mesh, dp_axes, d_idx), ep_axis: e})
     if E % ep or N % dp:
         raise ValueError(f"moe_ffn_local: {E} experts over {ep} places, "
                          f"{N} tokens over {dp}")
     E_loc, N_loc = E // ep, N // dp
     C_loc = capacity(cfg, N_loc)
-    rules = current_rules()
-    fsdp_sharded = (rules is not None and rules.rules.get("fsdp") is not None
-                    and d % dp == 0 and p["wi"].dim() == 3)
     xt = x.reshape(N, d)
-    devs, home = mesh.devices, x.device
+    hdev = x.device
 
     def weights(e, dst):
         """Place dst's (E_loc, ...) slices of wi, wg, wo: its expert shard,
         gathered over the data places under FSDP."""
+        if isinstance(p["wi"], tensor_parallel.Blocks):
+            return [p[name].tensors[e] for name in names]
         out = []
-        for name in ("wi", "wg", "wo"):
+        for name in names:
             w = p[name][e * E_loc:(e + 1) * E_loc]
             if not fsdp_sharded:
-                out.append(hand(w, 0, dst, devs[dst]))
+                out.append(hand(w, home, dst, devs[dst], "moe"))
                 continue
             if w.shape[1] % dp:
                 raise ValueError(f"moe_ffn_local: {name} dim 1 of {tuple(w.shape)} "
@@ -190,9 +233,9 @@ def moe_ffn_local(p, x: torch.Tensor, cfg: ArchConfig
             n1 = w.shape[1] // dp
             parts = []
             for j in range(dp):                     # place (j, e)'s FSDP block
-                src = _place_of(mesh, {**_dp_coords(mesh, dp_axes, j), ep_axis: e})
-                blk = hand(w[:, j * n1:(j + 1) * n1], 0, src, devs[src])
-                parts.append(hand(blk, src, dst, devs[dst]))
+                src = place_of(j, e)
+                blk = hand(w[:, j * n1:(j + 1) * n1], home, src, devs[src], "moe")
+                parts.append(hand(blk, src, dst, devs[dst], "moe"))
             out.append(torch.cat(parts, 1))
         return out
 
@@ -200,29 +243,18 @@ def moe_ffn_local(p, x: torch.Tensor, cfg: ArchConfig
     for d_idx in range(dp):
         y_d = None
         for e in range(ep):
-            me = _place_of(mesh, {**_dp_coords(mesh, dp_axes, d_idx), ep_axis: e})
-            x_loc = hand(xt[d_idx * N_loc:(d_idx + 1) * N_loc], 0, me, devs[me])
+            me = place_of(d_idx, e)
+            x_loc = hand(xt[d_idx * N_loc:(d_idx + 1) * N_loc], home, me, devs[me], "moe")
             wi, wg, wo = weights(e, me)
-            gates, idx, aux = _routing(x_loc, hand(p["router"], 0, me, devs[me]), cfg)
+            gates, idx, aux = _routing(x_loc, hand(p["router"], home, me, devs[me], "moe"),
+                                       cfg)
             flat_e, flat_t, pos, keep = _dispatch_positions(idx, N_loc, k, E, C_loc)
-            local_e = flat_e - e * E_loc
-            mine = (local_e >= 0) & (local_e < E_loc) & keep
-            # scatter into this place's slab; slots not its own land in the
-            # row past its experts and the column past its capacity, cut off
-            buf = x_loc.new_zeros((E_loc + 1, C_loc + 1, d))
-            buf[torch.where(mine, local_e, E_loc),
-                torch.where(mine, pos, C_loc)] = x_loc[flat_t]
-            buf = buf[:E_loc, :C_loc]
-            h = torch.bmm(buf, wi)
-            h = act_fn(cfg.act)(torch.bmm(buf, wg)) * h
-            out = torch.bmm(h, wo)
-            vals = out[torch.clamp(local_e, 0, E_loc - 1), torch.clamp_max(pos, C_loc - 1)]
-            w = (gates.reshape(-1) * mine).to(x.dtype)
-            y_loc = hand((vals * w[:, None]).reshape(N_loc, k, d).sum(1), me, 0, home)
+            y_loc = hand(_experts_part(x_loc, flat_e, flat_t, pos, keep, gates, wi, wg, wo,
+                                       e * E_loc, C_loc, cfg), me, home, hdev, "moe")
             y_d = y_loc if y_d is None else y_d + y_loc
             if e == 0:
-                auxes.append(hand(aux, me, 0, home))
-                drops.append(hand((~keep).sum(), me, 0, home))
+                auxes.append(hand(aux, me, home, hdev, "moe"))
+                drops.append(hand((~keep).sum(), me, home, hdev, "moe"))
         ys.append(y_d)
     _count(torch.stack(drops).sum())
     y = torch.cat(ys, 0)

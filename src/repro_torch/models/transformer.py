@@ -39,6 +39,12 @@ families); ``{"attn_k", "attn_v": (apps,B,Smax,K,hd), "ssm": (L,B,nh,hp,ds),
 ``{"states": [per block {C, n, m} or {c, n, h, m}], "pos"}`` (xLSTM).
 ``decode_step`` updates the cache in place (the JAX function returns a new
 cache) and returns it with ``pos`` advanced.
+
+Inside a placed step the same functions take one data replica's view of the
+placed parameters, whose weights cut over the model axis are
+``distributed/tensor_parallel.Blocks``: the hooks there (the attention and
+MLP bodies, the embedding, the head, the cross-entropy, the caches) split
+the compute over the model places.
 """
 from __future__ import annotations
 
@@ -47,12 +53,12 @@ from types import SimpleNamespace
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import tree
 from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
                                       ArchConfig)
+from repro_torch.distributed import tensor_parallel
 from repro_torch.distributed.rematctx import maybe_remat
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -201,18 +207,22 @@ def embed_in(p: Transformer, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
     else:
         # F.embedding, not p.embed[tokens]: its backward sums a row's
         # gradients in one order (indexing's accumulates in parallel on the
-        # CPU, so two runs differ in the last bits)
-        x = F.embedding(batch["tokens"], p.embed)
+        # CPU, so two runs differ in the last bits); cut by vocab over the
+        # model places, each looks up its range
+        x = tensor_parallel.embedding(batch["tokens"], p.embed)
     if cfg.embed_scale:
         # a device fill, not a host tensor copied over (which waits on the card)
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
 
 
-def lm_head(p: Transformer, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def lm_head(p: Transformer, cfg: ArchConfig, x: torch.Tensor):
+    """The logits; with the head cut by vocab over the model places, each
+    place's columns (a ``tensor_parallel.Blocks``)."""
     x = rmsnorm(x, p.final_norm, cfg.norm_eps)
     w = p.embed.T if cfg.tie_embeddings else p.lm_head
-    return softcap(x @ w, cfg.final_softcap)
+    return tensor_parallel.column_parallel(
+        lambda w, x: softcap(x @ w, cfg.final_softcap), w, x)
 
 
 # ===========================================================================
@@ -236,11 +246,12 @@ def _prefill_impl(x: torch.Tensor, pos1d: torch.Tensor, explicit: bool,
     wherever "flash" is asked for; its masks are those of positions
     arange(S) + c per row (``pos1d``: the positions, or M-RoPE's first
     stream, which the masks read), checked once when the caller gave
-    positions.  Otherwise ("plain", or None on the CPU) the JAX package's
-    routing by length."""
+    positions (not on the meta device, which holds no values: the dry run
+    takes the card's route).  Otherwise ("plain", or None on the CPU) the
+    JAX package's routing by length."""
     _check_route(attn_impl)
-    if attn_impl == "flash" or (attn_impl is None and x.is_cuda):
-        if explicit and not attn.is_prefill_positions(pos1d, pos1d):
+    if attn_impl == "flash" or (attn_impl is None and (x.is_cuda or x.is_meta)):
+        if explicit and not x.is_meta and not attn.is_prefill_positions(pos1d, pos1d):
             raise ValueError("prefill through the flash kernel masks positions "
                              "arange(S) + c per row; pass attn_impl='plain' "
                              "for others")
@@ -248,15 +259,24 @@ def _prefill_impl(x: torch.Tensor, pos1d: torch.Tensor, explicit: bool,
     return "blockwise" if x.shape[1] >= attn.BLOCKWISE_THRESHOLD else "dense"
 
 
+def _pos1d(positions: torch.Tensor) -> torch.Tensor:
+    """The positions the masks read: M-RoPE's first stream."""
+    return positions if positions.dim() == 2 else positions[..., 0]
+
+
 def _layer(x: torch.Tensor, lp, cfg: ArchConfig, positions: torch.Tensor,
-           pos1d: torch.Tensor, window: int, impl: str):
+           window: int, impl: str):
     """One layer over the full sequence. Returns (x, k, v, the MoE aux loss
-    or None)."""
+    or None); under the split, k and v are each model place's."""
     h = rmsnorm(x, lp.ln1, cfg.norm_eps)
-    q, k, v = attn.qkv_proj(lp.attn, h, cfg, positions)
-    o = attn.attention(q, k, v, cfg, pos1d, pos1d,
-                       causal=cfg.causal, window=window, impl=impl)
-    x = x + attn.attn_out(lp.attn, o)
+
+    def attend(q, k, v, positions):
+        pos1d = _pos1d(positions)
+        return attn.attention(q, k, v, cfg, pos1d, pos1d,
+                              causal=cfg.causal, window=window, impl=impl)
+
+    a, (k, v) = attn.self_attention(lp.attn, h, cfg, positions, attend)
+    x = x + a
     h2 = rmsnorm(x, lp.ln2, cfg.norm_eps)
     if cfg.is_moe:
         f, aux = moe_mod.moe_ffn(lp.moe, h2, cfg)
@@ -265,26 +285,28 @@ def _layer(x: torch.Tensor, lp, cfg: ArchConfig, positions: torch.Tensor,
 
 
 def _attn_stack_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
-                     positions: torch.Tensor, pos1d: torch.Tensor, impl: str,
+                     positions: torch.Tensor, impl: str,
                      build_cache: bool, max_seq: int = 0):
     """All layers over the full sequence. Returns (x, aux, cache or None);
-    aux sums the layers' MoE losses (0 without experts)."""
+    aux sums the layers' MoE losses (0 without experts).  The cache's keys
+    and values are in x's dtype (under the split, each model place's:
+    ``tensor_parallel.new_kv_cache``)."""
     B, S, _ = x.shape
     cache = None
-    if build_cache:
-        shape = (cfg.n_layers, B, max(max_seq, S), cfg.n_kv_heads, cfg.hd)
-        cache = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
-                 "v": torch.zeros(shape, dtype=x.dtype, device=x.device),
-                 "pos": S}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layer = maybe_remat(_layer)
     for i, (lp, window) in enumerate(zip(p.layers, _per_layer_windows(cfg))):
-        x, k, v, a = layer(x, lp, cfg, positions, pos1d, window, impl)
+        x, k, v, a = layer(x, lp, cfg, positions, window, impl)
         if a is not None:
             aux = aux + a
-        if cache is not None:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+        if build_cache:
+            if cache is None:
+                cache = {n: tensor_parallel.new_kv_cache(t, cfg.n_layers, max(max_seq, S),
+                                                         x.dtype, cfg)
+                         for n, t in (("k", k), ("v", v))}
+                cache["pos"] = S
+            tensor_parallel.write_prefill_kv(cache["k"], i, k, S)
+            tensor_parallel.write_prefill_kv(cache["v"], i, v, S)
     return x, aux, cache
 
 
@@ -297,7 +319,10 @@ def _decode_positions(cfg: ArchConfig, pos: int, B: int, device) -> torch.Tensor
 def _write_kv(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, pos: int) -> None:
     """One token's keys and values into caches (B, Smax, K, hd) at ``pos``
-    (the last row past the end: JAX clamps the update slice)."""
+    (the last row past the end: JAX clamps the update slice); a cache cut
+    along its positions writes on the places that hold ``pos``."""
+    if isinstance(kc, tensor_parallel.SeqCache):
+        return tensor_parallel.seq_write(kc, vc, k, v, pos)
     at = min(pos, kc.shape[1] - 1)
     kc[:, at] = k[:, 0].to(kc.dtype)
     vc[:, at] = v[:, 0].to(vc.dtype)
@@ -312,11 +337,14 @@ def _attn_stack_decode(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
     cache_len = torch.full((B,), pos + 1, dtype=torch.long, device=x.device)
     for i, (lp, window) in enumerate(zip(p.layers, _per_layer_windows(cfg))):
         h = rmsnorm(x, lp.ln1, cfg.norm_eps)
-        q, k, v = attn.qkv_proj(lp.attn, h, cfg, positions)
-        kc, vc = cache["k"][i], cache["v"][i]
-        _write_kv(kc, vc, k, v, pos)
-        o = attn.decode_attention(q, kc, vc, cfg, cache_len, window=window)
-        x = x + attn.attn_out(lp.attn, o)
+
+        def attend(q, k, v, positions, kc, vc, cache_len, window=window):
+            _write_kv(kc, vc, k, v, pos)
+            return attn.decode_attention(q, kc, vc, cfg, cache_len, window=window)
+
+        a, _ = attn.self_attention(lp.attn, h, cfg, positions, attend,
+                                   cache["k"][i], cache["v"][i], cache_len)
+        x = x + a
         h2 = rmsnorm(x, lp.ln2, cfg.norm_eps)
         if cfg.is_moe:
             x = x + moe_mod.moe_ffn(lp.moe, h2, cfg)[0]
@@ -356,18 +384,22 @@ def _shared_attn_apply(sp, cfg: ArchConfig, x: torch.Tensor,
     the caches ``kv`` = (k, v) (B, Smax, K, hd), written at ``pos`` in
     place."""
     h = rmsnorm(x, sp.ln1, cfg.norm_eps)
-    q, k, v = attn.qkv_proj(sp.attn, h, cfg, positions)
     if kv is None:
-        pos1d = positions if positions.dim() == 2 else positions[..., 0]
-        o = attn.attention(q, k, v, cfg, pos1d, pos1d, impl=impl)
+        def attend(q, k, v, positions):
+            pos1d = _pos1d(positions)
+            return attn.attention(q, k, v, cfg, pos1d, pos1d, impl=impl)
+
+        a, (k, v) = attn.self_attention(sp.attn, h, cfg, positions, attend)
     else:
-        kc, vc = kv
-        _write_kv(kc, vc, k, v, pos)
+        def attend(q, k, v, positions, kc, vc, cache_len):
+            _write_kv(kc, vc, k, v, pos)
+            return attn.decode_attention(q, kc, vc, cfg, cache_len)
+
         cache_len = torch.full((x.shape[0],), pos + 1, dtype=torch.long,
                                device=x.device)
-        o = attn.decode_attention(q, kc, vc, cfg, cache_len)
-        k, v = kc, vc
-    x = x + attn.attn_out(sp.attn, o)
+        a, _ = attn.self_attention(sp.attn, h, cfg, positions, attend, *kv, cache_len)
+        k, v = kv
+    x = x + a
     h2 = rmsnorm(x, sp.ln2, cfg.norm_eps)
     return x + mlp_fwd(sp.mlp, h2, cfg.act), (k, v)
 
@@ -394,22 +426,24 @@ def _hybrid_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
     ``attn_every``-th.  The cache's keys and values are in x's dtype."""
     B, S, _ = x.shape
     if build_cache:
-        shape = (n_attn_apps(cfg), B, max(max_seq, S), cfg.n_kv_heads, cfg.hd)
-        kc_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        vc_all = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        ssm_st, conv_st = [], []
+        kv_all, ssm_st, conv_st = None, [], []
     layer = maybe_remat(_hybrid_layer)
     for i, lp in enumerate(p.layers):
         a = _attn_app(cfg, i)
         x, st, kv = layer(x, lp, p.shared_attn, cfg, positions, impl, a is not None)
         if build_cache:
             if a is not None:
-                kc_all[a, :, :S], vc_all[a, :, :S] = kv
+                if kv_all is None:
+                    kv_all = [tensor_parallel.new_kv_cache(t, n_attn_apps(cfg),
+                                                           max(max_seq, S), x.dtype, cfg)
+                              for t in kv]
+                for c, t in zip(kv_all, kv):
+                    tensor_parallel.write_prefill_kv(c, a, t, S)
             ssm_st.append(st["ssm"])
             conv_st.append(st["conv"])
     cache = None
     if build_cache:
-        cache = {"attn_k": kc_all, "attn_v": vc_all, "ssm": torch.stack(ssm_st),
+        cache = {"attn_k": kv_all[0], "attn_v": kv_all[1], "ssm": torch.stack(ssm_st),
                  "conv": torch.stack(conv_st), "pos": S}
     return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
 
@@ -527,10 +561,9 @@ def forward(params: Transformer, cfg: ArchConfig, batch: Dict,
     explicit = positions is not None
     if not explicit:
         positions = default_positions(cfg, B, S, x.device)
-    pos1d = positions if positions.dim() == 2 else positions[..., 0]
-    impl = _prefill_impl(x, pos1d, explicit, attn_impl)
+    impl = _prefill_impl(x, _pos1d(positions), explicit, attn_impl)
     if cfg.family in ATTN_FAMILIES:
-        x, aux, cache = _attn_stack_full(params, cfg, x, positions, pos1d, impl,
+        x, aux, cache = _attn_stack_full(params, cfg, x, positions, impl,
                                          build_cache, max_seq)
     elif cfg.family == HYBRID:
         x, aux, cache = _hybrid_full(params, cfg, x, positions, impl,
@@ -542,9 +575,11 @@ def forward(params: Transformer, cfg: ArchConfig, batch: Dict,
 
 def decode_step(params: Transformer, cfg: ArchConfig, tokens: torch.Tensor,
                 cache: Dict):
-    """tokens: (B, 1). Returns (logits (B, 1, V), cache)."""
+    """tokens: (B, 1). Returns (logits (B, 1, V), cache).  ``params`` is a
+    ``Transformer`` or the JAX package's tree, as ``forward`` takes."""
     if cfg.is_encoder:
         raise ValueError("encoder-only model has no decode step")
+    params = _as_params(params)
     x = embed_in(params, cfg, {"tokens": tokens})
     if cfg.family in (DENSE, MOE, VLM):
         x, cache = _attn_stack_decode(params, cfg, x, cache)
@@ -554,12 +589,15 @@ def decode_step(params: Transformer, cfg: ArchConfig, tokens: torch.Tensor,
         x, cache = _xlstm_decode(params, cfg, x, cache)
     else:
         raise ValueError(cfg.family)
-    return lm_head(params, cfg, x), cache
+    return tensor_parallel.whole(lm_head(params, cfg, x)), cache
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token CE in fp32. logits (B,S,V), labels (B,S)."""
+    """Mean token CE in fp32. logits (B,S,V), labels (B,S); cut by vocab
+    over the model places, the vocab-parallel cross-entropy."""
+    if isinstance(logits, tensor_parallel.Blocks):
+        return tensor_parallel.cross_entropy(logits, labels, mask)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]

@@ -29,15 +29,16 @@ in a step waits for the device.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import TrainConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.compression import ef_compress
-from repro_torch.distributed.sharding import (Mesh, NamedSharding, Placed, gather,
-                                              hand, place)
+from repro_torch.distributed.sharding import (Mesh, NamedSharding, Placed, at_place,
+                                              gather, hand, place, work_scope)
 from repro_torch.models.registry import Model
 from repro_torch.models.transformer import params_tree
 from repro_torch.training.optim import lr_schedule, make_optimizer, torch_dtype
@@ -45,8 +46,12 @@ from repro_torch.training.rematctx import use_remat
 
 
 def cast_tree(t, dtype):
-    return tree.tree_map(
-        lambda x: x.to(dtype) if torch.is_floating_point(x) else x, t)
+    """Every floating leaf of ``t`` (a ``tensor_parallel.Blocks``' pieces
+    too) cast to ``dtype``."""
+    def one(x):
+        lead = x.tensors[0] if isinstance(x, tp.Blocks) else x
+        return x.to(dtype) if torch.is_floating_point(lead) else x
+    return tree.tree_map(one, t)
 
 
 def init_train_state(model: Model, tc: TrainConfig,
@@ -77,26 +82,34 @@ def clip_grads(grads, tc: TrainConfig):
     return tree.tree_map(lambda g: g.float().mul_(scale), grads), gn
 
 
+def grad_fn(model: Model, tc: TrainConfig, params, batch):
+    """(loss, metrics, the gradients of ``tensor_parallel.view_leaves(params)``
+    as a list) of one microbatch, the loss on a ``tc.compute_dtype`` copy
+    under ``tc.remat``.  ``params`` is a tree of tensors (its leaves in
+    ``tree.leaves`` order) or a placed replica's view of one
+    (``tensor_parallel.replica_view``: its compute split as the view is)."""
+    leaves = [t.detach().requires_grad_(True) for t in tp.view_leaves(params)]
+    with torch.enable_grad():
+        p = cast_tree(tp.with_leaves(params, leaves), torch_dtype(tc.compute_dtype))
+        with use_remat(tc.remat):
+            loss, metrics = model.loss(p, batch)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+
 def make_train_step(model: Model, tc: TrainConfig):
     """``train_step(state, batch) -> (state, metrics)``; its
     ``compute_grads(params, batch) -> (loss, metrics, grads)`` is the
-    gradient half alone, and ``grad_fn`` the same for one microbatch."""
+    gradient half alone."""
     _, opt_update = make_optimizer(tc)
-    compute_dtype = torch_dtype(tc.compute_dtype)
 
-    def grad_fn(params, batch):
-        leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
-        with torch.enable_grad():
-            p = cast_tree(tree.unflatten(params, leaves), compute_dtype)
-            with use_remat(tc.remat):
-                loss, metrics = model.loss(p, batch)
-            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                tree.unflatten(params, grads))
+    def one_grad(params, batch):
+        loss, metrics, grads = grad_fn(model, tc, params, batch)
+        return loss, metrics, tree.unflatten(params, grads)
 
     def compute_grads(params, batch):
         if tc.microbatches <= 1:
-            return grad_fn(params, batch)
+            return one_grad(params, batch)
         # split the leading batch dim into microbatches, accumulate in f32
         mb = tc.microbatches
         parts = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])
@@ -105,8 +118,8 @@ def make_train_step(model: Model, tc: TrainConfig):
                                                   device=p.device), params)
         loss_acc = torch.zeros((), dtype=torch.float32, device=model.device)
         for i in range(mb):
-            loss, _, grads = grad_fn(params, {k: v[i] for k, v in parts.items()})
-            for a, g in zip(tree.leaves(acc), tree.leaves(grads)):
+            loss, _, grads = grad_fn(model, tc, params, {k: v[i] for k, v in parts.items()})
+            for a, g in zip(tree.leaves(acc), grads):
                 a.add_(g.float() / mb)
             del grads
             loss_acc = loss_acc + loss / mb
@@ -129,7 +142,6 @@ def make_train_step(model: Model, tc: TrainConfig):
         return new_state, out_metrics
 
     train_step.compute_grads = compute_grads
-    train_step.grad_fn = grad_fn
     return train_step
 
 
@@ -165,11 +177,12 @@ def _write_back(p: Placed, whole: torch.Tensor) -> None:
     """Every place's block of ``p`` overwritten from ``whole`` (on place
     0)."""
     for i, dev in enumerate(p.sharding.mesh.devices):
-        p.blocks[i].copy_(hand(whole[p.slices(i)], 0, i, dev))
+        p.blocks[i].copy_(hand(whole[p.slices(i)], 0, i, dev, "write_back"))
+
 
 
 def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
-                           state_specs, batch_specs):
+                           state_specs, batch_specs, replicas: Optional[int] = None):
     """``train_step(state, batch) -> (state, metrics)`` over ``mesh``: the
     counterpart of JAX's ``jax.jit(step, in_shardings=...)``.
 
@@ -181,23 +194,35 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
     The batch comes whole and is cut by ``batch_specs``.
 
     The step: each data replica (a block of the batch's rows, on the first
-    place that holds it) gathers the model-axis blocks of every weight and
-    runs ``grad_fn`` on its rows, ``tc.microbatches`` microbatches each; the
-    gradients are summed at place 0 in replica order and divided as the
-    one-device microbatch loop divides them.  What the one-device step takes
+    place that holds it) runs the loss and its gradient on its rows,
+    ``tc.microbatches`` microbatches each, with the dense layers' compute
+    split over its model places (``distributed/tensor_parallel.py``: each
+    place computes with its own blocks of the weights the model axis cuts;
+    no such block is gathered whole; FSDP's cuts over the data places are
+    assembled per model block); the gradients are brought whole to place 0,
+    summed there in replica order and divided as the one-device microbatch
+    loop divides them.  What the one-device step takes
     over a whole leaf (int8 error feedback's scale, the clip norm,
     Adafactor's factored means and scales) runs there on the whole reduced
     leaf; AdamW and SGD then update block by block, each place its
     optimizer block (ZeRO-1: 1/D of a leaf), and the updated parameter
-    slices are handed to the places that replicate them.  So the step is
-    bit for bit the one-device step at ``microbatches`` = replicas x
-    ``tc.microbatches`` wherever the device's arithmetic does not depend on
-    the tensors' sizes (the CPU).  The dense layers' compute is not split
-    over the model axis: the model axis splits storage.  Every byte handed
-    between places is counted (``sharding.transfer_counts``)."""
-    one = make_train_step(model, tc)
-    grad_fn = one.grad_fn
+    slices are handed to the places that replicate them.  So at model size
+    1 the step is bit for bit the one-device step at ``microbatches`` =
+    replicas x ``tc.microbatches`` wherever the device's arithmetic does not
+    depend on the tensors' sizes (the CPU); at model size M > 1 the split
+    sums the row-parallel products' partials (and the vocab-parallel
+    cross-entropy's terms) in another order, within float32 rounding of it.
+    Every byte handed between places is counted by kind
+    (``sharding.transfer_counts``).  ``replicas`` runs only the last that
+    many data replicas (their gradients divided as if all ran): the dry run
+    on the meta device, whose replicas are alike, runs one
+    (``launch/dryrun.py``); each replica's work is marked
+    ``work_scope("replica")``, its hand-over home ``work_scope("sink")``.
+    The step's two halves are its attributes: ``compute_grads(params,
+    batch) -> (loss, metrics, grads)`` and ``apply_grads(state, loss,
+    metrics, grads) -> (state, metrics)``."""
     _, opt_update = make_optimizer(tc)
+    n_replicas = replicas
     devs = mesh.devices
     home = devs[0]
     int8 = tc.grad_compression == "int8_ef"
@@ -212,42 +237,38 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
             lambda x, s: None if len(x.shape) == 0 else NamedSharding(mesh, s),
             state, specs)
 
-    def place_batch(batch):
-        rows = batch_specs.get("labels", next(iter(batch_specs.values())))
-        out = {k: place(v, NamedSharding(mesh, batch_specs.get(k, rows)))
-               for k, v in batch.items()}
-        lead = [{k: p.slices(i)[0] for k, p in out.items()} for i in range(mesh.size)]
-        replicas = {}
-        for i, sl in enumerate(lead):
-            if len(set(sl.values())) != 1:
-                raise ValueError(f"batch keys cut apart on their rows: {sl}")
-            replicas.setdefault(next(iter(sl.values())).start, i)
-        return out, [replicas[r] for r in sorted(replicas)]
-
     def compute_grads(params, batch):
-        placed, replicas = place_batch(batch)
+        placed, reps = tp.place_batch(batch, batch_specs, mesh)
+        replicas = reps.homes
         k = max(tc.microbatches, 1)
         mb = len(replicas) * k
+        n_run = len(replicas) if n_replicas is None else n_replicas
         acc, loss_acc = None, torch.zeros((), dtype=torch.float32, device=home)
-        for q in replicas:
-            full = tree.tree_map(lambda p: gather(p, devs[q], dst=q), params)
+        for q in replicas[len(replicas) - n_run:]:
+            with work_scope("replica"):
+                view = tp.replica_view(params, mesh, q)
             share = {key: p.blocks[q] for key, p in placed.items()}
             parts = {key: v.reshape(k, v.shape[0] // k, *v.shape[1:])
                      for key, v in share.items()}
             for j in range(k):
-                loss, metrics, grads = grad_fn(full, {key: v[j] for key, v in parts.items()})
-                if mb <= 1:
-                    return (hand(loss, q, 0, home),
-                            {key: hand(v, q, 0, home) for key, v in metrics.items()},
-                            [hand(g, q, 0, home) for g in tree.leaves(grads)])
-                gl = tree.leaves(grads)
-                if acc is None:
-                    acc = [torch.zeros(g.shape, dtype=torch.float32, device=home) for g in gl]
-                for a, g in zip(acc, gl):
-                    a.add_(hand(g.float() / mb, q, 0, home))
-                del grads, gl
-                loss_acc = loss_acc + hand(loss, q, 0, home) / mb
-            del full
+                with work_scope("replica"), at_place(q):
+                    loss, metrics, grads = grad_fn(model, tc, view,
+                                                   {key: v[j] for key, v in parts.items()})
+                with work_scope("sink"):
+                    gl = tp.grads_home(view, grads, q, 0, home)
+                    del grads
+                    if mb <= 1:
+                        return (hand(loss, q, 0, home, "metrics"),
+                                {key: hand(v, q, 0, home, "metrics")
+                                 for key, v in metrics.items()}, gl)
+                    if acc is None:
+                        acc = [torch.zeros(g.shape, dtype=torch.float32, device=home)
+                               for g in gl]
+                    for a, g in zip(acc, gl):
+                        a.add_(g.float() / mb)
+                    del gl
+                    loss_acc = loss_acc + hand(loss, q, 0, home, "metrics") / mb
+            del view
         return loss_acc, {"ce": loss_acc, "aux": torch.zeros_like(loss_acc)}, acc
 
     def update_blockwise(pp: Placed, g, opt_blocks, opt_step, lr):
@@ -258,7 +279,7 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
         ps, gs = [], []
         for i, dev in enumerate(devs):
             ps.append(pp.blocks[i][_within(regions[i], bases[i])])
-            gs.append(hand(g[regions[i]], 0, i, dev))
+            gs.append(hand(g[regions[i]], 0, i, dev, "zero1_grad"))
         opt = {"step": opt_step}
         if opt_blocks:
             opt.update(m=opt_blocks[0].blocks, v=opt_blocks[1].blocks)
@@ -273,12 +294,13 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
                     continue
                 done.add(r)
                 pp.blocks[i][_within(r, bases[i])].copy_(
-                    hand(pp.blocks[j][_within(r, bases[j])], j, i, dev))
+                    hand(pp.blocks[j][_within(r, bases[j])], j, i, dev, "zero1_params"))
 
     @torch.no_grad()
-    def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
-        state = place_tree(state, state_shardings(state))
-        loss, metrics, grads = compute_grads(state["params"], batch)
+    def apply_grads(state: Dict, loss, metrics: Dict, grads) -> Tuple[Dict, Dict]:
+        """The step's update of the placed ``state`` by what
+        ``compute_grads`` returned (its gradients, whole leaves at place 0,
+        are consumed)."""
         p_leaves = tree.leaves(state["params"])
         if int8:
             err = [gather(e, home) for e in tree.leaves(state["ef_err"])]
@@ -308,6 +330,12 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
                      "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": gn, "lr": lr, **metrics}
 
+    @torch.no_grad()
+    def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
+        state = place_tree(state, state_shardings(state))
+        return apply_grads(state, *compute_grads(state["params"], batch))
+
     train_step.compute_grads = compute_grads
+    train_step.apply_grads = apply_grads
     train_step.place_state = lambda state: place_tree(state, state_shardings(state))
     return train_step
