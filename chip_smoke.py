@@ -252,7 +252,7 @@ back-to-back call, which includes the wrapper's host overhead.
   lm_mesh — the LM stack placed over a mesh (places repeated on cuda:0,
                and a card a place where the host has four): the placed train
                step (gemma2-2b at full width cut to LM_MESH_LAYERS of 26
-               layers, bf16 compute, AdamW, ZeRO-1, 2x2, batch 8 x 128, 5
+               layers, float32 compute, AdamW, ZeRO-1, 2x2, batch 8 x 128, 5
                steps) against the one-device step at microbatches=2 within
                train_resume's envelope; s a step both ways (median of steps
                2-4), tokens/s, peak memory, bytes a place of the parameters
@@ -266,7 +266,20 @@ back-to-back call, which includes the wrapper's host overhead.
                cache) over 4 places against decode_attention (1e-4).
                Reduced gemma2-2b's placed state saved on 2x2 and restored
                on 4x1 and 1x1 bit for bit; the launcher's --mesh 2x2 at 1
-               layer.  The five kernels' counts stay 0.
+               layer.  The five kernels' counts stay 0.  The step's
+               gradients are reduced to each place's optimizer block, its
+               leaf-wide work runs on those blocks: each step's placed
+               update held bit for bit against the one-device update of
+               the same gradients at the placed clip scale, the clip norm
+               within 1e-6; the same for a run with the weights cut over
+               the data places too (FSDP, assembled a layer at a time); the
+               meta dry run's peak of each step against the card's growth.
+  dryrun     — five production cells of the dry run on the meta device
+               (launch/dryrun.py), one replica run a cell: gemma2-2b
+               train_4k, qwen2-vl-72b prefill_32k and train_4k, zamba2-2.7b
+               long_500k, kimi-k2 decode_32k (2x16x16), within 120 s;
+               kimi-k2's largest place within a card, qwen2-vl-72b
+               train_4k's place 0 within 10% of its largest other place.
 Then the kernel table line, the card line, and the result line last.  The
 phases' records also go to chiprun_out/chip_smoke.json.
 
@@ -338,14 +351,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_events(prof) -> dict:
+def device_events(prof, averages=None) -> dict:
     """Self device time (µs) and count per name, of the events that ran on
     the card (kernels, copies, memsets) only.  The host-side ops that
     launched them also carry their device time, so summing every entry of
-    ``key_averages()`` would count most of it twice."""
+    ``key_averages()`` would count most of it twice.  ``averages``: the
+    profile's ``key_averages()`` where the caller has them already."""
     from torch.autograd import DeviceType
     out = {}
-    for e in prof.key_averages():
+    for e in prof.key_averages() if averages is None else averages:
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             us = e.self_cuda_time_total if us is None else us
@@ -2212,7 +2226,8 @@ def traced_window(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = device_events(prof)
+    averages = prof.key_averages()
+    events = device_events(prof, averages)
     busy_us = sum(us for us, _ in events.values())
     flash = [(us, n) for key, (us, n) in events.items() if "flash_attention_kernel" in key]
     top = sorted(events.items(), key=lambda kv: -kv[1][0])[:10]
@@ -2226,7 +2241,7 @@ def traced_window(fn) -> dict:
             "top_device": {key: {"ms": us * 1e-3, "count": n, "share": us / busy_us}
                            for key, (us, n) in top},
             "top_host_self_ms": dict(sorted(
-                ((e.key, e.self_cpu_time_total * 1e-3) for e in prof.key_averages()),
+                ((e.key, e.self_cpu_time_total * 1e-3) for e in averages),
                 key=lambda kv: -kv[1])[:10])}
 
 
@@ -3022,22 +3037,35 @@ def phase_train_families_reference(log) -> None:
 # phase lm_mesh: the LM stack placed over a mesh.  The placed step's depth cut
 # (16 of gemma2-2b's 26 layers, P = 7.3 GB of float32 parameters): four
 # places on one card hold the parameters twice (replicated over data) and m
-# and v once (ZeRO-1), 4P; a replica's step adds its gathered copy, the bf16
-# copy, its gradients and the float32 sum, 3.5P, so 7.5P = 55 GB before
-# activations; the whole depth (P = 10.4 GB) would need 78 GB.  The launcher
-# runs 1 layer (P = 2.7 GB): it writes the whole state to disk twice (steps
-# 0 and 4), 8 GB a checkpoint.  The re-mesh case is reduced gemma2-2b.
+# and v once (ZeRO-1), 4P; a step adds the owners' float32 accumulators (P
+# over the four places) and a replica's gradients (P over its two places),
+# 6P = 44 GB before activations; the whole depth (P = 10.4 GB) would need 62
+# GB, and the hold, which gathers the state and the gradients whole beside
+# it, 93 GB.  The FSDP run (the weights cut over the data places too) holds
+# the parameters once, 3P.  The launcher runs 1 layer (P = 2.7 GB): it
+# writes the whole state to disk twice (steps 0 and 4), 8 GB a checkpoint.
+# The re-mesh case is reduced gemma2-2b.
 LM_MESH_LAYERS = 16
+LM_MESH_FSDP_STEPS = 2     # the FSDP run's steps (fsdp_size 2), held and timed
 LM_MESH_STEPS = 5          # steps 2-4 timed, step 5 traced
 LM_MESH_LAUNCHER_LAYERS = 1
 LM_MESH_PROMPT = (4, 512)  # the placed prefill's batch and tokens
 LM_MESH_DECODE = 16        # teacher-forced decode steps after it
 LM_MESH_LOGIT_TOL = 1e-4   # placed prefill and decode against one device
 META_PEAK_TOL = 0.10       # the dry run's meta peak against the card's growth
-DRYRUN_CELLS = (("gemma2-2b", "train_4k", False), ("qwen2-vl-72b", "prefill_32k", False),
-                ("zamba2-2.7b", "long_500k", False), ("kimi-k2-1t-a32b", "decode_32k", True))
+# (arch, shape, multi-pod); launch/dryrun.lower_cell runs a cell of alike
+# stacked layers at three depths and continues it to its own
+# (``extrapolation_depths``), any other at its full depth
+DRYRUN_CELLS = (("gemma2-2b", "train_4k", False),
+                ("qwen2-vl-72b", "prefill_32k", False),
+                ("zamba2-2.7b", "long_500k", False),
+                ("kimi-k2-1t-a32b", "decode_32k", True),
+                ("qwen2-vl-72b", "train_4k", False))
+CARD_BYTES = 80 * 2 ** 30  # an H100's memory: kimi-k2 decode_32k's place must fit it
+PLACE0_TOL = 0.10          # an FSDP train cell's place 0 against its largest other place
 DRYRUN_BUDGET_S = 120
 RESUME_TOL = dict(rtol=1e-5, atol=1e-6)     # phase train_resume's envelope
+HOLD_NORM_TOL = 1e-6       # the placed clip norm's partial sums against one sum
 MOE_FWD_TOL, MOE_GRAD_TOL = 1e-4, 1e-3     # tests/test_moe_dispatch.py
 SEQ_PAR_TOL = 1e-4                         # tests/test_distributed.py:106
 
@@ -3050,9 +3078,11 @@ def block_bytes(placed_tree) -> list:
             for i in range(len(leaves[0].blocks))]
 
 
-def mesh_train_setup(cfg, tc, D: int, M: int, devices, B: int, S: int):
+def mesh_train_setup(cfg, tc, D: int, M: int, devices, B: int, S: int, fsdp: int = 0):
     """(model, placed step, placed state, rules) of a (D, M) mesh over
-    ``devices``, the state from seed tc.seed, as the launcher builds them."""
+    ``devices``, the state from seed tc.seed, as the launcher builds them
+    (``fsdp``: the weights cut over the data places too, ``param_specs``'
+    fsdp_size)."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.distributed.mesh_rules import make_rules
     from repro_torch.distributed.params import batch_specs, opt_specs, param_specs
@@ -3068,25 +3098,27 @@ def mesh_train_setup(cfg, tc, D: int, M: int, devices, B: int, S: int):
     rules_d = make_rules(cfg, shp, model_size=M, dp_size=D)
     rules = AxisRules(rules_d)
     state = init_train_state(model, tc, tc.seed)
-    ps = param_specs(state["params"], cfg, rules, M)
+    ps = param_specs(state["params"], cfg, rules, M, fsdp)
     os_ = opt_specs(state["opt"], ps, cfg, rules, mesh_shape_dict(mesh), tc.zero1)
     step = make_placed_train_step(model, tc, mesh, {"params": ps, "opt": os_, "step": P()},
                                   batch_specs(cfg, shp, rules))
     return model, step, step.place_state(state), rules_d
 
 
-def lm_mesh_placed(cfg, tc, devices, batches) -> Tuple[dict, list]:
-    """One placed step a batch on (2, 2) over ``devices``, the last under
-    torch.profiler.  The record (bytes between places a step by kind, the
-    growth of the card's allocated memory over one step) and the final
-    parameters gathered to ``devices[0]``."""
+def lm_mesh_placed(cfg, tc, devices, batches, fsdp: int = 0,
+                   trace: bool = True) -> Tuple[dict, list]:
+    """One placed step a batch on (2, 2) over ``devices`` (``fsdp`` as
+    ``mesh_train_setup`` takes it), the last under torch.profiler where
+    ``trace``.  The record (bytes between places a step by kind, the growth
+    of the card's allocated memory over one step) and the final parameters
+    gathered to ``devices[0]`` (None without the trace)."""
     import gc
     from repro_torch import tree
     from repro_torch.distributed.sharding import (gather, reset_transfer_counts,
                                                   transfer_counts, use_rules)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, step, state, rules_d = mesh_train_setup(cfg, tc, 2, 2, devices, 8, 128)
+    _, step, state, rules_d = mesh_train_setup(cfg, tc, 2, 2, devices, 8, 128, fsdp)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     times, mets, moved, growth = [], [], [], []
@@ -3106,11 +3138,12 @@ def lm_mesh_placed(cfg, tc, devices, batches) -> Tuple[dict, list]:
         mets.append({k: float(v) for k, v in met.items()})
 
     with use_rules(rules_d):
-        for b in batches[:-1]:
+        for b in batches[:-1] if trace else batches:
             one(b)
-        traced = traced_window(lambda: one(batches[-1]))
-    step_s = float(np.median(times[1:-1]))
-    rec = {"devices": [str(d) for d in devices], "setup_s": setup_s, "step_s": times,
+        traced = traced_window(lambda: one(batches[-1])) if trace else None
+    step_s = float(np.median(times[1:-1] if trace else times[1:]))
+    rec = {"devices": [str(d) for d in devices], "fsdp": fsdp, "setup_s": setup_s,
+           "step_s": times,
            "losses": [m["loss"] for m in mets], "grad_norms": [m["grad_norm"] for m in mets],
            "step_s_median_untraced": step_s, "tokens_per_s": 8 * 128 / step_s,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -3120,37 +3153,42 @@ def lm_mesh_placed(cfg, tc, devices, batches) -> Tuple[dict, list]:
            "v_bytes_per_place": block_bytes(state["opt"]["v"]),
            "bytes_between_places_per_step": [c["between_places"] for c in moved],
            "bytes_by_kind_last_step": moved[-2]["bytes"],
-           "hand_overs_by_kind_last_step": moved[-2]["count"],
-           "device_launches_traced_step": traced["device_events"],
-           "busy_share_traced_step": traced["busy_share_traced"],
-           "top_device_traced_step": traced["top_device"]}
-    final = [gather(p, devices[0]) for p in tree.leaves(state["params"])]
+           "hand_overs_by_kind_last_step": moved[-2]["count"]}
+    if trace:
+        rec.update({"device_launches_traced_step": traced["device_events"],
+                    "busy_share_traced_step": traced["busy_share_traced"],
+                    "top_device_traced_step": traced["top_device"]})
+    final = [gather(p, devices[0]) for p in tree.leaves(state["params"])] if trace else None
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
     return rec, final
 
 
-def lm_mesh_hold(cfg, tc, devices, batches) -> Tuple[dict, list]:
+def lm_mesh_hold(cfg, tc, devices, batches, fsdp: int = 0) -> Tuple[dict, list]:
     """The placed step of ``lm_mesh_placed`` again from the same seed and
     batches, each step in its two halves (``compute_grads``, then
-    ``apply_grads``): at every step the one-device step's update (its
-    ``clip_grads`` and optimizer, on the state gathered whole) of the placed
-    step's own gradients, held against the placed update (the clip at place
-    0, AdamW on each place's ZeRO-1 block, the hand-overs) on every
-    parameter, first and second moment: bit for bit, else within RESUME_TOL
-    (a failure raises).  The record and the step-1 gradients on the host."""
+    ``apply_grads``): at every step the one-device update (the optimizer on
+    the state gathered whole) of the placed step's own gradients gathered
+    whole, at the placed step's clip scale (from its norm), held against the
+    placed update (each place's reduced block clipped, AdamW on it, ZeRO-1's
+    hand-over) on every parameter, first and second moment: bit for bit,
+    else within RESUME_TOL (a failure raises); the placed clip norm (its
+    blocks' sums of squares) against the one-device norm of the same
+    gradients within HOLD_NORM_TOL.  The record (the losses too) and the
+    step-1 gradients on the host."""
     import gc
     from repro_torch import tree
     from repro_torch.distributed.sharding import gather, use_rules
     from repro_torch.training.optim import lr_schedule, make_optimizer
-    from repro_torch.training.train_step import clip_grads
+    from repro_torch.training.train_step import global_norm
 
     t0 = time.perf_counter()
-    _, step, state, rules_d = mesh_train_setup(cfg, tc, 2, 2, devices, 8, 128)
+    _, step, state, rules_d = mesh_train_setup(cfg, tc, 2, 2, devices, 8, 128, fsdp)
     _, opt_update = make_optimizer(tc)
     dev = devices[0]
-    rec = {"steps": 0, "leaves": 0, "leaves_bitwise": 0, "max_abs_err": 0.0}
+    rec = {"fsdp": fsdp, "steps": 0, "leaves": 0, "leaves_bitwise": 0, "max_abs_err": 0.0,
+           "losses": [], "grad_norm_rel_err": 0.0}
     grads1 = None
 
     def placed_leaves():
@@ -3160,24 +3198,23 @@ def lm_mesh_hold(cfg, tc, devices, batches) -> Tuple[dict, list]:
     with use_rules(rules_d):
         for b in batches:
             loss, met, grads = step.compute_grads(state["params"], b)
+            whole_g = [gather(g, dev) for g in grads]
             if grads1 is None:
-                grads1 = [g.cpu() for g in grads]
-            clipped, gn = clip_grads([g.clone() for g in grads], tc)
-            lr = lr_schedule(tc, state["step"])
-            want = [[], [], []]
-            for n, (p, m, v) in enumerate(zip(*placed_leaves())):
-                w = [gather(t, dev) for t in (p, m, v)]
-                opt_update([clipped[n]], {"m": [w[1]], "v": [w[2]],
-                                          "step": state["opt"]["step"]}, [w[0]], lr)
-                clipped[n] = None
-                for acc, t in zip(want, w):
-                    acc.append(t)
-            del clipped
+                grads1 = [g.cpu() for g in whole_g]
+            before = [[gather(t, dev) for t in leaf] for leaf in zip(*placed_leaves())]
+            lr, opt_step = lr_schedule(tc, state["step"]), state["opt"]["step"]
             state, met = step.apply_grads(state, loss, met, grads)
             del grads
-            if not torch.equal(met["grad_norm"].to(gn.device), gn):
-                raise RuntimeError(f"lm_mesh hold: grad norm {met['grad_norm']} against {gn}")
-            for name, ws, ps in zip(("params", "m", "v"), want, placed_leaves()):
+            gn = met["grad_norm"]
+            own = float(global_norm(whole_g))
+            rec["grad_norm_rel_err"] = max(rec["grad_norm_rel_err"], abs(float(gn) - own) / own)
+            rec["losses"].append(float(loss))
+            scale = torch.clamp_max(tc.grad_clip / torch.clamp_min(gn, 1e-9), 1.0).to(dev)
+            for n, w in enumerate(before):
+                g, whole_g[n] = whole_g[n].float().mul_(scale), None
+                opt_update([g], {"m": [w[1]], "v": [w[2]], "step": opt_step}, [w[0]], lr)
+                del g
+            for name, ws, ps in zip(("params", "m", "v"), zip(*before), placed_leaves()):
                 for n, (w, p) in enumerate(zip(ws, ps)):
                     got = gather(p, dev)
                     rec["leaves"] += 1
@@ -3187,21 +3224,25 @@ def lm_mesh_hold(cfg, tc, devices, batches) -> Tuple[dict, list]:
                     rec["max_abs_err"] = max(rec["max_abs_err"], max_abs(got, w))
                     assert_close(got, w, f"lm_mesh hold step {rec['steps'] + 1}: placed {name} "
                                  f"leaf {n} against the one-device update", **RESUME_TOL)
-            del want
+            del before, whole_g
             rec["steps"] += 1
     rec["update_bitwise"] = rec["leaves"] == rec["leaves_bitwise"]
     rec["seconds"] = time.perf_counter() - t0
+    if rec["grad_norm_rel_err"] > HOLD_NORM_TOL:
+        raise RuntimeError(f"lm_mesh hold: the placed clip norm {rec['grad_norm_rel_err']} "
+                           f"from the one-device norm of the same gradients")
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
     return rec, grads1
 
 
-def lm_mesh_meta_peak(cfg, tc) -> dict:
-    """The dry run's count of the same placed step (2x2, batch 8 x 128) on
-    the meta device: the state placed from the host first, then one step
-    under ``launch/dryrun.PlaceCount``; its peak as one card holding every
-    place would hold it, and each place's."""
+def lm_mesh_meta_peak(cfg, tc, fsdp: int = 0) -> dict:
+    """The dry run's count of the same placed step (2x2, batch 8 x 128,
+    ``fsdp`` as ``mesh_train_setup`` takes it) on the meta device: the state
+    placed from the host first, then one step under
+    ``launch/dryrun.PlaceCount``; its peak as one card holding every place
+    would hold it, and each place's."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.distributed.mesh_rules import make_rules
     from repro_torch.distributed.params import batch_specs, opt_specs, param_specs
@@ -3218,7 +3259,7 @@ def lm_mesh_meta_peak(cfg, tc) -> dict:
     rules_d = make_rules(cfg, shp, model_size=2, dp_size=2)
     rules = AxisRules(rules_d)
     state = abstract_state(cfg, tc)
-    ps = param_specs(state["params"], cfg, rules, 2)
+    ps = param_specs(state["params"], cfg, rules, 2, fsdp)
     specs = {"params": ps, "opt": opt_specs(state["opt"], ps, cfg, rules,
                                             mesh_shape_dict(mesh), tc.zero1), "step": P()}
     step = make_placed_train_step(build_model(cfg, device="meta"), tc, mesh, specs,
@@ -3502,11 +3543,12 @@ def phase_lm_mesh(log) -> int:
     last traced) against the one-device step at microbatches=2: every
     step's loss and the step-1 gradients at the optimizer's scale within
     RESUME_TOL, and at every step of a second run the placed update against
-    the one-device update of the same gradients (``lm_mesh_hold``; the
-    final parameters of the two runs' error reported beside: AdamW turns a
-    gradient's rounding below its eps into a step of lr |g| / eps); the
-    dry run's
-    meta peak of the same step against the card's growth (META_PEAK_TOL);
+    the one-device update of the same gradients at the placed clip scale
+    (``lm_mesh_hold``; the final parameters of the two runs' error reported
+    beside: AdamW turns a gradient's rounding below its eps into a step of
+    lr |g| / eps); the same with the weights cut over the data places too
+    (``fsdp_size`` 2, LM_MESH_FSDP_STEPS steps); the dry run's meta peak of
+    each step against the card's growth (META_PEAK_TOL);
     the placed prefill and LM_MESH_DECODE decode steps against one device,
     flash per place; moe_ffn_local at phi3.5-moe's width; sequence-parallel
     decode at gemma2-2b's decode shape over 4 places; a re-meshed
@@ -3527,6 +3569,12 @@ def phase_lm_mesh(log) -> int:
     from repro_torch.training.train_step import global_norm
 
     t_phase = time.perf_counter()
+    part_s, t_last = {}, [t_phase]
+
+    def lap(name):                          # the phase's seconds by part
+        now = time.perf_counter()
+        part_s[name], t_last[0] = now - t_last[0], now
+
     gc.collect()
     torch.cuda.empty_cache()
     reset_launch_counts()
@@ -3544,9 +3592,20 @@ def phase_lm_mesh(log) -> int:
            "cards": cards}
     finals, grads1 = {}, {}
     rec["hold"] = {}
-    for name, devices in runs.items():     # the hold first: it holds ~60 GiB on one card
+    for name, devices in runs.items():     # the hold first: it holds ~65 GiB on one card
         rec["hold"][name], grads1[name] = lm_mesh_hold(cfg, tc, devices, batches)
+        lap(f"hold_{name}")
         rec["placed"][name], finals[name] = lm_mesh_placed(cfg, tc, devices, batches)
+        lap(f"placed_{name}")
+    # the weights cut over the data places too (FSDP): held the same way
+    fsdp_batches = batches[:LM_MESH_FSDP_STEPS]
+    rec["fsdp"] = {"fsdp_size": 2, "steps": LM_MESH_FSDP_STEPS}
+    rec["fsdp"]["hold"], grads1["fsdp"] = lm_mesh_hold(cfg, tc, runs["one_card"],
+                                                       fsdp_batches, fsdp=2)
+    lap("hold_fsdp")
+    rec["fsdp"]["placed"], _ = lm_mesh_placed(cfg, tc, runs["one_card"], fsdp_batches,
+                                              fsdp=2, trace=False)
+    lap("placed_fsdp")
 
     # the one-device step at microbatches = 2 from the same seed and batches
     ref_tc = dataclasses.replace(tc, microbatches=2)
@@ -3597,11 +3656,16 @@ def phase_lm_mesh(log) -> int:
         pl = rec["placed"][name]["losses"]
         if any(abs(a - b) > RESUME_TOL["rtol"] * abs(b) for a, b in zip(pl, losses)):
             raise RuntimeError(f"lm_mesh {name}: losses {pl} against one-device {losses}")
+    for run in (rec["fsdp"]["hold"], rec["fsdp"]["placed"]):
+        if any(abs(a - b) > RESUME_TOL["rtol"] * abs(b) for a, b in zip(run["losses"], losses)):
+            raise RuntimeError(f"lm_mesh fsdp: losses {run['losses']} against one-device "
+                               f"{losses}")
     rec["params_after_steps"] = params_err
     del state, step, model, finals
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = launch_counts()
+    lap("unplaced")
 
     meta = lm_mesh_meta_peak(cfg, tc)
     card_growth = max(rec["placed"]["one_card"]["step_growth_bytes"][1:-1])
@@ -3610,20 +3674,34 @@ def phase_lm_mesh(log) -> int:
                            "ratio": meta["peak_bytes_one_device"] / card_growth,
                            "peak_bytes_per_place": meta["peak_bytes_per_place"],
                            "seconds": meta["seconds"]}
-    if abs(meta["peak_bytes_one_device"] / card_growth - 1) > META_PEAK_TOL:
-        raise RuntimeError(f"lm_mesh: the meta dry run's peak {meta['peak_bytes_one_device']} "
-                           f"against the card's step growth {card_growth}")
+    meta_fsdp = lm_mesh_meta_peak(cfg, tc, fsdp=2)
+    fsdp_growth = max(rec["fsdp"]["placed"]["step_growth_bytes"][1:])
+    rec["fsdp"]["meta_dry_run"] = {"peak_bytes_one_device": meta_fsdp["peak_bytes_one_device"],
+                                   "card_step_growth_bytes": fsdp_growth,
+                                   "ratio": meta_fsdp["peak_bytes_one_device"] / fsdp_growth,
+                                   "peak_bytes_per_place": meta_fsdp["peak_bytes_per_place"],
+                                   "seconds": meta_fsdp["seconds"]}
+    for name, (m, growth) in {"": (meta, card_growth), " fsdp": (meta_fsdp, fsdp_growth)}.items():
+        if abs(m["peak_bytes_one_device"] / growth - 1) > META_PEAK_TOL:
+            raise RuntimeError(f"lm_mesh{name}: the meta dry run's peak "
+                               f"{m['peak_bytes_one_device']} against the card's step growth "
+                               f"{growth}")
 
+    lap("meta")
     rec["prefill_decode"] = lm_mesh_prefill_decode(cfg, runs["one_card"])
+    lap("prefill_decode")
     reset_launch_counts()
     lm_mesh_moe(rec)
+    lap("moe")
     rec["seq_parallel"] = {"one_card": lm_mesh_seq_parallel(["cuda:0"] * 4)}
     if cards >= 4:
         rec["seq_parallel"]["card_a_place"] = lm_mesh_seq_parallel(
             [f"cuda:{i}" for i in range(4)])
+    lap("seq_parallel")
     root = Path(tempfile.mkdtemp(prefix="lm_mesh_"))
     try:
         rec["remesh_bitwise"] = lm_mesh_remesh(root)
+        lap("remesh")
         t0 = time.perf_counter()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -3635,8 +3713,10 @@ def phase_lm_mesh(log) -> int:
                            "seconds": time.perf_counter() - t0}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    lap("launcher")
     rec["launches"] = {k: train_launches[k] + v for k, v in launch_counts().items()}
     rec["seconds"] = time.perf_counter() - t_phase
+    rec["seconds_by_part"] = part_s
     one_card = rec["placed"]["one_card"]
     rec["summary"] = {
         "s_a_step_placed": one_card["step_s_median_untraced"],
@@ -3645,7 +3725,18 @@ def phase_lm_mesh(log) -> int:
         "bytes_between_places_a_step": one_card["bytes_between_places_per_step"][-2],
         "bytes_by_kind": one_card["bytes_by_kind_last_step"],
         "peak_gib": one_card["peak_mem_gib"],
-        "update_held_bitwise": rec["hold"]["one_card"]["update_bitwise"]}
+        "meta_peak_ratio": rec["meta_dry_run"]["ratio"],
+        "update_held_bitwise": rec["hold"]["one_card"]["update_bitwise"],
+        "grad_norm_rel_err": rec["hold"]["one_card"]["grad_norm_rel_err"],
+        "fsdp": {"s_a_step": rec["fsdp"]["placed"]["step_s_median_untraced"],
+                 "bytes_between_places_a_step":
+                     rec["fsdp"]["placed"]["bytes_between_places_per_step"][-1],
+                 "bytes_by_kind": rec["fsdp"]["placed"]["bytes_by_kind_last_step"],
+                 "peak_gib": rec["fsdp"]["placed"]["peak_mem_gib"],
+                 "meta_peak_bytes_per_place": meta_fsdp["peak_bytes_per_place"],
+                 "meta_peak_ratio": rec["fsdp"]["meta_dry_run"]["ratio"],
+                 "update_held_bitwise": rec["fsdp"]["hold"]["update_bitwise"],
+                 "grad_norm_rel_err": rec["fsdp"]["hold"]["grad_norm_rel_err"]}}
     emit(rec, log)
     if not line.startswith("steps=4 restarts=0 ") or "loss=nan" in line:
         raise RuntimeError(f"lm_mesh: launcher line {line!r}")
@@ -3657,12 +3748,18 @@ def phase_lm_mesh(log) -> int:
 
 
 def phase_dryrun(log) -> None:
-    """The dry run (``launch/dryrun.py``) of four production cells on the
+    """The dry run (``launch/dryrun.py``) of five production cells on the
     meta device, one replica of each run and the rest counted from it:
-    gemma2-2b train_4k and qwen2-vl-72b prefill_32k and zamba2-2.7b long_500k
-    on 16x16, kimi-k2 decode_32k on 2x16x16.  Each cell's record and
-    seconds printed (its lists a place only in the log, not printed); within
-    DRYRUN_BUDGET_S."""
+    gemma2-2b train_4k, qwen2-vl-72b prefill_32k, zamba2-2.7b long_500k and
+    qwen2-vl-72b train_4k (AdamW, bf16, ZeRO-1 and FSDP) on 16x16, kimi-k2
+    decode_32k on 2x16x16; all but zamba2 run at three depths and continued
+    to their own (``dryrun.extrapolation_depths``, exact where each count is
+    linear in depth, which it checks).  Each cell's record and seconds printed (its
+    lists a place only in the log, not printed); within DRYRUN_BUDGET_S;
+    kimi-k2 decode_32k's largest place within a card (CARD_BYTES: the FSDP
+    experts assembled a layer at a time), and the FSDP train cell's place 0
+    within PLACE0_TOL of its largest other place (no whole gradient at
+    place 0)."""
     from repro_torch.launch.dryrun import lower_cell
 
     t0 = time.perf_counter()
@@ -3682,6 +3779,14 @@ def phase_dryrun(log) -> None:
     log.append({"phase": "dryrun_records", "records": cells})
     if seconds > DRYRUN_BUDGET_S:
         raise RuntimeError(f"dryrun: {seconds:.1f} s over the {DRYRUN_BUDGET_S} s budget")
+    kimi = cells["kimi-k2-1t-a32b__decode_32k__multipod"]["memory"]
+    if kimi["peak_bytes_largest_place"] > CARD_BYTES:
+        raise RuntimeError(f"dryrun: kimi-k2 decode_32k holds {kimi['peak_bytes_largest_place']} "
+                           f"B at a place, more than a card's {CARD_BYTES}")
+    train = cells["qwen2-vl-72b__train_4k__singlepod"]["memory"]["peak_bytes_per_place"]
+    if train[0] > (1 + PLACE0_TOL) * max(train[1:]):
+        raise RuntimeError(f"dryrun: qwen2-vl-72b train_4k holds {train[0]} B at place 0, "
+                           f"against {max(train[1:])} at the largest other place")
 
 
 def ensemble_designs(dev, x_sub, args, batches) -> dict:

@@ -36,18 +36,25 @@ hooks that the model's one body calls:
     or the data axes' slices of long context) attends by
     ``seq_parallel``'s partial softmax and log-sum-exp combine.
 
+A weight that the data axes cut too (FSDP) is assembled on each place
+that computes with it: once a step, or, for a stacked leaf, one layer at a
+time (:class:`Gathered`).  A replica's gradients are reduced to the places
+that own each block (:func:`reduce_grads`), never formed whole.
+
 A hand-over is counted by ``sharding.hand`` under its kind: ``tp_in`` (an
 activation to a place), ``tp_sum`` (a partial home), ``tp_gather`` (a
 column block's output home), ``fsdp_gather`` (an FSDP block to a replica's
-place), ``seq_q``/``seq_partial``, ``moe``; ``_grad`` after a kind marks the
-gradient handed back.  Nothing here reads a knob: the split follows the
-specs and the mesh, and at model size 1 nothing is split.
+place), ``grad_reduce`` (a gradient's part to its owner, an FSDP piece's in
+the layer's backward), ``seq_q``/``seq_partial``, ``moe``; ``_grad`` after a
+kind marks the gradient handed back.  Nothing here reads a knob: the split
+follows the specs and the mesh, and at model size 1 nothing is split.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import threading
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -55,7 +62,7 @@ import torch.nn.functional as F
 
 from repro_torch import tree
 from repro_torch.distributed.seq_parallel import _local_partial, lse_combine
-from repro_torch.distributed.sharding import (Mesh, NamedSharding, P, Placed,
+from repro_torch.distributed.sharding import (Mesh, NamedSharding, P, Placed, _moved,
                                               _spec_axes, at_place, block_slices,
                                               count_transfer, hand, place, work_scope)
 
@@ -415,7 +422,7 @@ def seq_attend(q: torch.Tensor, kc: SeqCache, vc: SeqCache, cfg,
 
 
 # ===========================================================================
-# one replica's view of placed parameters, and the gradients home
+# one replica's view of placed parameters, and the reduce to the owners
 # ===========================================================================
 def model_places(mesh: Mesh, home: int, axis: str = MODEL) -> List[int]:
     """The places of ``home``'s replica along ``axis`` (``home`` first when
@@ -438,36 +445,194 @@ def _model_spec(spec, axis: str) -> P:
     return P(*[axis if axis in _spec_axes(e) else None for e in spec])
 
 
-def model_block(pp: Placed, i: int, axis: str = MODEL) -> torch.Tensor:
-    """Place ``i``'s block of ``pp`` as the model axis alone cuts it: its
-    own block where no other axis cuts the leaf, else assembled on place
-    ``i`` from the blocks the data axes cut (FSDP), counted as
-    ``fsdp_gather``."""
+def model_region(pp: Placed, i: int, axis: str = MODEL) -> Tuple[slice, ...]:
+    """The slices of ``pp`` that place ``i`` computes with: its block as
+    the model axis alone cuts the leaf."""
+    return block_slices(NamedSharding(pp.sharding.mesh, _model_spec(pp.sharding.spec, axis)),
+                        pp.shape, i)
+
+
+def _rel(inner, outer):
+    """``inner`` (slices of a leaf) as slices of the block ``outer``."""
+    return tuple(slice(a.start - b.start, a.stop - b.start) for a, b in zip(inner, outer))
+
+
+def _plan(pp: Placed, i: int, axis: str = MODEL):
+    """How place ``i``'s model block of ``pp`` is assembled: (its shape,
+    [(the place a piece is read from, where the piece lands in it)]), or
+    None where place ``i``'s own block is its model block (no axis but the
+    model axis cuts the leaf).  A piece is read from place ``i`` where it
+    holds it, else from its first holder of ``i``'s model index."""
     mesh = pp.sharding.mesh
-    spec = _model_spec(pp.sharding.spec, axis)
-    region = block_slices(NamedSharding(mesh, spec), pp.shape, i)
+    region = model_region(pp, i, axis)
     slices = _slices_of(pp)
     if slices[i] == region:
-        return pp.blocks[i]
-    dev = mesh.devices[i]
-    with at_place(i, forced=True):
-        out = torch.empty([s.stop - s.start for s in region], dtype=pp.dtype, device=dev)
+        return None
     c = mesh.coords(i)
-    done = set()
+    done, where = set(), []
     for j in range(mesh.size):
-        cj = mesh.coords(j)
-        if axis in c and cj[axis] != c[axis]:
+        if axis in c and mesh.coords(j)[axis] != c[axis]:
             continue
         sl = slices[j]
         if sl in done:
             continue
         done.add(sl)
-        src = i if slices[i] == sl else j
-        rel = tuple(slice(s.start - r.start, s.stop - r.start) for s, r in zip(sl, region))
-        count_transfer(pp.blocks[src], src, i, "fsdp_gather")
-        with at_place(i, forced=True):
-            out[rel].copy_(pp.blocks[src])
+        where.append((i if slices[i] == sl else j, _rel(sl, region)))
+    return [s.stop - s.start for s in region], where
+
+
+def _tiling(shape, where) -> Optional[int]:
+    """The one dimension along which the pieces of ``where`` lie end to end
+    in order, whole along every other, or None."""
+    if len(where) < 2:
+        return None
+    rels = [rel for _, rel in where]
+    dims = [d for d in range(len(shape)) if any(r[d] != rels[0][d] for r in rels)]
+    if len(dims) != 1:
+        return None
+    d = dims[0]
+    whole = all(r[e] == slice(0, shape[e]) for r in rels for e in range(len(shape)) if e != d)
+    ends = [0] + [r[d].stop for r in rels]
+    return d if whole and all(r[d].start == e for r, e in zip(rels, ends)) \
+        and ends[-1] == shape[d] else None
+
+
+def _fill(dst: int, device, shape, where, pieces) -> torch.Tensor:
+    """A tensor of ``shape`` on place ``dst`` filled from ``pieces`` (each
+    read from its place in ``where``), counted as ``fsdp_gather``: one
+    ``cat`` where the pieces tile one dimension (FSDP's cut)."""
+    for (src, _), t in zip(where, pieces):
+        count_transfer(t, src, dst, "fsdp_gather")
+    d = _tiling(shape, where)
+    with at_place(dst, forced=True):
+        if d is not None:
+            return torch.cat([t.to(device) for t in pieces], d)
+        out = torch.empty(shape, dtype=pieces[0].dtype, device=device)
+        for (_, rel), t in zip(where, pieces):
+            out[rel].copy_(t)
     return out
+
+
+def model_block(pp: Placed, i: int, axis: str = MODEL) -> torch.Tensor:
+    """Place ``i``'s block of ``pp`` as the model axis alone cuts it: its
+    own block where no other axis cuts the leaf, else assembled on place
+    ``i`` from the blocks the data axes cut (FSDP), counted as
+    ``fsdp_gather``."""
+    plan = _plan(pp, i, axis)
+    if plan is None:
+        return pp.blocks[i]
+    shape, where = plan
+    return _fill(i, pp.sharding.mesh.devices[i], shape, where,
+                 [pp.blocks[src] for src, _ in where])
+
+
+class _Assemble(torch.autograd.Function):
+    """A layer's model block assembled on place ``dst`` from its pieces
+    (``_fill``); the backward hands each piece its part of the gradient, to
+    the piece's place, counted as ``grad_reduce``: FSDP's reduce, a layer
+    at a time."""
+
+    @staticmethod
+    def forward(ctx, dst, device, shape, where, *pieces):
+        ctx.back = (dst, shape, where, [t.device for t in pieces])
+        return _fill(dst, device, shape, where, pieces)
+
+    @staticmethod
+    def backward(ctx, g):
+        dst, shape, where, devs = ctx.back
+        d = _tiling(shape, where)
+        parts = (torch.split(g, [rel[d].stop - rel[d].start for _, rel in where], d)
+                 if d is not None else [g[rel] for _, rel in where])
+        out = []
+        for (src, _), part, dev in zip(where, parts, devs):
+            count_transfer(part, dst, src, "grad_reduce")
+            if not (g.is_meta and src != dst) and torch.device(dev) == g.device:
+                with at_place(dst, forced=True):
+                    part = part.clone()     # not a view: the layer's gradient goes
+            out.append(_moved(part, dst, src, dev))
+        return (None, None, None, None, *out)
+
+
+class Gathered:
+    """A stacked leaf (the layers on its leading axis) that the data axes
+    cut too (FSDP, or ``serve_opt``'s expert ff), as one replica reads it:
+    for each of its model places (``places``), the pieces of that place's
+    model block, each ``(the place it is read from, tensor, where it
+    lands)``.  Nothing is assembled here: ``unbind(0)`` gives each layer's
+    view, and :func:`assembled` builds a layer's model block on each place
+    when the layer runs (again in a remat recompute), released with it.
+    ``kind``: "cut" (the model axis cuts dimension ``dim``: a ``Blocks``),
+    "copies" (each model place assembles the whole of it) or "home" (one
+    tensor, at the replica's home)."""
+
+    __slots__ = ("parts", "shapes", "places", "devices", "kind", "dim")
+
+    def __init__(self, parts, shapes, places, devices, kind, dim=None):
+        self.parts, self.shapes = [list(p) for p in parts], [list(s) for s in shapes]
+        self.places, self.devices = tuple(places), tuple(devices)
+        self.kind, self.dim = kind, dim
+
+    @property
+    def tensors(self) -> List[torch.Tensor]:
+        return [t for part in self.parts for _, t, _ in part]
+
+    @property
+    def dtype(self):
+        return self.parts[0][0][1].dtype
+
+    def with_tensors(self, tensors) -> "Gathered":
+        it = iter(tensors)
+        return Gathered([[(src, next(it), rel) for src, _, rel in part] for part in self.parts],
+                        self.shapes, self.places, self.devices, self.kind, self.dim)
+
+    def to(self, *args, **kw) -> "Gathered":
+        return self.with_tensors([t.to(*args, **kw) for t in self.tensors])
+
+    def unbind(self, d: int = 0) -> List["Gathered"]:
+        if d != 0 or self.dim == 0:
+            raise ValueError(f"a stacked leaf unbinds along its layers, not dimension {d}")
+        cols = [[(src, t.unbind(0), rel[1:]) for src, t, rel in part] for part in self.parts]
+        dim = None if self.dim is None else self.dim - 1
+        return [Gathered([[(src, ts[l], rel) for src, ts, rel in part] for part in cols],
+                         [s[1:] for s in self.shapes], self.places, self.devices, self.kind, dim)
+                for l in range(self.shapes[0][0])]
+
+    def assemble(self):
+        """Each model place's block built on its place: a tensor at home
+        ("home"), else :class:`Blocks`."""
+        out = []
+        for m, (part, shape) in enumerate(zip(self.parts, self.shapes)):
+            src, t, _ = part[0]
+            if len(part) == 1 and src == self.places[m] and list(t.shape) == shape:
+                out.append(t)                       # the place's own block
+                continue
+            where = tuple((src, rel) for src, _, rel in part)
+            out.append(_Assemble.apply(self.places[m], self.devices[m], shape, where,
+                                       *[t for _, t, _ in part]))
+        if self.kind == "home":
+            return out[0]
+        return Blocks(out, self.places, self.devices, self.dim if self.kind == "cut" else None)
+
+    def __repr__(self):
+        return f"Gathered({self.kind}, dim={self.dim}, places={self.places})"
+
+
+def assembled(t):
+    """``t`` (one layer's parameters: a namespace, dicts, lists) with every
+    :class:`Gathered` in it assembled; ``t`` itself where it holds none."""
+    if isinstance(t, Gathered):
+        return t.assemble()
+    if isinstance(t, SimpleNamespace):
+        d = vars(t)
+        new = assembled(d)
+        return t if new is d else SimpleNamespace(**new)
+    if isinstance(t, dict):
+        new = {k: assembled(v) for k, v in t.items()}
+        return t if all(new[k] is v for k, v in t.items()) else new
+    if isinstance(t, list):
+        new = [assembled(v) for v in t]
+        return t if all(a is b for a, b in zip(new, t)) else new
+    return t
 
 
 def _cut_dim(pp: Placed, axis: str) -> Optional[int]:
@@ -483,42 +648,47 @@ def replica_view(params, mesh: Mesh, home: int, axis: str = MODEL):
     :class:`Blocks` of its model places' blocks, a replicated leaf as the
     block at ``home`` (each place's own copy, as ``Blocks``, inside an
     attention or MLP whose weights are cut).  FSDP cuts are assembled on
-    each place (``model_block``).  At model size 1 every leaf is the block
-    at ``home``."""
+    each place (``model_block``): a stacked leaf's (under ``layers``) a
+    layer at a time, as :class:`Gathered`; any other once.  At model size 1
+    every leaf is the block at ``home``."""
     places = model_places(mesh, home, axis)
     devs = [mesh.devices[i] for i in places]
     split = len(places) > 1
 
-    def leaf(pp):
-        if not isinstance(pp, Placed):
-            return pp
+    def leaf(pp, stacked, copies=False):
         d = _cut_dim(pp, axis) if split else None
-        if d is None:
-            return model_block(pp, home, axis)
-        return Blocks([model_block(pp, i, axis) for i in places], places, devs, d)
+        at = places if d is not None or copies else [home]
+        kind = "cut" if d is not None else "copies" if copies else "home"
+        plans = [_plan(pp, i, axis) for i in at]
+        if stacked and any(pl is not None for pl in plans):
+            parts = [[(i, pp.blocks[i], tuple(slice(0, n) for n in pp.blocks[i].shape))]
+                     if pl is None else [(src, pp.blocks[src], rel) for src, rel in pl[1]]
+                     for i, pl in zip(at, plans)]
+            shapes = [list(pp.blocks[i].shape) if pl is None else pl[0]
+                      for i, pl in zip(at, plans)]
+            return Gathered(parts, shapes, at, [mesh.devices[i] for i in at], kind, d)
+        tensors = [model_block(pp, i, axis) for i in at]
+        return tensors[0] if kind == "home" else Blocks(tensors, places, devs, d)
 
-    def walk(t, parent=None):
+    def walk(t, parent=None, stacked=False):
         if isinstance(t, dict):
-            out = {k: walk(v, k) for k, v in t.items()}
-            if split and parent in HOOKED and any(isinstance(v, Blocks) for v in out.values()):
-                for k, v in t.items():
-                    if isinstance(v, Placed) and not isinstance(out[k], Blocks):
-                        out[k] = Blocks([model_block(v, i, axis) for i in places],
-                                        places, devs, None)
-            return out
+            copies = split and parent in HOOKED and any(
+                isinstance(v, Placed) and _cut_dim(v, axis) is not None for v in t.values())
+            return {k: leaf(v, stacked, copies) if isinstance(v, Placed)
+                    else walk(v, k, stacked or k == "layers") for k, v in t.items()}
         if isinstance(t, list):
-            return [walk(v) for v in t]
-        return leaf(t)
+            return [walk(v, parent, stacked) for v in t]
+        return leaf(t, stacked) if isinstance(t, Placed) else t
 
     return walk(params)
 
 
 def view_leaves(view) -> List[torch.Tensor]:
-    """Every tensor of a replica view, a Blocks' pieces in place order: the
-    autograd leaves of a step."""
+    """Every tensor of a replica view, a Blocks' pieces in place order (a
+    Gathered's in its parts' order): the autograd leaves of a step."""
     out = []
     for leaf in tree.leaves(view):
-        out.extend(leaf.tensors if isinstance(leaf, Blocks) else [leaf])
+        out.extend(leaf.tensors if isinstance(leaf, (Blocks, Gathered)) else [leaf])
     return out
 
 
@@ -526,31 +696,94 @@ def with_leaves(view, new: Sequence[torch.Tensor]):
     """``view`` holding ``new`` (in :func:`view_leaves` order)."""
     it = iter(new)
     return tree.tree_map(lambda x: x.with_tensors([next(it) for _ in x.tensors])
-                         if isinstance(x, Blocks) else next(it), view)
+                         if isinstance(x, (Blocks, Gathered)) else next(it), view)
 
 
-def grads_home(view, grads: Sequence[torch.Tensor], src: int, dst: int, device,
-               kind: str = "grad_home") -> List[torch.Tensor]:
-    """The gradients of a view's leaves (``view_leaves`` order) as whole
-    leaves on place ``dst``: a cut's pieces concatenated, copies' summed in
-    place order, a replicated leaf's handed over from the replica's home
-    ``src``."""
-    it = iter(grads)
+def grad_sources(params, view, home: int, axis: str = MODEL):
+    """For each leaf of ``params`` (a tree of ``Placed``), where each of the
+    gradients that ``replica_view(params, mesh, home)`` yields for it
+    (``view_leaves`` order) lies: (its place, the slices of the leaf it
+    covers).  A model block's at its place; a Gathered piece's back on the
+    place it was read from (``_Assemble``'s backward); a replicated leaf's
+    at ``home``, or one partial a model place where each held a copy."""
     out = []
-    for leaf in tree.leaves(view):
-        if not isinstance(leaf, Blocks):
-            out.append(hand(next(it), src, dst, device, kind))
-            continue
-        parts = [hand(next(it), leaf.places[m], dst, device, kind) for m in range(leaf.n)]
-        with at_place(dst, forced=True):
-            if leaf.dim is None:
-                total = parts[0]
-                for g in parts[1:]:
-                    total = total + g
-                out.append(total)
-            else:
-                out.append(torch.cat(parts, leaf.dim))
+    for pp, v in zip(tree.leaves(params), tree.leaves(view)):
+        if isinstance(v, Gathered):
+            out.append([(src, _slices_of(pp)[src]) for part in v.parts for src, _, _ in part])
+        elif isinstance(v, Blocks):
+            out.append([(i, model_region(pp, i, axis)) for i in v.places])
+        else:
+            out.append([(home, model_region(pp, home, axis))])
     return out
+
+
+def _inside(region, outer):
+    """``region`` as slices of the block ``outer`` that holds it, or None
+    where the two do not meet; raises where they overlap in part."""
+    if any(r.stop <= o.start or r.start >= o.stop for r, o in zip(region, outer)):
+        return None
+    if any(r.start < o.start or r.stop > o.stop for r, o in zip(region, outer)):
+        raise ValueError(f"block {region} overlaps the gradient of {outer} in part: the "
+                         f"optimizer specs must refine the parameter specs")
+    return _rel(region, outer)
+
+
+def owner_blocks(params, owners) -> List[Placed]:
+    """float32 zeros for each leaf of ``params``, placed by ``owners`` (a
+    ``NamedSharding`` a leaf): the accumulators of :func:`reduce_grads`."""
+    out = []
+    for pp, sh in zip(tree.leaves(params), owners):
+        blocks = []
+        for i, dev in enumerate(sh.mesh.devices):
+            with at_place(i, forced=True):
+                blocks.append(torch.zeros([s.stop - s.start for s in
+                                           block_slices(sh, pp.shape, i)],
+                                          dtype=torch.float32, device=dev))
+        out.append(Placed(blocks, pp.shape, sh))
+    return out
+
+
+def reduce_grads(params, sources, grads: List, owners, acc: Optional[List[Placed]] = None,
+                 mb: int = 1) -> Optional[List[Placed]]:
+    """A replica's gradients (``grads``, in ``view_leaves`` order, lying
+    where ``grad_sources`` says; consumed) reduced to their owners: each
+    place, for each leaf, gets the part of every gradient that covers its
+    block by ``owners`` (the optimizer block it updates), handed to it
+    (``grad_reduce``).  With ``acc`` (from :func:`owner_blocks`) each part
+    is added to the place's block as the one-device microbatch loop adds a
+    microbatch, ``acc += g.float() / mb``, in the order of ``grads``;
+    without, the place's block is the part itself (one replica, one
+    microbatch: the sum of the parts where model places held copies), and
+    the blocks are returned as ``Placed`` leaves."""
+    out, at = [], 0
+    for n, (pp, srcs, sh) in enumerate(zip(tree.leaves(params), sources, owners)):
+        gs = grads[at:at + len(srcs)]
+        grads[at:at + len(srcs)] = [None] * len(srcs)
+        at += len(srcs)
+        blocks = []
+        for i, dev in enumerate(sh.mesh.devices):
+            region = block_slices(sh, pp.shape, i)
+            total = None
+            for (src, reg), g in zip(srcs, gs):
+                rel = _inside(region, reg)
+                if rel is None:
+                    continue
+                part = hand(g if region == reg else g[rel], src, i, dev, "grad_reduce")
+                with at_place(i, forced=True):
+                    if acc is not None:
+                        acc[n].blocks[i].add_(part.float() / mb)
+                    elif total is None:
+                        total = part if part.shape == g.shape else part.clone()
+                    else:
+                        total = total + part
+            if acc is None:
+                if total is None:
+                    raise ValueError(f"no gradient covers block {region} of {pp!r}")
+                blocks.append(total)
+        del gs
+        if acc is None:
+            out.append(Placed(blocks, pp.shape, sh))
+    return None if acc is not None else out
 
 
 # ===========================================================================

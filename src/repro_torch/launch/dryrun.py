@@ -31,9 +31,12 @@ Per cell: the production mesh ``(16, 16)`` or ``(2, 16, 16)``
 ``make_rules`` bound, the state or parameters placed by ``param_specs``
 (``opt_specs``, ``cache_specs``, ``batch_specs``), then one run of
 ``make_placed_train_step`` (train), ``tensor_parallel.make_placed_prefill``
-or ``make_placed_decode``.  Everything runs at the full depth
-(``cost_lowering: "meta_full_depth"``).  A cell ``skip_reason`` names
-writes ``<arch>__<shape>__skip.json``.
+or ``make_placed_decode``: a deep cell of alike stacked layers
+(``extrapolation_depths``) at three depths, every count continued linearly
+to its own depth, exact where the counts are linear in depth, which it
+checks (JAX's dry run continues its costs from two depths the same way);
+any other at its full depth (``cost_lowering: "meta_full_depth"``).  A cell
+``skip_reason`` names writes ``<arch>__<shape>__skip.json``.
 
 Usage (CPU only; imports no JAX):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k --single-pod
@@ -64,9 +67,10 @@ from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.mesh_rules import make_rules
 from repro_torch.distributed.params import (batch_specs, cache_specs, opt_specs,
                                             param_specs)
-from repro_torch.distributed.sharding import (AxisRules, Mesh, NamedSharding, P, _spec_axes,
-                                              current_place, current_scope, place,
-                                              reset_transfer_counts, set_mesh,
+from repro_torch.distributed.sharding import (AxisRules, Mesh, NamedSharding, P, Placed,
+                                              _spec_axes, at_place, block_slices,
+                                              count_transfer, current_place, current_scope,
+                                              place, reset_transfer_counts, set_mesh,
                                               transfer_counts, use_rules)
 from repro_torch.launch.mesh import make_production_mesh, mesh_shape_dict
 from repro_torch.launch.specs import arch_for_cell, input_specs, use_fsdp
@@ -96,12 +100,77 @@ def _tensors(x, out=None) -> List[torch.Tensor]:
     return out
 
 
+_aten = torch.ops.aten
+# Pointwise ops whose result takes its inputs' shape and promoted dtype.  On
+# the meta device they run through Python decompositions (0.1-0.4 ms each,
+# most of a dry run's time); where every tensor input has one shape and is
+# contiguous (or is 0-dim), their result is made directly, as the kernel
+# would make it: a contiguous tensor of that shape (floating dtypes only),
+# or, for an in-place op, its first argument.
+_POINTWISE = {op.overloadpacket for op in (
+    _aten.add.Tensor, _aten.sub.Tensor, _aten.mul.Tensor, _aten.div.Tensor,
+    _aten.maximum.default, _aten.minimum.default, _aten.exp.default, _aten.sqrt.default,
+    _aten.rsqrt.default, _aten.neg.default, _aten.pow.Tensor_Scalar, _aten.clamp_min.default,
+    _aten.clamp_max.default, _aten.where.self, _aten.addcmul.default, _aten.reciprocal.default,
+    _aten.tanh.default, _aten.log.default, _aten.add_.Tensor, _aten.sub_.Tensor,
+    _aten.mul_.Tensor, _aten.div_.Tensor, _aten.addcmul_.default, _aten.sqrt_.default,
+    _aten.exp_.default, _aten.clamp_min_.default)}
+
+
+def _plain_result(func, args, kwargs):
+    """The result of a ``_POINTWISE`` op on meta tensors, made without its
+    decomposition, or None where its inputs are not plain: every tensor of
+    one shape (or 0-dim) and contiguous, of one floating dtype (besides a
+    boolean mask), the other arguments Python numbers."""
+    if func.overloadpacket not in _POINTWISE or "out" in kwargs:
+        return None
+    shape, dtypes = None, set()
+    for a in (*args, *kwargs.values()):
+        if isinstance(a, torch.Tensor):
+            if not a.is_meta or not a.is_contiguous():
+                return None
+            if a.dtype != torch.bool:
+                dtypes.add(a.dtype)
+            if a.dim():
+                if shape is not None and a.shape != shape:
+                    return None
+                shape = a.shape
+        elif not isinstance(a, (int, float)):
+            return None
+    if len(dtypes) != 1 or not next(iter(dtypes)).is_floating_point:
+        return None
+    shape = () if shape is None else shape
+    if func._schema.name.endswith("_"):
+        return args[0] if args[0].shape == shape else None
+    return torch.empty(shape, dtype=dtypes.pop(), device="meta")
+
+
+def _plain_cat(func, args, kwargs):
+    """``cat`` of contiguous meta tensors of one dtype along one dimension,
+    made without its decomposition, else None."""
+    if func is not _aten.cat.default or kwargs:
+        return None
+    ts, d = args[0], args[1] if len(args) > 1 else 0
+    if not ts or any(not (t.is_meta and t.is_contiguous() and t.dtype == ts[0].dtype
+                          and t.dim() == ts[0].dim()) for t in ts):
+        return None
+    d %= ts[0].dim()
+    if any(t.shape[:d] != ts[0].shape[:d] or t.shape[d + 1:] != ts[0].shape[d + 1:] for t in ts):
+        return None
+    shape = list(ts[0].shape)
+    shape[d] = sum(t.shape[d] for t in ts)
+    return torch.empty(shape, dtype=ts[0].dtype, device="meta")
+
+
 class PlaceCount(TorchDispatchMode):
     """Live bytes and FLOPs a place, over every op run inside (see the
     module's docstring for the rules), each also by the step's part
     (``sharding.work_scope``): ``rep_peak`` is the peak a place holds of
     what a replica's own work made (``base`` what it held when the first
-    replica began), ``flops_by[scope]`` the FLOPs of each part."""
+    replica began), ``flops_by[scope]`` the FLOPs of each part.  Plain
+    pointwise ops and ``cat`` on meta tensors make their results directly
+    (``_plain_result``, ``_plain_cat``), with the metadata the kernels
+    give."""
 
     def __init__(self, n_places: int):
         super().__init__()
@@ -139,7 +208,11 @@ class PlaceCount(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+        out = _plain_result(func, args, kwargs)
+        if out is None:
+            out = _plain_cat(func, args, kwargs)
+        if out is None:
+            out = func(*args, **kwargs)
         keys = {t.untyped_storage()._cdata for t in _tensors((args, kwargs))}
         place = self._place_of(keys)
         scope = current_scope()
@@ -225,10 +298,11 @@ def reduced_cell(arch: str, shape_name: str, multi_pod: bool):
 
 def cell_specs(arch: str, shape_name: str, multi_pod: bool, moe_local: bool = False,
                serve_opt: bool = False, fsdp_experts_only: bool = False,
-               reduce: bool = False):
+               reduce: bool = False, layers: Optional[int] = None):
     """Everything a cell runs with: (mesh, rules dict, shape, cfg, tc, args,
     in_shardings, fsdp size), built as JAX's ``_lower_once`` builds them
-    (``reduce``: the cell cut to test size, ``reduced_cell``)."""
+    (``reduce``: the cell cut to test size, ``reduced_cell``; ``layers``:
+    the model cut to that depth, its posture and specs the cell's)."""
     if reduce:
         cfg, shape, mesh = reduced_cell(arch, shape_name, multi_pod)
     else:
@@ -250,6 +324,8 @@ def cell_specs(arch: str, shape_name: str, multi_pod: bool, moe_local: bool = Fa
     serve_ff = 0
     if serve_opt and shape.kind != "train":
         fsdp, serve_ff = 0, dp
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     with use_rules(rules_d):
         _, args, cfg, tc = input_specs(arch, shape, cfg)
         if shape.kind == "train":
@@ -272,13 +348,29 @@ def cell_specs(arch: str, shape_name: str, multi_pod: bool, moe_local: bool = Fa
     return mesh, rules_d, shape, cfg, tc, args, in_sh, fsdp
 
 
+def _meta_place(x: torch.Tensor, sh: NamedSharding) -> Placed:
+    """``place(x, sh, src=None)`` of a meta tensor: each place's block made
+    on its place (there are no values to copy)."""
+    blocks = []
+    for i, dev in enumerate(sh.mesh.devices):
+        with at_place(i, forced=True):
+            b = torch.empty([s.stop - s.start for s in block_slices(sh, x.shape, i)],
+                            dtype=x.dtype, device=dev)
+        count_transfer(b, None, i, "place")
+        blocks.append(b)
+    return Placed(blocks, x.shape, sh)
+
+
 def from_host(t, specs, mesh):
     """A tree of inputs placed by ``specs`` from the host (JAX's inputs
     arrive sharded: no bytes between places); 0-dim leaves and ``None``
     specs stay as they are."""
-    return tree.tree_map(lambda x, s: place(x, NamedSharding(mesh, s), src=None)
-                         if isinstance(x, torch.Tensor) and x.dim() and s is not None
-                         else x, t, specs)
+    def one(x, s):
+        if not (isinstance(x, torch.Tensor) and x.dim() and s is not None):
+            return x
+        sh = NamedSharding(mesh, s)
+        return _meta_place(x, sh) if x.is_meta else place(x, sh, src=None)
+    return tree.tree_map(one, t, specs)
 
 
 def prefill_cache_specs(cfg, shape, rules_d):
@@ -335,54 +427,36 @@ def _replica_homes(mesh, shape, in_sh) -> List[int]:
     return tp.Replicas(mesh, rows, shape.global_batch).homes
 
 
-def lower_cell(arch: str, shape_name: str, multi_pod: bool, moe_local: bool = False,
-               serve_opt: bool = False, fsdp_experts_only: bool = False,
-               replicas: Optional[int] = 1, check_flops: bool = True,
-               reduce: bool = False) -> Dict:
-    """One cell's record (JAX's keys where they have a counterpart).
+def layer_period(cfg) -> int:
+    """The period of the layer pattern (JAX's ``_scan_period``): layers are
+    alike modulo it."""
+    if cfg.family == "hybrid":
+        return cfg.attn_every
+    if cfg.alt_local_global:
+        return 2
+    return 1
 
-    ``moe_local``, ``serve_opt`` and ``fsdp_experts_only`` are JAX's
-    variants.  ``serve_opt`` and ``fsdp_experts_only`` change the specs as
-    JAX's ``_lower_once`` does.  The placed steps have one MoE layout where
-    the experts are cut over the model axis, ``moe_ffn_local``'s (each data
-    replica runs its own tokens: JAX's dense dispatch over the whole batch
-    has no counterpart), so ``moe_local`` selects it whether set or not and
-    raises, as JAX's ``moe_ffn_local`` does, where a MoE's experts are not
-    cut over the model axis; ``moe_dispatch`` in the record says which ran.
-    ``serve_opt``'s expert ff cut over the data axes is assembled on each
-    model place (``fsdp_gather``), where GSPMD would split the product.
 
-    The data replicas of a cell are alike (the same shapes on their own
-    places), so by default one runs (the last: its results travel to place 0) and
-    the others are counted from it: each place of another replica gets the
-    FLOPs and the peak of what the run replica's work made on its place of
-    the same model index (over what it held before
-    the replicas began), and the replicas' hand-overs and their sums at
-    place 0 count once a replica.  ``replicas=None`` runs every replica.
-    ``check_flops`` runs a ``FlopCounterMode`` around the step too, whose
-    total must equal the sum of the places' counts (a third more time).
-    ``reduce`` runs the cell cut to test size (``reduced_cell``)."""
-    t0 = time.perf_counter()
-    mesh, rules_d, shape, cfg, tc, args, in_sh, fsdp = cell_specs(
-        arch, shape_name, multi_pod, moe_local, serve_opt, fsdp_experts_only, reduce=reduce)
-    md = mesh_shape_dict(mesh)
+def extrapolation_depths(cfg) -> Optional[tuple]:
+    """The depths (2p, 3p, 4p) at which a cell runs to be continued to its
+    own, p its ``layer_period``; None where it runs at its full depth: its
+    layers not stacked (the ssm family), not alike in its peak (the
+    hybrid's shared block, whose application a period does not add the
+    same bytes to the peak each time), not whole periods, or no deeper than
+    4p."""
+    p, L = layer_period(cfg), cfg.n_layers
+    if cfg.family in ("ssm", "hybrid") or L % p or L <= 4 * p:
+        return None
+    return (2 * p, 3 * p, 4 * p)
+
+
+def _counts(mesh, rules_d, shape, cfg, tc, args, in_sh, check_flops: bool,
+            replicas: Optional[int]) -> Dict:
+    """One run of the cell's placed step under ``PlaceCount`` (its last
+    ``replicas`` data replicas, the rest counted from them): FLOPs and the
+    peak a place, the bytes and hand-overs by kind."""
     homes = _replica_homes(mesh, shape, in_sh)
-    dispatch = moe_dispatch(shape, in_sh)
-    if moe_local and dispatch == "dense":
-        raise ValueError(f"moe_local: {arch}'s experts are not cut over the model axis "
-                         f"of {dict(mesh.shape)}")
     run = len(homes) if replicas is None else min(replicas, len(homes))
-    record = {
-        "arch": arch, "shape": shape_name,
-        "mesh": "x".join(f"{k}={v}" for k, v in md.items()),
-        "multi_pod": multi_pod, "n_devices": mesh.size,
-        "params": cfg.param_count(), "active_params": cfg.active_param_count(),
-        "train_posture": {"optimizer": tc.optimizer, "param_dtype": tc.param_dtype,
-                          "remat": tc.remat, "zero1": tc.zero1, "fsdp": fsdp > 1}
-        if shape.kind == "train" else None,
-        "arg_bytes_per_device": _arg_bytes(args, in_sh, md),
-        "moe_dispatch": dispatch,
-    }
     pcs = prefill_cache_specs(cfg, shape, rules_d) if shape.kind == "prefill" else None
     count = PlaceCount(mesh.size)
     reset_transfer_counts()
@@ -411,22 +485,121 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, moe_local: bool = Fa
                 peak[p] = max(peak[p], base[p] + count.rep_peak[first[m]])
         for p, f in enumerate(count.flops_by["sink"]):
             flops[p] += round(f * extra)
+    return {"flops": flops, "peak": peak, "one_peak": count.one_peak if not extra else None,
+            "counted": counted, "bytes": nbytes, "times": ntimes, "homes": len(homes),
+            "run": run}
+
+
+def _extrapolated(runs: List[Dict], depths, L: int) -> Dict:
+    """The counts at depth ``L`` from runs at ``depths`` (equally spaced):
+    every count goes the same step from one depth to the next (raises
+    where one does not: the layers are then not alike in it), and is
+    continued to ``L``."""
+    step = depths[1] - depths[0]
+    k = (L - depths[-1]) // step
+
+    def one(name, vals):
+        if any(v is None for v in vals):
+            return None
+        d = vals[1] - vals[0]
+        if any(b - a != d for a, b in zip(vals[1:], vals[2:])):
+            raise ValueError(f"dry run: {name} {vals} at depths {depths} is not linear in depth")
+        return vals[-1] + d * k
+
+    out = {key: [one(f"{key}[{i}]", [r[key][i] for r in runs])
+                 for i in range(len(runs[0][key]))] for key in ("flops", "peak")}
+    for key in ("one_peak", "counted"):
+        out[key] = one(key, [r[key] for r in runs])
+    for key in ("bytes", "times"):
+        kinds = sorted(set().union(*(r[key] for r in runs)))
+        out[key] = {kd: one(f"{key}[{kd}]", [r[key].get(kd, 0) for r in runs]) for kd in kinds}
+    out.update(homes=runs[0]["homes"], run=runs[0]["run"])
+    return out
+
+
+def lower_cell(arch: str, shape_name: str, multi_pod: bool, moe_local: bool = False,
+               serve_opt: bool = False, fsdp_experts_only: bool = False,
+               replicas: Optional[int] = 1, check_flops: bool = True,
+               reduce: bool = False) -> Dict:
+    """One cell's record (JAX's keys where they have a counterpart).
+
+    ``moe_local``, ``serve_opt`` and ``fsdp_experts_only`` are JAX's
+    variants.  ``serve_opt`` and ``fsdp_experts_only`` change the specs as
+    JAX's ``_lower_once`` does.  The placed steps have one MoE layout where
+    the experts are cut over the model axis, ``moe_ffn_local``'s (each data
+    replica runs its own tokens: JAX's dense dispatch over the whole batch
+    has no counterpart), so ``moe_local`` selects it whether set or not and
+    raises, as JAX's ``moe_ffn_local`` does, where a MoE's experts are not
+    cut over the model axis; ``moe_dispatch`` in the record says which ran.
+    ``serve_opt``'s expert ff cut over the data axes is assembled on each
+    model place (``fsdp_gather``), where GSPMD would split the product.
+
+    The data replicas of a cell are alike (the same shapes on their own
+    places), so by default one runs (the last: its results travel to place 0) and
+    the others are counted from it: each place of another replica gets the
+    FLOPs and the peak of what the run replica's work made on its place of
+    the same model index (over what it held before the replicas began: a
+    train step's gradient accumulators at each owner among it), and the
+    replicas' hand-overs, to place 0 and of their gradients to each owner's
+    block (``tensor_parallel.reduce_grads``), count once a replica.
+    ``replicas=None`` runs every replica.
+    ``check_flops`` runs a ``FlopCounterMode`` around the step too, whose
+    total must equal the sum of the places' counts (a third more time).
+    ``reduce`` runs the cell cut to test size (``reduced_cell``).
+
+    Where the cell's layers are alike modulo their period p
+    (``extrapolation_depths``), the step runs at depths 2p, 3p and 4p
+    instead of the cell's L, and every count (each place's FLOPs and peak,
+    the bytes and hand-overs by kind) is continued linearly to L, as JAX's
+    dry run continues its costs from two depths; a count that does not go
+    the same step from 2p to 3p as from 3p to 4p raises."""
+    t0 = time.perf_counter()
+    flags = dict(moe_local=moe_local, serve_opt=serve_opt,
+                 fsdp_experts_only=fsdp_experts_only, reduce=reduce)
+    spec = cell_specs(arch, shape_name, multi_pod, **flags)
+    mesh, rules_d, shape, cfg, tc, args, in_sh, fsdp = spec
+    md = mesh_shape_dict(mesh)
+    dispatch = moe_dispatch(shape, in_sh)
+    if moe_local and dispatch == "dense":
+        raise ValueError(f"moe_local: {arch}'s experts are not cut over the model axis "
+                         f"of {dict(mesh.shape)}")
+    record = {
+        "arch": arch, "shape": shape_name,
+        "mesh": "x".join(f"{k}={v}" for k, v in md.items()),
+        "multi_pod": multi_pod, "n_devices": mesh.size,
+        "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+        "train_posture": {"optimizer": tc.optimizer, "param_dtype": tc.param_dtype,
+                          "remat": tc.remat, "zero1": tc.zero1, "fsdp": fsdp > 1}
+        if shape.kind == "train" else None,
+        "arg_bytes_per_device": _arg_bytes(args, in_sh, md),
+        "moe_dispatch": dispatch,
+    }
+    L, depths = cfg.n_layers, extrapolation_depths(cfg)
+    if depths is None:
+        c = _counts(*spec[:7], check_flops, replicas)
+        lowering = "meta_full_depth"
+    else:
+        del spec, args
+        runs = [_counts(*cell_specs(arch, shape_name, multi_pod, **flags, layers=d)[:7],
+                        check_flops, replicas) for d in depths]
+        c = _extrapolated(runs, depths, L)
+        lowering = f"meta_extrapolated(depths={list(depths)},L={L})"
+    peak, flops = c["peak"], c["flops"]
+    if c["run"] < c["homes"]:
+        lowering += f"(replicas={c['run']}/{c['homes']}, the rest alike)"
     largest = max(range(mesh.size), key=lambda i: peak[i])
     record.update({
         "memory": {"peak_bytes_largest_place": peak[largest], "largest_place": largest,
-                   "peak_bytes_place0": peak[0],
-                   "peak_bytes_one_device": count.one_peak if not extra else None,
+                   "peak_bytes_place0": peak[0], "peak_bytes_one_device": c["one_peak"],
                    "peak_bytes_per_place": peak},
         "flops": {"total": sum(flops), "place0": flops[0], "largest_place": max(flops),
-                  "per_place": flops, "counted_run": counted},
-        "transfer_bytes": {**nbytes, "total": sum(nbytes.values())},
-        "transfers": ntimes,
-        "replicas": {"all": len(homes), "run": run},
-        "cost_lowering": ("meta_full_depth" if not extra else
-                          f"meta_full_depth(replicas={run}/{len(homes)}, the rest alike)"),
+                  "per_place": flops, "counted_run": c["counted"]},
+        "transfer_bytes": {**c["bytes"], "total": sum(c["bytes"].values())},
+        "transfers": c["times"],
+        "replicas": {"all": c["homes"], "run": c["run"]},
+        "cost_lowering": lowering,
         "seconds": time.perf_counter() - t0,
     })
-    del args, count
     gc.collect()
     return record
 

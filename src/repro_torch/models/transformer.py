@@ -44,7 +44,9 @@ Inside a placed step the same functions take one data replica's view of the
 placed parameters, whose weights cut over the model axis are
 ``distributed/tensor_parallel.Blocks``: the hooks there (the attention and
 MLP bodies, the embedding, the head, the cross-entropy, the caches) split
-the compute over the model places.
+the compute over the model places.  A stacked weight that FSDP cuts comes
+as ``tensor_parallel.Gathered``, assembled in each layer's body
+(``tensor_parallel.assembled``), one layer at a time.
 """
 from __future__ import annotations
 
@@ -177,7 +179,9 @@ def params_tree(p: Transformer) -> Dict:
 def _as_params(p):
     """``p`` itself, or for the JAX package's tree (a dict) the same
     attributes with each layer's weights views of the stacked leaves
-    (``unbind``: one stack in the backward, not one scatter a layer)."""
+    (``unbind``: one stack in the backward, not one scatter a layer; a
+    placed view's ``tensor_parallel.Gathered`` leaf unbinds into each
+    layer's pieces, assembled when the layer runs)."""
     if not isinstance(p, dict):
         return p
     if "blocks" in p:
@@ -267,7 +271,9 @@ def _pos1d(positions: torch.Tensor) -> torch.Tensor:
 def _layer(x: torch.Tensor, lp, cfg: ArchConfig, positions: torch.Tensor,
            window: int, impl: str):
     """One layer over the full sequence. Returns (x, k, v, the MoE aux loss
-    or None); under the split, k and v are each model place's."""
+    or None); under the split, k and v are each model place's.  A weight
+    that FSDP cuts is assembled here, and so again in a remat recompute."""
+    lp = tensor_parallel.assembled(lp)
     h = rmsnorm(x, lp.ln1, cfg.norm_eps)
 
     def attend(q, k, v, positions):
@@ -336,6 +342,7 @@ def _attn_stack_decode(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
     positions = _decode_positions(cfg, pos, B, x.device)
     cache_len = torch.full((B,), pos + 1, dtype=torch.long, device=x.device)
     for i, (lp, window) in enumerate(zip(p.layers, _per_layer_windows(cfg))):
+        lp = tensor_parallel.assembled(lp)
         h = rmsnorm(x, lp.ln1, cfg.norm_eps)
 
         def attend(q, k, v, positions, kc, vc, cache_len, window=window):
@@ -410,6 +417,7 @@ def _hybrid_layer(x: torch.Tensor, lp, sp, cfg: ArchConfig,
     (parameters ``sp``) where ``shared``: JAX's rematted scan body, the
     shared block's application inside it.  Returns (x, the layer's Mamba2
     state, the shared block's (k, v) or None)."""
+    lp = tensor_parallel.assembled(lp)
     h = rmsnorm(x, lp.ln, cfg.norm_eps)
     m_out, st = ssm_mod.mamba2_fwd(lp.mamba, h, cfg, None)
     x = x + m_out
@@ -453,6 +461,7 @@ def _hybrid_decode(p: Transformer, cfg: ArchConfig, x: torch.Tensor, cache: Dict
     pos = cache["pos"]
     positions = _decode_positions(cfg, pos, x.shape[0], x.device)
     for i, lp in enumerate(p.layers):
+        lp = tensor_parallel.assembled(lp)
         h = rmsnorm(x, lp.ln, cfg.norm_eps)
         m_out, st = ssm_mod.mamba2_decode(
             lp.mamba, h, cfg, {"ssm": cache["ssm"][i], "conv": cache["conv"][i]})

@@ -11,15 +11,19 @@ float32 math, cast back to each tensor's dtype.  The step counters are
 0-dim int32 tensors on the host, as ``torch.optim`` keeps them: the
 schedule and the bias corrections are float32 host math that reaches the
 device as kernel arguments, and no step waits for the device.
+``adafactor_update_placed`` is Adafactor on a leaf held in blocks over a
+mesh's places (``training/train_step.make_placed_train_step``), its global
+statistics combined from the places' partial sums.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import TrainConfig
+from repro_torch.distributed.sharding import Placed, at_place, hand
 
 
 def _zeros(shape, dtype, like: torch.Tensor) -> torch.Tensor:
@@ -113,6 +117,120 @@ def adafactor_update(grads, opt_state, params, tc: TrainConfig, lr):
         new_p = p32 - (lr * scale) * u - (lr * tc.weight_decay) * p32
         _store(p, new_p)
     return params, {"vr": opt_state["vr"], "vc": opt_state["vc"], "step": step}
+
+
+def _leaf_means(pl: Placed, local: Callable, dim: Optional[int]) -> List[torch.Tensor]:
+    """Each place's share of a mean over a whole leaf held as ``pl`` is:
+    ``local(j)`` is place j's value on its block (its shape), and the mean
+    is over dimension ``dim`` (kept, size 1) or over every dimension
+    (``dim`` None, 0-dim).  Where place i's block spans ``dim`` (every
+    dimension) it is the block's own mean, the one-device arithmetic;
+    else the partial sums of the distinct blocks that share its other
+    coordinates, each taken on its first holder and handed to place i
+    (``adafactor``), summed in the order of their slices, over the size."""
+    mesh = pl.sharding.mesh
+    regions = [pl.slices(i) for i in range(mesh.size)]
+    first: Dict = {}
+    for j, r in enumerate(regions):
+        first.setdefault(r, j)
+    nd = len(pl.shape)
+    axes = set(range(nd)) if dim is None else {dim % nd}
+    size = 1
+    for a in axes:
+        size *= pl.shape[a]
+    partial: Dict[int, torch.Tensor] = {}
+    out = []
+    for i, r in enumerate(regions):
+        peers = sorted((s for s in first if all(s[a] == r[a] for a in range(nd) if a not in axes)),
+                       key=lambda s: [x.start for x in s])
+        if peers == [r] and all(r[a].stop - r[a].start == pl.shape[a] for a in axes):
+            with at_place(i, forced=True):
+                x = local(i)
+                out.append(torch.mean(x) if dim is None else x.mean(dim, keepdim=True))
+            continue
+        total = None
+        for s in peers:
+            j = first[s]
+            if j not in partial:
+                with at_place(j, forced=True):
+                    x = local(j)
+                    partial[j] = x.sum() if dim is None else x.sum(dim, keepdim=True)
+            part = hand(partial[j], j, i, mesh.devices[i], "adafactor")
+            total = part if total is None else total + part
+        with at_place(i, forced=True):
+            out.append(total / size)
+    return out
+
+
+def _check_block(name: str, t: Placed, i: int, want) -> None:
+    if tuple(t.slices(i)) != tuple(want):
+        raise ValueError(f"{name} block {t.slices(i)} of place {i} is not its parameter "
+                         f"block's {tuple(want)}: the opt specs must follow the param specs")
+
+
+def adafactor_update_placed(g: Placed, vr: Placed, vc: Placed, p: Placed, opt_step,
+                            tc: TrainConfig, lr) -> None:
+    """``adafactor_update`` of one leaf held in blocks over places: each
+    place updates its parameter block ``p.blocks[i]`` and its ``vr``/``vc``
+    blocks (``opt_specs``: the parameter's spec less the factored-out
+    dimension) in place from its gradient block ``g.blocks[i]`` (the same
+    slices as its parameter block).  The statistics taken over the whole
+    leaf, the row and column means of g^2, the mean of ``vr``, the update's
+    RMS and the parameter scale, are combined from partial sums over the
+    places that cut the dimensions they run over (``_leaf_means``); where a
+    place's block spans them they are the one-device arithmetic, so a leaf
+    that no place cuts is updated bit for bit as ``adafactor_update`` does.
+    ``opt_step`` is the optimizer's step before this update."""
+    step = opt_step + 1
+    beta2 = float(1.0 - step.float() ** -0.8)
+    lr = float(lr)
+    n = p.sharding.mesh.size
+    regions = [p.slices(i) for i in range(n)]
+    for i in range(n):
+        _check_block("gradient", g, i, regions[i])
+    g32 = [b.float() for b in g.blocks]
+    if _factored(p.shape):
+        for i, r in enumerate(regions):
+            _check_block("vr", vr, i, r[:-1])
+            _check_block("vc", vc, i, r[:-2] + r[-1:])
+        g2 = lambda i: g32[i].square().add_(1e-30)  # noqa: E731
+        rows = _leaf_means(p, g2, -1)
+        cols = _leaf_means(p, g2, -2)
+        for i in range(n):
+            with at_place(i, forced=True):
+                r, c = vr.blocks[i], vc.blocks[i]
+                r.copy_(beta2 * r + (1 - beta2) * rows[i].squeeze(-1))
+                c.copy_(beta2 * c + (1 - beta2) * cols[i].squeeze(-2))
+        del rows, cols
+        vr_mean = _leaf_means(vr, lambda i: vr.blocks[i], -1)
+        u = []
+        for i in range(n):
+            with at_place(i, forced=True):
+                denom = ((vr.blocks[i][..., None] / torch.clamp_min(vr_mean[i][..., None], 1e-30))
+                         * vc.blocks[i][..., None, :])
+                u.append(g32[i] / torch.sqrt(torch.clamp_min(denom, 1e-30)))
+                del denom
+    else:
+        u = []
+        for i, r in enumerate(regions):
+            _check_block("vr", vr, i, r)
+            with at_place(i, forced=True):
+                v = vr.blocks[i]
+                v.copy_(beta2 * v + (1 - beta2) * g32[i].square().add_(1e-30))
+                u.append(g32[i] / torch.sqrt(torch.clamp_min(v, 1e-30)))
+    del g32
+    # relative-scale update clipping
+    ms = _leaf_means(p, lambda i: torch.square(u[i]), None)
+    p2 = _leaf_means(p, lambda i: torch.square(p.blocks[i].float()), None)
+    for i in range(n):
+        with at_place(i, forced=True):
+            rms_u = torch.sqrt(ms[i] + 1e-30)
+            u[i].div_(torch.clamp_min(rms_u, 1.0))
+            p32 = p.blocks[i].float()
+            scale = torch.clamp_min(torch.sqrt(p2[i]), 1e-3)
+            new_p = p32 - (lr * scale) * u[i] - (lr * tc.weight_decay) * p32
+            u[i] = None
+            _store(p.blocks[i], new_p)
 
 
 # ---------------------------------------------------------------------------

@@ -36,20 +36,22 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import TrainConfig
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.distributed.compression import ef_compress
+from repro_torch.distributed.compression import (ef_amax, ef_compress, ef_compress_block,
+                                                 ef_scale)
 from repro_torch.distributed.sharding import (Mesh, NamedSharding, Placed, at_place,
-                                              gather, hand, place, work_scope)
+                                              count_transfer, hand, place, work_scope)
 from repro_torch.models.registry import Model
 from repro_torch.models.transformer import params_tree
-from repro_torch.training.optim import lr_schedule, make_optimizer, torch_dtype
+from repro_torch.training.optim import (adafactor_update_placed, lr_schedule, make_optimizer,
+                                        torch_dtype)
 from repro_torch.training.rematctx import use_remat
 
 
 def cast_tree(t, dtype):
-    """Every floating leaf of ``t`` (a ``tensor_parallel.Blocks``' pieces
-    too) cast to ``dtype``."""
+    """Every floating leaf of ``t`` (a ``tensor_parallel.Blocks``' or
+    ``Gathered``'s pieces too) cast to ``dtype``."""
     def one(x):
-        lead = x.tensors[0] if isinstance(x, tp.Blocks) else x
+        lead = x.tensors[0] if isinstance(x, (tp.Blocks, tp.Gathered)) else x
         return x.to(dtype) if torch.is_floating_point(lead) else x
     return tree.tree_map(one, t)
 
@@ -173,12 +175,35 @@ def place_tree(t, shardings):
     return tree.tree_map(one, t, shardings)
 
 
-def _write_back(p: Placed, whole: torch.Tensor) -> None:
-    """Every place's block of ``p`` overwritten from ``whole`` (on place
-    0)."""
-    for i, dev in enumerate(p.sharding.mesh.devices):
-        p.blocks[i].copy_(hand(whole[p.slices(i)], 0, i, dev, "write_back"))
+def _share(pp: Placed, regions, kind: str) -> None:
+    """Each place's block of ``pp`` completed from the places that updated
+    the other regions inside it (``regions[j]``: what place j updated),
+    copied straight into it and counted under ``kind``: ZeRO-1's
+    hand-over."""
+    n = pp.sharding.mesh.size
+    bases = [pp.slices(i) for i in range(n)]
+    for i in range(n):
+        done = {regions[i]}
+        for j, r in enumerate(regions):
+            if r in done or any(a.start < b.start or a.stop > b.stop
+                                for a, b in zip(r, bases[i])):
+                continue
+            done.add(r)
+            dst = pp.blocks[i][_within(r, bases[i])]
+            count_transfer(dst, j, i, kind)
+            with at_place(i, forced=True):
+                dst.copy_(pp.blocks[j][_within(r, bases[j])])
 
+
+def _distinct(g: Placed):
+    """(the first holder, its block) of each distinct block of ``g``, in
+    place order."""
+    seen = set()
+    for i, b in enumerate(g.blocks):
+        r = g.slices(i)
+        if r not in seen:
+            seen.add(r)
+            yield i, b
 
 
 def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
@@ -199,33 +224,52 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
     split over its model places (``distributed/tensor_parallel.py``: each
     place computes with its own blocks of the weights the model axis cuts;
     no such block is gathered whole; FSDP's cuts over the data places are
-    assembled per model block); the gradients are brought whole to place 0,
-    summed there in replica order and divided as the one-device microbatch
-    loop divides them.  What the one-device step takes
-    over a whole leaf (int8 error feedback's scale, the clip norm,
-    Adafactor's factored means and scales) runs there on the whole reduced
-    leaf; AdamW and SGD then update block by block, each place its
-    optimizer block (ZeRO-1: 1/D of a leaf), and the updated parameter
-    slices are handed to the places that replicate them.  So at model size
-    1 the step is bit for bit the one-device step at ``microbatches`` =
-    replicas x ``tc.microbatches`` wherever the device's arithmetic does not
-    depend on the tensors' sizes (the CPU); at model size M > 1 the split
-    sums the row-parallel products' partials (and the vocab-parallel
-    cross-entropy's terms) in another order, within float32 rounding of it.
-    Every byte handed between places is counted by kind
-    (``sharding.transfer_counts``).  ``replicas`` runs only the last that
-    many data replicas (their gradients divided as if all ran): the dry run
-    on the meta device, whose replicas are alike, runs one
-    (``launch/dryrun.py``); each replica's work is marked
-    ``work_scope("replica")``, its hand-over home ``work_scope("sink")``.
-    The step's two halves are its attributes: ``compute_grads(params,
-    batch) -> (loss, metrics, grads)`` and ``apply_grads(state, loss,
-    metrics, grads) -> (state, metrics)``."""
+    assembled per model block, a stacked leaf's one layer at a time).  Each
+    microbatch's gradients are reduced to their owners
+    (``tensor_parallel.reduce_grads``): every place gets, of every leaf,
+    the part that covers its optimizer block (``opt_specs``' m block for
+    AdamW, ZeRO-1's 1/D; else its parameter block) from each replica that
+    computed it, and adds it as the one-device loop adds a microbatch,
+    ``acc += g.float() / mb`` with mb = replicas x ``tc.microbatches``, in
+    the loop's order (replica-major, then microbatch); an FSDP piece's part
+    comes back to it in the backward.  No place holds a whole gradient of a
+    leaf its specs cut.  The leaf-wide work runs on those blocks: int8
+    error feedback's scale is the maximum of the blocks' maxima (exact), each
+    place compressing its block against its own ``ef_err`` block; the clip
+    norm sums each distinct block's sum of squares in leaf and place order
+    at place 0; AdamW and SGD update each place's block (ZeRO-1's hand-over
+    of the updated slices after), Adafactor through
+    ``optim.adafactor_update_placed`` (its means from partial sums).
+
+    So at model size 1 the loss and each place's gradient block are bit for
+    bit the one-device step's at ``microbatches`` = replicas x
+    ``tc.microbatches`` (its slice of the whole gradient), and so is int8's
+    scale, wherever the device's arithmetic does not depend on the tensors'
+    sizes (the CPU); the clip norm is its sum of squares in another order
+    (float32, within 1e-6 relative; the same sums where no place cuts a
+    leaf), and the update is bit for bit the one-device update of the same
+    gradients at the placed step's clip scale (Adafactor's where no place
+    cuts the leaf; else within its partial sums' rounding).  At model size
+    M > 1 the split sums the row-parallel products' partials (and the
+    vocab-parallel cross-entropy's terms, and a copied weight's partial
+    gradients) in another order, within float32 rounding of it.  Every byte
+    handed between places is counted by kind (``sharding.transfer_counts``).
+    ``replicas`` runs only the last that many data replicas (their
+    gradients divided as if all ran): the dry run on the meta device, whose
+    replicas are alike, runs one (``launch/dryrun.py``); each replica's work
+    is marked ``work_scope("replica")``, its reduce to the owners
+    ``work_scope("sink")``.  The step's two halves are its attributes:
+    ``compute_grads(params, batch) -> (loss, metrics, grads)``, the
+    gradients a list of ``Placed`` leaves (each place's reduced block), and
+    ``apply_grads(state, loss, metrics, grads) -> (state, metrics)``."""
     _, opt_update = make_optimizer(tc)
     n_replicas = replicas
     devs = mesh.devices
     home = devs[0]
     int8 = tc.grad_compression == "int8_ef"
+    owner_specs = tree.leaves(state_specs["opt"]["m"] if tc.optimizer == "adamw"
+                              else state_specs["params"])
+    owners = [NamedSharding(mesh, s) for s in owner_specs]
 
     def state_shardings(state):
         specs = dict(state_specs)
@@ -243,10 +287,12 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
         k = max(tc.microbatches, 1)
         mb = len(replicas) * k
         n_run = len(replicas) if n_replicas is None else n_replicas
-        acc, loss_acc = None, torch.zeros((), dtype=torch.float32, device=home)
+        acc = None if mb <= 1 else tp.owner_blocks(params, owners)
+        loss_acc = torch.zeros((), dtype=torch.float32, device=home)
         for q in replicas[len(replicas) - n_run:]:
             with work_scope("replica"):
                 view = tp.replica_view(params, mesh, q)
+            sources = tp.grad_sources(params, view, q)
             share = {key: p.blocks[q] for key, p in placed.items()}
             parts = {key: v.reshape(k, v.shape[0] // k, *v.shape[1:])
                      for key, v in share.items()}
@@ -255,72 +301,85 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
                     loss, metrics, grads = grad_fn(model, tc, view,
                                                    {key: v[j] for key, v in parts.items()})
                 with work_scope("sink"):
-                    gl = tp.grads_home(view, grads, q, 0, home)
+                    out = tp.reduce_grads(params, sources, grads, owners, acc, mb)
                     del grads
                     if mb <= 1:
                         return (hand(loss, q, 0, home, "metrics"),
                                 {key: hand(v, q, 0, home, "metrics")
-                                 for key, v in metrics.items()}, gl)
-                    if acc is None:
-                        acc = [torch.zeros(g.shape, dtype=torch.float32, device=home)
-                               for g in gl]
-                    for a, g in zip(acc, gl):
-                        a.add_(g.float() / mb)
-                    del gl
+                                 for key, v in metrics.items()}, out)
                     loss_acc = loss_acc + hand(loss, q, 0, home, "metrics") / mb
             del view
         return loss_acc, {"ce": loss_acc, "aux": torch.zeros_like(loss_acc)}, acc
 
-    def update_blockwise(pp: Placed, g, opt_blocks, opt_step, lr):
-        """AdamW or SGD on every place's optimizer block of one leaf, then
-        ZeRO-1's hand-over of the updated slices."""
-        regions = [(opt_blocks[0] if opt_blocks else pp).slices(i) for i in range(mesh.size)]
-        bases = [pp.slices(i) for i in range(mesh.size)]
-        ps, gs = [], []
+    def ef_blocks(g: Placed, err: Placed) -> None:
+        """int8 error feedback on each place's block of one leaf: the
+        scale from the blocks' maxima, each place's ``ef_err`` block
+        updated where it owns the slices, then completed from their
+        owners."""
+        regions = [g.slices(i) for i in range(mesh.size)]
+        errs = [err.blocks[i][_within(regions[i], err.slices(i))] for i in range(mesh.size)]
+        amax = None
+        for i, b in _distinct(g):
+            with at_place(i, forced=True):
+                m = hand(ef_amax(b, errs[i]), i, 0, home, "ef_scale")
+            amax = m if amax is None else torch.maximum(amax, m)
+        scale = ef_scale(amax)
         for i, dev in enumerate(devs):
-            ps.append(pp.blocks[i][_within(regions[i], bases[i])])
-            gs.append(hand(g[regions[i]], 0, i, dev, "zero1_grad"))
+            with at_place(i, forced=True):
+                g.blocks[i], new_err = ef_compress_block(
+                    g.blocks[i], errs[i], hand(scale, 0, i, dev, "ef_scale"))
+                errs[i].copy_(new_err)
+            del new_err
+        _share(err, regions, "ef_err")
+
+    def clip(grads):
+        """(the global norm of the placed gradients, from each distinct
+        block's sum of squares in leaf and place order at place 0); every
+        block scaled to the clip in float32."""
+        total = None
+        for g in grads:
+            for i, b in _distinct(g):
+                with at_place(i, forced=True):
+                    s = hand(torch.sum(torch.square(b.float())), i, 0, home, "grad_norm")
+                total = s if total is None else total + s
+        gn = torch.sqrt(total)
+        scale = torch.clamp_max(tc.grad_clip / torch.clamp_min(gn, 1e-9), 1.0)
+        scales = [hand(scale, 0, i, dev, "grad_norm") for i, dev in enumerate(devs)]
+        for g in grads:
+            for i in range(mesh.size):
+                with at_place(i, forced=True):
+                    g.blocks[i] = g.blocks[i].float() * scales[i]
+        return gn
+
+    def update_blockwise(pp: Placed, g: Placed, opt_blocks, opt_step, lr):
+        """AdamW or SGD on every place's optimizer block of one leaf (its
+        gradient block), then ZeRO-1's hand-over of the updated slices."""
+        regions = [g.slices(i) for i in range(mesh.size)]
+        ps = [pp.blocks[i][_within(regions[i], pp.slices(i))] for i in range(mesh.size)]
         opt = {"step": opt_step}
         if opt_blocks:
             opt.update(m=opt_blocks[0].blocks, v=opt_blocks[1].blocks)
-        opt_update(gs, opt, ps, lr)
-        del gs
-        for i, dev in enumerate(devs):
-            done = {regions[i]}
-            for j in range(mesh.size):
-                r = regions[j]
-                if r in done or any(a.start < b.start or a.stop > b.stop
-                                    for a, b in zip(r, bases[i])):
-                    continue
-                done.add(r)
-                pp.blocks[i][_within(r, bases[i])].copy_(
-                    hand(pp.blocks[j][_within(r, bases[j])], j, i, dev, "zero1_params"))
+        opt_update(g.blocks, opt, ps, lr)
+        _share(pp, regions, "zero1_params")
 
     @torch.no_grad()
     def apply_grads(state: Dict, loss, metrics: Dict, grads) -> Tuple[Dict, Dict]:
         """The step's update of the placed ``state`` by what
-        ``compute_grads`` returned (its gradients, whole leaves at place 0,
-        are consumed)."""
+        ``compute_grads`` returned (its gradients, each place's block, are
+        consumed)."""
         p_leaves = tree.leaves(state["params"])
         if int8:
-            err = [gather(e, home) for e in tree.leaves(state["ef_err"])]
-            grads, new_err = ef_compress(grads, err)
-            for e, whole in zip(tree.leaves(state["ef_err"]), new_err):
-                _write_back(e, whole)
-            del err, new_err
-        grads, gn = clip_grads(grads, tc)
+            for g, e in zip(grads, tree.leaves(state["ef_err"])):
+                ef_blocks(g, e)
+        gn = clip(grads)
         lr = lr_schedule(tc, state["step"])
         opt = state["opt"]
         for n, pp in enumerate(p_leaves):
             g = grads[n]
             grads[n] = None
             if tc.optimizer == "adafactor":
-                vr, vc = tree.leaves(opt["vr"])[n], tree.leaves(opt["vc"])[n]
-                whole = [gather(t, home) for t in (pp, vr, vc)]
-                opt_update([g], {"vr": [whole[1]], "vc": [whole[2]],
-                                 "step": opt["step"]}, [whole[0]], lr)
-                for t, w in zip((pp, vr, vc), whole):
-                    _write_back(t, w)
+                adafactor_update_placed(g, tree.leaves(opt["vr"])[n], tree.leaves(opt["vc"])[n],
+                                        pp, opt["step"], tc, lr)
             else:
                 blocks = ((tree.leaves(opt["m"])[n], tree.leaves(opt["v"])[n])
                           if tc.optimizer == "adamw" else ())

@@ -25,7 +25,10 @@
     its step: ``moe_local`` through ``moe_ffn_local`` with the record of the
     default run (the placed steps' one MoE layout), ``serve_opt`` and
     ``fsdp_experts_only`` with the default run's FLOPs, other bytes a place
-    and fewer bytes of FSDP blocks gathered.
+    and fewer bytes of FSDP blocks gathered;
+  * depth: a deep cell of alike stacked layers (``extrapolation_depths``)
+    run at three depths and continued to its own equals its full-depth
+    run; ``PlaceCount``'s plain results give the kernels' record.
 """
 import dataclasses
 import json
@@ -192,12 +195,19 @@ def test_flops_split_sum_to_one_device():
 
 @pytest.mark.parametrize("arch,shape", [("gemma2-2b", "train_4k"),
                                         ("qwen2-vl-72b", "prefill_32k"),
-                                        ("phi3.5-moe-42b-a6.6b", "decode_32k")])
+                                        ("phi3.5-moe-42b-a6.6b", "decode_32k"),
+                                        ("qwen2-vl-72b", "train_4k"),
+                                        ("kimi-k2-1t-a32b", "train_4k")])
 def test_one_replica_counts_as_all(arch, shape):
     """A reduced cell with one replica run and the rest counted from it,
     against every replica run: FLOPs a place and in total, the peak a place
-    and the bytes moved by kind (the replicas' sums at place 0: replica 0's
-    own are no hand-over, so the counted ones exceed by one replica's)."""
+    and the bytes moved by kind (but the hand-overs to place 0: replica 0's
+    own are none, so the counted ones exceed by one replica's).  The reduce
+    of the gradients to their owners is counted a replica at a time: every
+    replica hands the owners the same parts, so one counts as all.  The
+    train cells: AdamW with remat "dots", AdamW with ZeRO-1 in bf16 under
+    remat "full" (qwen2-vl-72b's posture) and Adafactor (kimi-k2's), the
+    weights cut over the data places too in each."""
     one = dryrun.lower_cell(arch, shape, False, replicas=1, reduce=True)
     every = dryrun.lower_cell(arch, shape, False, replicas=None, reduce=True)
     assert one["replicas"]["run"] == 1 and every["replicas"]["run"] == 4
@@ -205,7 +215,7 @@ def test_one_replica_counts_as_all(arch, shape):
     assert one["memory"]["peak_bytes_per_place"][1:] == every["memory"]["peak_bytes_per_place"][1:]
     assert every["memory"]["peak_bytes_largest_place"] > 0
     assert every["memory"]["peak_bytes_one_device"] >= every["memory"]["peak_bytes_largest_place"]
-    sink = {"grad_home", "metrics", "logits"}
+    sink = {"metrics", "logits"}
     for k, v in every["transfer_bytes"].items():
         if k not in sink and k != "total":
             assert one["transfer_bytes"][k] == v, k
@@ -255,3 +265,67 @@ def test_variant_runs_the_same_compute_placed_otherwise(flag, shape):
     assert rec["flops"]["total"] == base["flops"]["total"] > 0
     assert rec["arg_bytes_per_device"] != base["arg_bytes_per_device"]
     assert 0 < rec["transfer_bytes"]["fsdp_gather"] < base["transfer_bytes"]["fsdp_gather"]
+
+
+@pytest.mark.parametrize("arch,shape,mp", [("qwen2-vl-72b", "train_4k", False),
+                                           ("qwen2-vl-72b", "prefill_32k", False),
+                                           ("kimi-k2-1t-a32b", "decode_32k", True)])
+def test_extrapolated_depth_equals_full_depth(monkeypatch, arch, shape, mp):
+    """A reduced cell at 8 layers, run at 2, 3 and 4 layers and continued
+    to 8 (``extrapolation_depths``), gives the record of its run at all 8
+    layers: each place's peak and FLOPs, the bytes and hand-overs by kind.
+    A cell no deeper than 4 layers runs at its full depth, and counts that
+    do not go the same step from depth to depth raise."""
+    real = dryrun.reduced
+    monkeypatch.setattr(dryrun, "reduced", lambda cfg: dataclasses.replace(real(cfg), n_layers=8))
+    ext = dryrun.lower_cell(arch, shape, mp, reduce=True)
+    with monkeypatch.context() as m:
+        m.setattr(dryrun, "extrapolation_depths", lambda cfg: None)
+        full = dryrun.lower_cell(arch, shape, mp, reduce=True)
+    assert full["cost_lowering"].startswith("meta_full_depth")
+    assert ext["cost_lowering"].startswith("meta_extrapolated(depths=[2, 3, 4],L=8)")
+    for key in ("memory", "flops", "transfer_bytes", "transfers", "arg_bytes_per_device"):
+        assert ext[key] == full[key], key
+    monkeypatch.setattr(dryrun, "reduced", lambda cfg: dataclasses.replace(real(cfg), n_layers=4))
+    assert dryrun.lower_cell(arch, shape, mp, reduce=True)["cost_lowering"].startswith(
+        "meta_full_depth")
+    run = {"flops": [1], "peak": [1], "one_peak": None, "counted": None, "bytes": {},
+           "times": {}, "homes": 1, "run": 1}
+    runs = [dict(run, peak=[v]) for v in (10, 20, 31)]
+    with pytest.raises(ValueError, match="not linear"):
+        dryrun._extrapolated(runs, (2, 3, 4), 8)
+
+
+def test_extrapolation_depths_of_the_production_archs():
+    """Which cells run at three depths and are continued: every stacked
+    family at 2p, 3p and 4p of its layer period (gemma2-2b's alternating
+    windows: 2), the hybrid and the ssm family at their full depth."""
+    want = {"gemma2-2b": (4, 6, 8), "zamba2-2.7b": None, "xlstm-125m": None}
+    for arch in ARCHS:
+        assert dryrun.extrapolation_depths(get_arch(arch)) == want.get(arch, (2, 3, 4)), arch
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen2-vl-72b", "train_4k"),
+                                        ("kimi-k2-1t-a32b", "train_4k"),
+                                        ("zamba2-2.7b", "decode_32k")])
+def test_plain_pointwise_results_match_the_kernels(monkeypatch, arch, shape):
+    """``PlaceCount`` makes plain pointwise and ``cat`` results directly
+    (``_plain_result``, ``_plain_cat``): the record is the one the meta
+    kernels' own results give, memory, FLOPs and bytes alike, and the ops
+    it made that way are many."""
+    made = []
+    real = dryrun._plain_result
+
+    def plain_result(*a):
+        out = real(*a)
+        made.append(out is not None)
+        return out
+
+    monkeypatch.setattr(dryrun, "_plain_result", plain_result)
+    fast = dryrun.lower_cell(arch, shape, False, reduce=True)
+    monkeypatch.setattr(dryrun, "_plain_result", lambda *a: None)
+    monkeypatch.setattr(dryrun, "_plain_cat", lambda *a: None)
+    slow = dryrun.lower_cell(arch, shape, False, reduce=True)
+    assert sum(made) > 100
+    for key in ("memory", "flops", "transfer_bytes", "transfers"):
+        assert fast[key] == slow[key], key

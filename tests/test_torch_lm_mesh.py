@@ -7,13 +7,22 @@ single-controller mesh of ``distributed/sharding.py`` with its places on
   * the placed train step (``training/train_step.make_placed_train_step``)
     on reduced deepseek-7b with 4 kv heads, batch 8 x 16, for AdamW with and
     without ZeRO-1, SGD, Adafactor and int8 error feedback, against the
-    one-device step at ``microbatches`` = the data size: bit for bit over 3
-    steps at (2,1); at (2,4), (2,2) and (1,2), where the model axis splits
-    the dense layers' compute, in float32 each step's loss and gradients
-    within SPLIT_TOL and its update bit for bit (``_hold_split_step``); each
-    place holds only its block; its step-1 loss within JAX's envelope (1e-3
-    x max(1, loss), tests/test_distributed.py) of JAX's single-device jitted
-    step with the weights carried across;
+    one-device step at ``microbatches`` = the data size, each of 3 steps
+    (``_hold_step``): at (2,1) the loss and each place's reduced gradient
+    block bit for bit; at (2,4), (2,2) and (1,2), where the model axis
+    splits the dense layers' compute, in float32 the loss and gradients
+    within SPLIT_TOL; the clip norm within NORM_TOL; the update bit for bit
+    with the one-device update of the same gradients at the placed clip
+    (Adafactor's where places cut a leaf within ADAFACTOR_TOL); the same on
+    2x2 with FSDP; no op making a tensor of a cut leaf's whole shape; the
+    placed Adafactor and int8 EF's block form against their whole-leaf
+    forms; FSDP's per-layer gathers lowering a placed forward's peak on
+    meta (``assembled`` building nothing for a layer that gathers nothing);
+    each place holds only its block, with ZeRO-1 and with FSDP too (its
+    slice, its own storage); the losses of two steps within
+    JAX's envelope (1e-3 x max(1, loss), tests/test_distributed.py) of
+    JAX's single-device jitted step with the weights carried across, for
+    ZeRO-1, ZeRO-1 with FSDP and Adafactor;
   * local MoE dispatch (``moe_ffn_local``) against the dense dispatch
     (forward 1e-4, gradients 1e-3, tests/test_moe_dispatch.py's config and
     bounds) on (2,4) places, with and without the FSDP gather, and against
@@ -74,10 +83,16 @@ from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
 from repro_torch.models import build_model, moe
 from repro_torch.models.attention import decode_attention
 from repro_torch.training import CheckpointManager, init_train_state, make_train_step
-from repro_torch.distributed.compression import ef_compress
-from repro_torch.training.optim import lr_schedule, make_optimizer
-from repro_torch.training.train_step import (clip_grads, global_norm,
-                                             make_placed_train_step)
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.compression import (ef_amax, ef_compress, ef_compress_block,
+                                                 ef_scale)
+from repro_torch.distributed.sharding import _spec_axes, block_slices
+from repro_torch.launch.dryrun import PlaceCount, from_host
+from repro_torch.models.transformer import params_tree
+from repro_torch.training.optim import (adafactor_update, adafactor_update_placed,
+                                        lr_schedule, make_optimizer)
+from repro_torch.training.train_step import global_norm, make_placed_train_step
+from torch.utils._python_dispatch import TorchDispatchMode
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,6 +104,8 @@ STEP_KW = dict(learning_rate=1e-3, warmup_steps=2)
 B, S = 8, 16
 JAX_LOSS_TOL = 1e-3                 # tests/test_distributed.py:70-71
 SPLIT_TOL = dict(rtol=1e-5, atol=1e-6)   # chip_smoke phase train_resume's envelope
+NORM_TOL = dict(rtol=1e-6, atol=0.0)     # the clip norm's partial sums against one sum
+ADAFACTOR_TOL = dict(rtol=1e-5, atol=1e-6)   # Adafactor's means from partial sums
 MOE_FWD_TOL, MOE_GRAD_TOL = 1e-4, 1e-3   # tests/test_moe_dispatch.py
 MOE_JAX_TOL = 1e-4
 DECODE_TOL = 1e-4                   # tests/test_distributed.py:106
@@ -115,13 +132,13 @@ def _batches(vocab, n=3, seed=5):
             for b in lm_batches(vocab, B, S, n, seed=seed)]
 
 
-def _placed_step(model, tc, D, M):
+def _placed_step(model, tc, D, M, fsdp=0):
     mesh = make_host_mesh(D, M)
     shp = ShapeConfig("t", S, B, "train")
     rules_d = make_rules(model.cfg, shp, model_size=M, dp_size=D)
     rules = AxisRules(rules_d)
     state = init_train_state(model, tc, 0)
-    ps = param_specs(state["params"], model.cfg, rules, M)
+    ps = param_specs(state["params"], model.cfg, rules, M, fsdp)
     os_ = opt_specs(state["opt"], ps, model.cfg, rules, mesh_shape_dict(mesh), tc.zero1)
     step = make_placed_train_step(model, tc, mesh, {"params": ps, "opt": os_, "step": P()},
                                   batch_specs(model.cfg, shp, rules))
@@ -131,18 +148,6 @@ def _placed_step(model, tc, D, M):
 @functools.lru_cache(maxsize=None)
 def _model():
     return build_model(_cfg(), device="cpu")
-
-
-@functools.lru_cache(maxsize=None)
-def _reference(variant: str, D: int):
-    """3 one-device steps at microbatches = D: (metrics, final state)."""
-    m = _model()
-    tc = TrainConfig(**STEP_KW, **VARIANTS[variant], microbatches=D)
-    state, step, mets = init_train_state(m, tc, 0), make_train_step(m, tc), []
-    for b in _batches(m.cfg.vocab):
-        state, met = step(state, b)
-        mets.append(met)
-    return mets, state
 
 
 # ---------------------------------------------------------------------------
@@ -216,79 +221,100 @@ def _whole(state):
                          state)
 
 
-def _one_device_update(tc, state, grads):
+def _one_device_update(tc, state, grads, gn):
     """The one-device step's update (``train_step``'s body after its
-    gradients) of ``state`` by ``grads``: (the new state, grad norm)."""
+    gradients) of ``state`` by ``grads`` at the placed step's clip: int8 EF
+    on the whole leaves, the clip scale from the placed norm ``gn`` as
+    ``clip_grads`` takes it from its own.  (The new state, the one-device
+    norm of the same gradients.)"""
     if tc.grad_compression == "int8_ef":
         grads, err = ef_compress(grads, tree.leaves(state["ef_err"]))
         state["ef_err"] = tree.unflatten(state["ef_err"], err)
-    grads, gn = clip_grads(grads, tc)
+    own = global_norm(grads)
+    scale = torch.clamp_max(tc.grad_clip / torch.clamp_min(gn, 1e-9), 1.0)
+    grads = [g.float().mul_(scale) for g in grads]
     lr = lr_schedule(tc, state["step"])
     opt = {k: tree.leaves(v) if k != "step" else v for k, v in state["opt"].items()}
     params, opt = make_optimizer(tc)[1](grads, opt, tree.leaves(state["params"]), lr)
     return {**state, "params": tree.unflatten(state["params"], params),
-            "opt": {**state["opt"], "step": opt["step"]}, "step": state["step"] + 1}, gn
+            "opt": {**state["opt"], "step": opt["step"]}, "step": state["step"] + 1}, own
 
 
-def _hold_split_step(variant, D, M):
-    """Model size > 1: the dense layers' compute is split over the model
-    places, which sums the row-parallel partials (and the vocab-parallel
-    cross-entropy's terms) in another order than one device does.  float32
-    compute (bf16 would round each partial: the split's design, as
-    Megatron's bf16 sums).  Each of 3 steps, from the placed state gathered:
-    the loss, and the gradients at the scale the optimizer takes them (the
-    clip's), within SPLIT_TOL of the one-device step's at microbatches = D;
-    the placed update (int8 EF, clip, optimizer, ZeRO-1) bit for bit with
-    the one-device update of those same gradients.  (Not the parameters of
+def _hold_step(variant, D, M, fsdp=0):
+    """The placed step against the one-device step at microbatches = D,
+    each of 3 steps from the placed state gathered: its two halves
+    (``compute_grads``, then ``apply_grads``) held apart.
+
+    At model size 1 the loss and each place's reduced gradient block are bit
+    for bit the one-device loss and the same slice of its gradient.  Past
+    it the dense layers' compute is split over the model places, which sums
+    the row-parallel partials (and the vocab-parallel cross-entropy's terms)
+    in another order: in float32 compute (bf16 would round each partial: the
+    split's design, as Megatron's bf16 sums) the loss and the gradients at
+    the scale the optimizer takes them (the clip's) within SPLIT_TOL.  The
+    clip norm, a sum of each distinct block's sum of squares, within
+    NORM_TOL of the one-device norm of the same gradients (the partial sums
+    reorder it by design, as JAX's reduce-scatter does).  The update (int8
+    EF, optimizer, ZeRO-1's hand-over) bit for bit with the one-device update
+    of those same gradients at the placed step's clip scale; Adafactor's,
+    whose means combine partial sums where the places cut a leaf, within
+    ADAFACTOR_TOL past model size 1 or with FSDP.  (Not the parameters of
     two separate runs: where |g| is below AdamW's eps its update moves a
     parameter by lr |g| / eps, so a gradient's 1e-9 rounding moves it by
     1e-5, and int8's rounding edges by a quantisation step.)"""
     m = _model()
-    tc = TrainConfig(**STEP_KW, **VARIANTS[variant], compute_dtype="float32")
-    step, state, rules_d = _placed_step(m, tc, D, M)
+    tc = TrainConfig(**STEP_KW, **VARIANTS[variant],
+                     **({} if M == 1 else {"compute_dtype": "float32"}))
+    step, state, rules_d = _placed_step(m, tc, D, M, fsdp)
     ref_tc = dataclasses.replace(tc, microbatches=D)
     ref = make_train_step(m, ref_tc)
     with use_rules(rules_d):
         state = step.place_state(state)
         for b in _batches(m.cfg.vocab):
             whole = _whole(state)
-            loss, _, grads = step.compute_grads(state["params"], b)
+            loss, metrics, grads = step.compute_grads(state["params"], b)
             wloss, _, wgrads = ref.compute_grads(whole["params"], b)
-            torch.testing.assert_close(loss, wloss, **SPLIT_TOL)
-            scale = min(1.0, tc.grad_clip / float(global_norm(wgrads)))   # the clip's
-            for g, w in zip(grads, tree.leaves(wgrads)):
-                torch.testing.assert_close(g * scale, w * scale, **SPLIT_TOL)
-            want, gn = _one_device_update(ref_tc, whole, [g.clone() for g in grads])
-            state, met = step(state, b)
-            assert torch.equal(met["grad_norm"], gn) and torch.equal(met["loss"], loss)
+            wgrads = tree.leaves(wgrads)
+            whole_g = [gather(g, "cpu") for g in grads]
+            if M == 1:
+                assert torch.equal(loss, wloss)
+                for g, w in zip(grads, wgrads):
+                    for i, blk in enumerate(g.blocks):
+                        assert torch.equal(blk, w[g.slices(i)]), (g, i)
+            else:
+                torch.testing.assert_close(loss, wloss, **SPLIT_TOL)
+                scale = min(1.0, tc.grad_clip / float(global_norm(wgrads)))   # the clip's
+                for g, w in zip(whole_g, wgrads):
+                    torch.testing.assert_close(g * scale, w * scale, **SPLIT_TOL)
+            state, met = step.apply_grads(state, loss, metrics, grads)
+            assert met.keys() == {"loss", "grad_norm", "lr", "ce", "aux"}
+            want, own_gn = _one_device_update(ref_tc, whole, whole_g, met["grad_norm"])
+            torch.testing.assert_close(met["grad_norm"], own_gn, **NORM_TOL)
+            loose = variant == "adafactor" and (M > 1 or fsdp)
             for (path, got), w in zip(tree.flatten_with_paths(state), tree.leaves(want)):
                 g = gather(got, "cpu") if isinstance(got, Placed) else got
-                assert torch.equal(g, w), path
+                if loose:
+                    torch.testing.assert_close(g, w, **ADAFACTOR_TOL, msg=str(path))
+                else:
+                    assert torch.equal(g, w), path
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda dm: f"{dm[0]}x{dm[1]}")
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_placed_step_bitwise_with_one_device(variant, mesh):
-    """At model size 1 the placed step is the one-device step at
-    microbatches = D bit for bit over 3 steps; past it, ``_hold_split_step``."""
-    D, M = mesh
-    if M > 1:
-        return _hold_split_step(variant, D, M)
-    m = _model()
-    tc = TrainConfig(**STEP_KW, **VARIANTS[variant])
-    step, state, rules_d = _placed_step(m, tc, D, M)
-    want_mets, want = _reference(variant, D)
-    with use_rules(rules_d):
-        for b, want_met in zip(_batches(m.cfg.vocab), want_mets):
-            state, met = step(state, b)
-            assert met.keys() == want_met.keys()
-            for k in met:
-                assert torch.equal(met[k], want_met[k]), k
-    for path, got in tree.flatten_with_paths(state):
-        ref = tree.flatten_with_paths(want)
-        w = dict(ref)[path]
-        g = gather(got, "cpu") if isinstance(got, Placed) else got
-        assert torch.equal(g, w), path
+    """At model size 1 the placed step's loss and gradient blocks are the
+    one-device step's at microbatches = D bit for bit, its update the
+    one-device update of the same gradients at its clip; past it, in the
+    split's envelope (``_hold_step``)."""
+    _hold_step(variant, *mesh)
+
+
+@pytest.mark.parametrize("variant", ["adamw_zero1", "adafactor", "int8_ef"])
+def test_fsdp_step_held_to_one_device(variant):
+    """2x2 with the weights cut over the data places too (``fsdp_size`` 2:
+    each stacked weight assembled a layer at a time, its gradient handed
+    back to the pieces' places), held as ``_hold_step`` holds the rest."""
+    _hold_step(variant, 2, 2, fsdp=2)
 
 
 def test_each_place_holds_only_its_block():
@@ -318,25 +344,229 @@ def test_each_place_holds_only_its_block():
     assert cut_by_zero == len(tree.leaves(state["params"]))
 
 
-def test_placed_step_loss_within_jax_envelope_of_single_device():
-    """JAX's state carried into the port: the step-1 loss of the placed
-    step (2,4), ZeRO-1, bf16 compute, against JAX's single-device jitted
-    step on the same batch."""
-    jm = jax_build_model(jax_reduced(jax_get_arch("deepseek-7b"), n_kv_heads=4))
-    jtc = JaxTrainConfig(zero1=True)
-    jstate = jax_init_train_state(jm, jtc, jax.random.PRNGKey(0))
-    b = next(iter(lm_batches(_cfg().vocab, B, S, 1, seed=5)))
-    _, jmet = jax.jit(jax_make_train_step(jm, jtc))(
-        jstate, {k: jnp.asarray(v) for k, v in b.items()})
-    ref = float(jmet["loss"])
+def test_each_place_holds_only_its_block_under_fsdp():
+    """(2,2) with ZeRO-1 and the weights cut over the data places too
+    (``fsdp_size`` 2): every block of a parameter, m and v is exactly its
+    slice of the whole leaf (``block_slices``), 1/(the product of its
+    spec's axes) of it, and no two places share storage."""
+    D, M = 2, 2
+    sizes = {"data": D, "model": M}
     m = _model()
-    tc = TrainConfig(zero1=True)
-    step, _, rules_d = _placed_step(m, tc, 2, 4)
+    step, state, _ = _placed_step(m, TrainConfig(**STEP_KW, zero1=True), D, M, fsdp=2)
+    whole = {k: tree.leaves(t) for k, t in (("params", state["params"]),
+                                             ("m", state["opt"]["m"]), ("v", state["opt"]["v"]))}
+    placed = step.place_state(state)
+    held = {"params": tree.leaves(placed["params"]), "m": tree.leaves(placed["opt"]["m"]),
+            "v": tree.leaves(placed["opt"]["v"])}
+    fsdp_cut = 0
+    for k in held:
+        for w, pp in zip(whole[k], held[k]):
+            axes = [a for e in pp.sharding.spec for a in _spec_axes(e)]
+            fsdp_cut += k == "params" and "data" in axes
+            for i in range(D * M):
+                assert pp.blocks[i].numel() * int(np.prod([sizes[a] for a in axes])) == w.numel()
+                assert torch.equal(pp.blocks[i], w[block_slices(pp.sharding, w.shape, i)])
+    assert fsdp_cut >= 6
+    for leaves in zip(*held.values()):
+        ptrs = {b.data_ptr() for t in leaves for b in t.blocks}
+        assert len(ptrs) == 3 * D * M
+
+
+class _Allocs(TorchDispatchMode):
+    """Every tensor an op makes: (its shape, its dtype)."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (list, tuple)) else [out]):
+            if isinstance(t, torch.Tensor):
+                self.made.append((tuple(t.shape), t.dtype))
+        return out
+
+
+@pytest.mark.parametrize("fsdp", [0, 2], ids=["tp", "tp_fsdp"])
+@pytest.mark.parametrize("variant", ["adamw_zero1", "adafactor", "int8_ef"])
+def test_no_place_holds_a_whole_cut_leaf(variant, fsdp):
+    """A step on 2x2 (and with the weights cut over the data places too):
+    no op makes a tensor of the whole shape of a leaf that its specs cut,
+    the gradients reduced to each place's block, the clip norm, int8's scale
+    and Adafactor's means taken from partial sums, and no whole parameter,
+    ``vr``, ``vc`` or error buffer gathered.  (The reduced model's other
+    tensors have none of those shapes: the same step with the specs
+    replicated makes them: d_ff 384 keeps an MLP block from having an
+    attention weight's whole shape.)"""
+    m = build_model(dataclasses.replace(_cfg(), d_ff=384), device="cpu")
+    tc = TrainConfig(**STEP_KW, **VARIANTS[variant], compute_dtype="float32")
+    step, state, rules_d = _placed_step(m, tc, 2, 2, fsdp)
+    with use_rules(rules_d):
+        state = step.place_state(state)
+        leaves = [p for p in tree.leaves(state["params"])
+                  if any(e is not None for e in p.sharding.spec)]
+        cut = {tuple(p.shape) for p in leaves}
+        with _Allocs() as seen:
+            state, met = step(state, _batches(m.cfg.vocab, 1)[0])
+    assert len(leaves) >= 6 and bool(torch.isfinite(met["loss"]))
+    whole = [(s, dt) for s, dt in seen.made if s in cut]
+    assert not whole, whole[:5]
+    rstep, rstate, rrules = _placed_step(m, tc, 2, 1)     # model size 1: leaves whole
+    with use_rules(rrules):
+        rstate = rstep.place_state(rstate)
+        with _Allocs() as seen:
+            rstep(rstate, _batches(m.cfg.vocab, 1)[0])
+    assert cut <= {s for s, _ in seen.made}
+
+
+@pytest.mark.parametrize("mesh,fsdp", [((2, 2), 0), ((2, 2), 2), ((1, 4), 0), ((4, 1), 4)],
+                         ids=["2x2", "2x2_fsdp", "1x4", "4x1_fsdp"])
+def test_placed_adafactor_matches_one_device(mesh, fsdp):
+    """``optim.adafactor_update_placed`` on every leaf of the reduced tree
+    placed by its specs (dimensions cut over the model places, the data
+    places, both) against the one-device ``adafactor_update`` of the same
+    gradients, 3 steps: the parameters and each place's ``vr``/``vc`` block
+    against its slice within ADAFACTOR_TOL (float32); a leaf no place cuts
+    (its parameter, ``vr`` and ``vc``) bit for bit."""
+    D, M = mesh
+    m = _model()
+    tc = TrainConfig(**STEP_KW, optimizer="adafactor")
+    rules = AxisRules(make_rules(m.cfg, ShapeConfig("t", S, B, "train"), model_size=M,
+                                 dp_size=D))
+    hm = make_host_mesh(D, M)
+    state = init_train_state(m, tc, 0)
+    ps = param_specs(state["params"], m.cfg, rules, M, fsdp)
+    os_ = opt_specs(state["opt"], ps, m.cfg, rules, mesh_shape_dict(hm), False)
+    placed = {"p": tree.tree_map(lambda t, s: place(t, NamedSharding(hm, s)), state["params"], ps),
+              "vr": tree.tree_map(lambda t, s: place(t, NamedSharding(hm, s)),
+                                  state["opt"]["vr"], os_["vr"]),
+              "vc": tree.tree_map(lambda t, s: place(t, NamedSharding(hm, s)),
+                                  state["opt"]["vc"], os_["vc"])}
+    rng = np.random.default_rng(3)
+    opt = {"vr": tree.leaves(state["opt"]["vr"]), "vc": tree.leaves(state["opt"]["vc"]),
+           "step": state["opt"]["step"]}
+    params = tree.leaves(state["params"])
+    n_cut = 0
+    for k in range(3):
+        grads = [torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32) * 10.0 ** -k)
+                 for p in params]
+        for g, pp, vr, vc in zip(grads, *(tree.leaves(placed[key]) for key in ("p", "vr", "vc"))):
+            gp = place(g, pp.sharding)
+            adafactor_update_placed(gp, vr, vc, pp, opt["step"], tc, 1e-2)
+        params, opt = adafactor_update(grads, opt, params, tc, 1e-2)
+        for key, want in (("p", params), ("vr", opt["vr"]), ("vc", opt["vc"])):
+            for pp, got, w in zip(tree.leaves(placed["p"]), tree.leaves(placed[key]), want):
+                cut = any(e is not None for e in pp.sharding.spec)
+                n_cut += cut
+                for i, blk in enumerate(got.blocks):
+                    if cut:
+                        torch.testing.assert_close(blk, w[got.slices(i)], **ADAFACTOR_TOL)
+                    else:
+                        assert torch.equal(blk, w), (key, got)
+    assert n_cut > 0
+
+
+def test_ef_compress_block_matches_whole_leaf():
+    """int8 error feedback on a leaf cut in blocks (8, 4 ways along
+    different dimensions): the scale from the blocks' maxima equals the
+    whole leaf's bit for bit, and each block's dequantised gradient and new
+    error equal the slices of ``ef_compress``'s."""
+    rng = np.random.default_rng(11)
+    g = torch.from_numpy(rng.standard_normal((4, 8, 16)).astype(np.float32))
+    e = torch.from_numpy(rng.standard_normal((4, 8, 16)).astype(np.float32) * 1e-3)
+    (deq,), (err,) = ef_compress([g], [e])
+    for cuts in ((slice(0, 2), slice(2, 4)), (slice(0, 1), slice(1, 4))):
+        for dim in (0, 1, 2):
+            size = g.shape[dim]
+            blocks = [tuple(slice(None) if d != dim else slice(size * c.start // 4,
+                                                               size * c.stop // 4)
+                            for d in range(3)) for c in cuts]
+            scale = ef_scale(torch.stack([ef_amax(g[b], e[b]) for b in blocks]).amax())
+            assert torch.equal(scale, ef_scale((g + e).abs().max()))
+            for b in blocks:
+                d, ne = ef_compress_block(g[b], e[b], scale)
+                assert torch.equal(d, deq[b]) and torch.equal(ne, err[b])
+
+
+def test_fsdp_forward_peak_falls_per_layer():
+    """A placed forward on the meta device (8 layers, 2x2, the weights cut
+    over the data places too): assembled one layer at a time, the peak of
+    each place falls, against the same forward with every stacked weight
+    assembled whole first, by at least (L-1)/L of that assembled stack."""
+    cfg = dataclasses.replace(_cfg(), n_layers=8)
+    params = params_tree(build_model(cfg, device="meta").init_params(0))
+    hm = make_host_mesh(2, 2, devices=["meta"] * 4)
+    rules_d = make_rules(cfg, ShapeConfig("p", S, B, "prefill"), model_size=2, dp_size=2)
+    ps = param_specs(params, cfg, AxisRules(rules_d), 2, 2)
+    placed = from_host(params, ps, hm)
+    toks = torch.empty((B // 2, S), dtype=torch.int64, device="meta")
+    peaks, stack = {}, [0] * 4
+    for mode in ("layer", "whole"):
+        with use_rules(rules_d), torch.no_grad(), PlaceCount(4) as count:
+            view = tp.replica_view(placed, hm, 0)
+            gathered = [v for v in tree.leaves(view) if isinstance(v, tp.Gathered)]
+            if mode == "whole":
+                for v in gathered:
+                    for p, shp in zip(v.places, v.shapes):
+                        stack[p] += int(np.prod(shp)) * v.dtype.itemsize
+                view = tp.assembled(view)
+            build_model(cfg, device="meta").forward(view, {"tokens": toks})
+            del view
+        peaks[mode] = list(count.peak)
+    assert gathered and all(stack[p] > 0 for p in (0, 1))
+    L = cfg.n_layers
+    for p in (0, 1):              # the replica's two model places
+        assert peaks["whole"][p] - peaks["layer"][p] >= (L - 1) / L * stack[p], (peaks, stack)
+
+
+def test_assembled_keeps_a_layer_with_nothing_gathered():
+    """``tensor_parallel.assembled`` hands back a layer that holds no
+    ``Gathered`` as the same object (the one-device path builds nothing a
+    layer), and in a placed FSDP view builds a new layer whose ``Gathered``
+    are assembled and whose other leaves are the view's own."""
+    from repro_torch.models.transformer import _as_params
+    cfg = dataclasses.replace(_cfg(), n_layers=2)
+    one = _as_params(params_tree(build_model(cfg, device="meta").init_params(0)))
+    assert all(tp.assembled(lp) is lp for lp in one.layers)
+    params = params_tree(build_model(cfg, device="meta").init_params(0))
+    hm = make_host_mesh(2, 2, devices=["meta"] * 4)
+    rules_d = make_rules(cfg, ShapeConfig("p", S, B, "prefill"), model_size=2, dp_size=2)
+    placed = from_host(params, param_specs(params, cfg, AxisRules(rules_d), 2, 2), hm)
+    with use_rules(rules_d), torch.no_grad():
+        for lp in _as_params(tp.replica_view(placed, hm, 0)).layers:
+            got = tp.assembled(lp)
+            before, after = tree.leaves(vars(lp)), tree.leaves(vars(got))
+            assert got is not lp and len(before) == len(after)
+            assert any(isinstance(b, tp.Gathered) for b in before)
+            for b, a in zip(before, after):
+                assert (a is b) != isinstance(b, tp.Gathered)
+
+
+@pytest.mark.parametrize("posture", ["zero1", "zero1_fsdp", "adafactor"])
+def test_placed_step_loss_within_jax_envelope_of_single_device(posture):
+    """JAX's state carried into the port: the losses of two steps of the
+    placed step (2,4), bf16 compute, against JAX's single-device jitted
+    step on the same batches: ZeRO-1, ZeRO-1 with the weights cut over the
+    data places too (FSDP), and Adafactor."""
+    kw = {"zero1": {"zero1": True}, "zero1_fsdp": {"zero1": True},
+          "adafactor": {"optimizer": "adafactor"}}[posture]
+    jm = jax_build_model(jax_reduced(jax_get_arch("deepseek-7b"), n_kv_heads=4))
+    jtc = JaxTrainConfig(**kw)
+    jstate = jax_init_train_state(jm, jtc, jax.random.PRNGKey(0))
+    batches = list(lm_batches(_cfg().vocab, B, S, 2, seed=5))
+    jstep = jax.jit(jax_make_train_step(jm, jtc))
+    m = _model()
+    tc = TrainConfig(**kw)
+    step, _, rules_d = _placed_step(m, tc, 2, 4, 2 if posture == "zero1_fsdp" else 0)
     state = train_state_from_arrays(m.cfg, tc, jax.tree_util.tree_map(np.asarray, jstate),
                                     device="cpu")
-    with use_rules(rules_d):
-        _, met = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
-    assert abs(float(met["loss"]) - ref) < JAX_LOSS_TOL * max(1.0, ref), (float(met["loss"]), ref)
+    for b in batches:
+        jstate, jmet = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        ref = float(jmet["loss"])
+        with use_rules(rules_d):
+            state, met = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        assert abs(float(met["loss"]) - ref) < JAX_LOSS_TOL * max(1.0, ref), (
+            float(met["loss"]), ref)
 
 
 # ---------------------------------------------------------------------------
@@ -527,7 +757,7 @@ def test_launcher_mesh_runs_and_its_checkpoints_restore_on_1x1(tmp_path, capsys)
     and holds the one-device launcher's at ``--microbatches 2`` within the
     bf16 envelope (LAUNCHER_LOSS_TOL, LAUNCHER_UPDATE_TOL: the dense layers'
     compute is split, each partial sum rounding apart in bf16;
-    ``_hold_split_step`` holds the split step in float32).  ``--mesh 2x1``
+    ``_hold_step`` holds the split step in float32).  ``--mesh 2x1``
     (model size 1, nothing split): its step-4 checkpoint equals the
     one-device launcher's bit for bit."""
     base = ["--arch", "gemma2-2b", "--reduced", "--steps", "4", "--ckpt-every", "2",

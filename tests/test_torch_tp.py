@@ -9,7 +9,7 @@
     SPLIT_TOL (rtol 1e-5, atol 1e-6; float32 compute).  SGD, whose update is
     the gradient scaled: AdamW moves a parameter whose gradient is below its
     eps by lr |g| / eps, so a gradient's float32 rounding of ~1e-9 moves it
-    by ~1e-5 (``test_torch_lm_mesh._hold_split_step`` holds AdamW, ZeRO-1,
+    by ~1e-5 (``test_torch_lm_mesh._hold_step`` holds AdamW, ZeRO-1,
     Adafactor and int8 EF at the optimizer's input instead).  At (2, 4)
     reduced's 2 kv heads do not divide over 4 places: each place computes
     both and attends with the one its q heads read;
@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_arch as jax_get_arch, reduced as jax_reduced
 from repro.models import build_model as jax_build_model
@@ -43,14 +44,14 @@ from repro_torch.distributed.mesh_rules import make_rules
 from repro_torch.distributed.params import (batch_specs, cache_specs, opt_specs,
                                             param_specs)
 from repro_torch.distributed.sharding import (AxisRules, NamedSharding, P, Placed,
-                                              gather, place, reset_transfer_counts,
-                                              transfer_counts, use_rules)
+                                              current_scope, gather, place,
+                                              reset_transfer_counts, transfer_counts,
+                                              use_rules)
 from repro_torch.interop import lm_params_from_arrays
 from repro_torch.launch.mesh import make_host_mesh, mesh_shape_dict
 from repro_torch.models import build_model
 from repro_torch.models.transformer import params_tree
 from repro_torch.training import init_train_state, make_train_step
-from repro_torch.training import train_step as train_step_mod
 from repro_torch.training.train_step import make_placed_train_step
 
 torch.set_num_threads(1)
@@ -129,51 +130,74 @@ def _model_cut(t) -> bool:
     return isinstance(t, Placed) and "model" in str(t.sharding.spec)
 
 
-def _watch(monkeypatch):
-    """Record every ``gather`` of a placed tensor and every block
-    ``model_block`` assembles."""
-    seen = {"gathered": [], "assembled": []}
-    real_gather, real_block = train_step_mod.gather, tp.model_block
+class _Made(TorchDispatchMode):
+    """The shape of every tensor an op makes (``scoped``: only inside a
+    placed run's replicas and their hand-overs home, ``work_scope``)."""
 
-    def gather_(p, *a, **kw):
-        seen["gathered"].append(p)
-        return real_gather(p, *a, **kw)
+    def __init__(self, scoped=False):
+        super().__init__()
+        self.shapes, self.scoped = set(), scoped
 
-    def block_(pp, i, *a, **kw):
-        out = real_block(pp, i, *a, **kw)
-        seen["assembled"].append((pp, tuple(out.shape)))
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self.scoped and current_scope() is None:
+            return out
+        for t in (out if isinstance(out, (list, tuple)) else [out]):
+            if isinstance(t, torch.Tensor):
+                self.shapes.add(tuple(t.shape))
         return out
 
-    monkeypatch.setattr(train_step_mod, "gather", gather_)
-    monkeypatch.setattr(tp, "model_block", block_)
+
+def _watch(monkeypatch):
+    """Record the model block each replica reads of a placed leaf (its own
+    block, or the plan of one assembled from the data places' pieces)."""
+    seen = {"assembled": []}
+    real_plan = tp._plan
+
+    def plan_(pp, i, *a, **kw):
+        out = real_plan(pp, i, *a, **kw)
+        seen["assembled"].append((pp, tuple(pp.blocks[i].shape) if out is None
+                                  else tuple(out[0])))
+        return out
+
+    monkeypatch.setattr(tp, "_plan", plan_)
     return seen
 
 
 @pytest.mark.parametrize("fsdp", [0, 2], ids=["tp", "tp_fsdp"])
 def test_no_model_block_gathered_whole(monkeypatch, fsdp):
     """AdamW with ZeRO-1 on (2, 4), the weights cut over the data places too
-    where ``fsdp``: no parameter the model axis cuts is gathered, and every
-    block a replica assembles of one is 1/M of it along the cut; the placed
-    prefill and decode gather nothing whole either."""
+    where ``fsdp``: no op makes a tensor of the whole shape of a parameter
+    the model axis cuts (no gather, no whole gradient), and every block a
+    replica assembles of one is 1/M of it along the cut; the placed prefill
+    and decode make none either."""
     seen = _watch(monkeypatch)
     m = _model("deepseek-7b")
     tc = TrainConfig(zero1=True, compute_dtype="float32", warmup_steps=1)
     step, state, rules_d = _placed(m, tc, 2, 4, fsdp)
     with use_rules(rules_d):
         state = step.place_state(state)
-        step(state, _batches(m.cfg, 1)[0])
+        with _Made() as made:
+            step(state, _batches(m.cfg, 1)[0])
     cut = [p for p in tree.leaves(state["params"]) if _model_cut(p)]
     assert len(cut) >= 6
-    assert not [p for p in seen["gathered"] if any(p is c for c in cut)]
+    assert not {tuple(p.shape) for p in cut} & made.shapes
     assembled = [(pp, shp) for pp, shp in seen["assembled"] if _model_cut(pp)]
     assert assembled and all(np.prod(shp) * 4 == pp.shape.numel() for pp, shp in assembled)
     if fsdp:
         assert transfer_counts()["bytes"].get("fsdp_gather", 0) > 0
     seen["assembled"].clear()
-    _prefill_decode("gemma2-2b", 2, 4, steps=2)
+    with _Made(scoped=True) as made:        # the weights' making and placing left out
+        _, _, params = _prefill_decode("gemma2-2b", 2, 4, steps=2)
     assembled = [(pp, shp) for pp, shp in seen["assembled"] if _model_cut(pp)]
     assert assembled and all(np.prod(shp) * 4 == pp.shape.numel() for pp, shp in assembled)
-    assert not seen["gathered"] or not any(_model_cut(p) for p in seen["gathered"])
+    cfg = reduced(get_arch("gemma2-2b"))
+    rules = AxisRules(make_rules(cfg, ShapeConfig("p", 32, 4, "prefill"), model_size=4,
+                                 dp_size=2))
+    model_cut = {tuple(t.shape) for t, s in zip(tree.leaves(params),
+                                               tree.leaves(param_specs(params, cfg, rules, 4)))
+                 if "model" in str(s)}
+    assert model_cut and not model_cut & made.shapes
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,9 @@ step, the dry run's meta peak of that step against the card's, the placed
 prefill and decode against one device, ``moe_ffn_local`` at phi3.5-moe's
 width, sequence-parallel decode at gemma2-2b's decode shape, a re-meshed
 checkpoint and the launcher's ``--mesh 2x2``; with four cards also a card a
-place.  Then ``chip_smoke.phase_dryrun``: four production cells on the meta
-device.  TF32 off, as in the full run.  The card's name and power limit
+place; then the same step with the weights cut over the data places too
+(FSDP), held the same way.  Then ``chip_smoke.phase_dryrun``: five production
+cells on the meta device.  TF32 off, as in the full run.  The card's name and power limit
 (nvidia-smi) come first; the records also go to ``lm_mesh_phase.json`` in
 the output directory.  A failed check ends the run with a non-zero exit.
 """
