@@ -169,6 +169,22 @@ back-to-back call, which includes the wrapper's host overhead.
                1024 + 1024 packets; AUC, F1 and
                seconds of each; the plain MD path against kitnet_score on
                rate 256's records (1e-5).
+  examples — the four examples/*_torch.py run as scripts in subprocesses
+               (PYTHONPATH=src), each at its defaults but sampling_collapse
+               (SAMPLING_CUT: 4,000 packets; tools/examples_phase.py runs
+               its 26,000), launch counts zeroed just before and read
+               just after each: quickstart (fc_full, kitnet_ae,
+               kitnet_score), sampling_collapse (fc_full, kitnet_score),
+               serve_lm (flash once a layer a prefill), train_lm (none) 50
+               steps, then 100 into the same directory, which must resume
+               at step 50.  Each exits 0 and uses the card; a runner
+               returns what its main() returns.  quickstart,
+               sampling_collapse and serve_lm run again with --device cpu
+               (plain versions): quickstart's record indices equal, its
+               scores within rtol 1e-3 / atol 1e-4, alarms equal away from
+               the threshold; sampling_collapse's counts equal and AUCs
+               within 1e-3; serve_lm's tokens equal.  Seconds, AUCs, tok/s
+               and tokens/s.
   lm_main — LM serving of gemma2-2b at full width (26 layers, d_model
                2304, vocab 256,000, float32 parameters from seed 0, bf16
                cache) through launch.serve.serve_lm: the JAX launcher's
@@ -249,6 +265,18 @@ back-to-back call, which includes the wrapper's host overhead.
                aux and grad norm 1e-5 relative, the xLSTM's grad norm from
                step 2 on 5e-5; parameters within 2 * sum(lr), at most 1e-4
                past 1e-5 + 1e-5 |p|); no kernel launches.
+  train_long — gemma2-2b at full width and depth trained on one row of
+               4096 tokens (train_main's posture, remat "dots"): the
+               blockwise attention route, whose backward recomputes every
+               KV block (rematctx.no_residuals).  3 steps; s a step,
+               tokens/s, peak memory; each step's growth of the card's
+               memory against the meta count of the same step (1%), and
+               the meta count with every block's products saved (the plan
+               before no_residuals), whose peak must lie >= 12 GB above.
+               Then 8 of the 26 layers, one step's loss and gradients (the
+               backward's recompute on autograd's device thread) against
+               the same step with the blocks' products saved: loss, grad
+               norm and the difference's norm within 1e-5 relative.
   lm_mesh — the LM stack placed over a mesh (places repeated on cuda:0,
                and a card a place where the host has four): the placed train
                step (gemma2-2b at full width cut to LM_MESH_LAYERS of 26
@@ -3789,6 +3817,420 @@ def phase_dryrun(log) -> None:
                            f"against {max(train[1:])} at the largest other place")
 
 
+# ---------------------------------------------------------------------------
+# the examples, each in a subprocess; long-context training on the card
+# ---------------------------------------------------------------------------
+# Each example runs as a script in a subprocess: the runner loads it, zeroes
+# the launch counts, calls its ``main(argv)`` and prints, as its last line,
+# the launch counts and the chosen keys of what ``main`` returned.  Each
+# example the card runs with kernels also runs on the CPU (``--device cpu``,
+# the plain versions) on the same arguments, and the two are held together;
+# the CPU runs go on beside the card's (two threads each).
+# The switch sweep of sampling_collapse runs the serial oracle a packet at a
+# time (4.0-5.4 ms a packet on the card), so its 26,000 default packets
+# would add about two minutes: the smoke run cuts its trace to SAMPLING_CUT
+# (4,000 packets); ``tools/examples_phase.py`` runs every example at its
+# defaults.
+SAMPLING_CUT = ("--n-train", "2000", "--n-benign-eval", "1000", "--n-attack", "1000")
+TRAIN_LM_RESUME = (50, 100)     # train_lm's steps: a run stopped at 50, then resumed
+EXAMPLE_TIMEOUT_S = 600
+EXAMPLE_CPU_THREADS = "2"   # each CPU run's threads: the three run beside the card's
+EXAMPLE_SCORE_TOL = dict(rtol=1e-3, atol=1e-4)  # tests/test_torch_service.py
+EXAMPLE_AUC_TOL = 1e-3                          # tests/test_torch_eval.py
+EXAMPLE_KEEP = {"quickstart": ("idx", "scores", "alarms", "auc", "threshold"),
+                "sampling_collapse": ("peregrine", "kitsune"),
+                "serve_lm": ("outputs", "tok_s"),
+                "train_lm": ("start", "loss", "tokens_per_s")}
+EXAMPLE_RUNNER = """
+import json, runpy, sys, time
+import numpy as np, torch
+from repro_torch.kernels import launch_counts, reset_launch_counts
+path, keep, argv = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]
+main = runpy.run_path(path)["main"]
+reset_launch_counts()
+t0 = time.perf_counter()
+out = main(argv)
+main_s = time.perf_counter() - t0
+def plain(v):
+    if isinstance(v, dict):
+        return {str(k): plain(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [plain(x) for x in v]
+    if isinstance(v, (np.ndarray, np.generic, torch.Tensor)):
+        return v.tolist()
+    return v
+card = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
+print(json.dumps({"launches": launch_counts(), "card_bytes": card, "main_s": main_s,
+                  **{k: plain(out[k]) for k in keep}}), flush=True)
+"""
+# gemma2-2b at full width and depth, train_main's posture under remat
+# "dots", one row of 4096 tokens: the attention's blockwise route
+TRAIN_LONG = (1, 4096, 3)       # batch, tokens, steps
+TRAIN_LONG_META_TOL = 0.01      # the meta count of a step against the card's growth
+TRAIN_LONG_MIN_DROP = 12e9      # bytes below the step with the blocks' products saved
+# the gradients with and without the blocks' products saved, on a depth
+# where both plans fit the card: the same arithmetic, recomputed or kept
+TRAIN_LONG_GRAD_LAYERS = 8
+TRAIN_LONG_GRAD_TOL = 1e-5      # relative: loss, grad norm, and the difference's norm
+
+
+def start_example(name: str, args=(), threads: str = "") -> dict:
+    """``examples/<name>_torch.py``'s ``main(args)`` started in a subprocess
+    with PYTHONPATH=src (``EXAMPLE_RUNNER``; ``threads`` sets its
+    OMP_NUM_THREADS); ``finish_example`` waits for it."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if threads:
+        env["OMP_NUM_THREADS"] = threads
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    path = ROOT / "examples" / f"{name}_torch.py"
+    proc = subprocess.Popen([sys.executable, "-c", EXAMPLE_RUNNER, str(path),
+                             json.dumps(EXAMPLE_KEEP[name]), *args],
+                            cwd=ROOT, env=env, stdout=out, stderr=err, text=True)
+    return {"name": name, "args": list(args), "proc": proc, "out": out, "err": err,
+            "t0": time.perf_counter()}
+
+
+def finish_example(run: dict) -> dict:
+    """The started run's seconds (wall, from its start), ``main_s`` (its
+    ``main`` alone, in its process), output lines, launch counts, the
+    card's peak allocated bytes (0 where the run never touched the card)
+    and EXAMPLE_KEEP's keys of its result.  A non-zero exit raises; past
+    EXAMPLE_TIMEOUT_S the process is killed."""
+    proc = run["proc"]
+    try:
+        rc = proc.wait(timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - run["t0"])))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs = time.perf_counter() - run["t0"]
+    run["out"].seek(0)
+    run["err"].seek(0)
+    out, err = run["out"].read(), run["err"].read()
+    run["out"].close()
+    run["err"].close()
+    if rc != 0:
+        raise RuntimeError(f"examples: {run['name']} {run['args']} exited {rc}: {err[-3000:]}")
+    lines = out.splitlines()
+    return {"args": run["args"], "seconds": secs, "lines": lines[:-1], **json.loads(lines[-1])}
+
+
+def run_example(name: str, args=()) -> dict:
+    """``finish_example`` of ``start_example(name, args)``."""
+    return finish_example(start_example(name, args))
+
+
+def examples_against_cpu(card: dict, cpu: dict) -> dict:
+    """The examples' results on the card against the same runs on the CPU:
+    quickstart's record indices equal, its scores within EXAMPLE_SCORE_TOL
+    and its alarms equal away from the threshold; sampling_collapse's
+    record counts equal and each AUC within EXAMPLE_AUC_TOL; serve_lm's
+    tokens equal.  The record: each one's largest difference, and
+    ``failed``, what differs (empty if nothing)."""
+    failed = []
+    q, qc = card["quickstart"], cpu["quickstart"]
+    s_g, s_c = np.asarray(q["scores"]), np.asarray(qc["scores"])
+    same_idx = q["idx"] == qc["idx"]
+    if not same_idx:
+        failed.append("quickstart's record indices")
+    elif not np.allclose(s_g, s_c, **EXAMPLE_SCORE_TOL):
+        failed.append("quickstart's scores")
+    else:
+        near = np.abs(s_c - qc["threshold"]) <= (EXAMPLE_SCORE_TOL["atol"]
+                                                + EXAMPLE_SCORE_TOL["rtol"] * np.abs(s_c))
+        if not np.array_equal(np.asarray(q["alarms"])[~near],
+                              np.asarray(qc["alarms"])[~near]):
+            failed.append("quickstart's alarms away from the threshold")
+    auc_errs = {}
+    for system in ("peregrine", "kitsune"):
+        for rate, g in card["sampling_collapse"][system].items():
+            c = cpu["sampling_collapse"][system][rate]
+            if (g["n_records"], g["n_attack"]) != (c["n_records"], c["n_attack"]):
+                failed.append(f"sampling_collapse {system} 1:{rate} counts")
+            auc_errs[f"{system}_1:{rate}"] = err = abs(g["auc"] - c["auc"])
+            if not err <= EXAMPLE_AUC_TOL:
+                failed.append(f"sampling_collapse {system} 1:{rate} AUC")
+    tokens = card["serve_lm"]["outputs"], cpu["serve_lm"]["outputs"]
+    if tokens[0] != tokens[1]:
+        failed.append("serve_lm's tokens")
+    return {"quickstart_max_score_err": float(np.abs(s_g - s_c).max()) if same_idx else None,
+            "quickstart_threshold_err": abs(q["threshold"] - qc["threshold"]),
+            "quickstart_auc": [q["auc"], qc["auc"]],
+            "sampling_collapse_auc_errs": auc_errs,
+            "serve_lm_tokens": list(tokens), "failed": failed}
+
+
+def phase_examples(sampling_args=SAMPLING_CUT) -> dict:
+    """The four examples on the card, each a script in a subprocess at its
+    defaults (sampling_collapse with ``sampling_args``), train_lm twice
+    into one temporary directory (TRAIN_LM_RESUME: the second run resumes
+    from the first's last checkpoint).  Each must exit 0, use the card,
+    and launch the kernels of its path: quickstart fc_full, kitnet_ae and
+    kitnet_score; sampling_collapse fc_full and kitnet_score; serve_lm
+    flash once a layer a prefill; train_lm none.  quickstart,
+    sampling_collapse and serve_lm run again on the CPU on the same
+    arguments, and are held to it (``examples_against_cpu``).  The record:
+    seconds, AUCs, tok/s, tokens/s, launches, the CPU comparison."""
+    import tempfile
+    from repro_torch.configs import get_arch, reduced
+
+    plans = {"quickstart": (), "sampling_collapse": tuple(sampling_args), "serve_lm": ()}
+    started = {name: start_example(name, (*args, "--device", "cpu"), EXAMPLE_CPU_THREADS)
+               for name, args in plans.items()}
+    try:
+        runs = {name: run_example(name, args) for name, args in plans.items()}
+        with tempfile.TemporaryDirectory() as ckpt:
+            for n in TRAIN_LM_RESUME:
+                runs[f"train_lm_{n}"] = run_example("train_lm", ("--steps", str(n),
+                                                                 "--ckpt-dir", ckpt))
+    except BaseException:
+        for run in started.values():
+            run["proc"].kill()
+            run["proc"].wait()
+        raise
+    cpu = {name: finish_example(run) for name, run in started.items()}
+    bad = [k for k, r in runs.items() if not r["card_bytes"]]
+    bad += [f"{k} (cpu)" for k, r in cpu.items() if r["card_bytes"]]
+    if bad:
+        raise RuntimeError(f"examples: {bad} did not run where they were sent")
+    q, serve = runs["quickstart"], runs["serve_lm"]
+    sampling = {system: {f"1:{rate}": r["auc"]
+                         for rate, r in runs["sampling_collapse"][system].items()}
+                for system in ("peregrine", "kitsune")}
+    tokens = [len(t) for t in serve["outputs"].values()]
+    cfg = reduced(get_arch("gemma2-2b"))
+    first, second = (runs[f"train_lm_{n}"] for n in TRAIN_LM_RESUME)
+    rec = {"phase": "examples", "sampling_args": list(sampling_args),
+           "seconds": {k: r["seconds"] for k, r in runs.items()},
+           "main_s": {k: r["main_s"] for k, r in runs.items()},
+           "cpu_main_s": {k: r["main_s"] for k, r in cpu.items()},
+           "launches": {k: r["launches"] for k, r in runs.items()},
+           "card_bytes": {k: r["card_bytes"] for k, r in runs.items()},
+           "quickstart": {"auc": q["auc"], "records": len(q["idx"]),
+                          "alarms": int(sum(q["alarms"])), "threshold": q["threshold"]},
+           "sampling_collapse": sampling,
+           "serve_lm": {"requests": len(tokens), "tokens": tokens, "tok_s": serve["tok_s"],
+                        "outputs": serve["outputs"]},
+           "train_lm": {n: {k: r[k] for k in EXAMPLE_KEEP["train_lm"]}
+                        for n, r in zip(TRAIN_LM_RESUME, (first, second))},
+           "lines": {k: r["lines"] for k, r in runs.items()}}
+    want = {"quickstart": ("fc_full", "kitnet_ae", "kitnet_score"),
+            "sampling_collapse": ("fc_full", "kitnet_score")}
+    for name, kernels in want.items():
+        if not all(runs[name]["launches"][k] > 0 for k in kernels):
+            raise RuntimeError(f"examples: {name} launched {runs[name]['launches']}")
+    if serve["launches"]["flash_attention"] != cfg.n_layers * len(tokens):
+        raise RuntimeError(f"examples: serve_lm launched {serve['launches']}")
+    if any(any(r["launches"].values()) for r in (first, second)):
+        raise RuntimeError("examples: train_lm's training path launched a kernel")
+    if any(any(r["launches"].values()) for r in cpu.values()):
+        raise RuntimeError("examples: a run on the CPU launched a kernel")
+    if not (np.isfinite(q["auc"]) and len(sampling["peregrine"]) == 3
+            and all(np.isfinite(list(v.values())).all() for v in sampling.values())):
+        raise RuntimeError(f"examples: AUCs {rec['quickstart']} {sampling}")
+    if tokens != [12] * 6:
+        raise RuntimeError(f"examples: serve_lm returned {tokens}")
+    if (first["start"], second["start"]) != (0, TRAIN_LM_RESUME[0]) or not all(
+            np.isfinite(r["loss"]) for r in (first, second)):
+        raise RuntimeError(f"examples: train_lm did not resume: {first} {second}")
+    rec["against_cpu"] = examples_against_cpu(runs, cpu)
+    if rec["against_cpu"]["failed"]:
+        raise RuntimeError(f"examples: the card against the CPU: {rec['against_cpu']}")
+    return rec
+
+
+@contextlib.contextmanager
+def blocks_saved():
+    """Blockwise attention's loop run plainly, as the port ran it before
+    ``rematctx.no_residuals``: the backward keeps every block's scores,
+    probabilities and ``p @ v``.  The forward computes the same values."""
+    from repro_torch.distributed import rematctx
+    real = rematctx.no_residuals
+    rematctx.no_residuals = lambda fn, *args: fn(*args)
+    try:
+        yield
+    finally:
+        rematctx.no_residuals = real
+
+
+def train_long_meta(cfg, tc, B: int, S: int, saved: bool = False) -> dict:
+    """The dry run's count (``launch/dryrun.PlaceCount``) of one unplaced
+    train step of a B x S batch on the meta device, from a state made
+    before it: the step's growth over the state, its FLOPs; ``saved`` under
+    ``blocks_saved``."""
+    from repro_torch.launch.dryrun import PlaceCount
+    from repro_torch.launch.specs import abstract_state
+    from repro_torch.models import build_model
+    from repro_torch.training import make_train_step
+
+    t0 = time.perf_counter()
+    state = abstract_state(cfg, tc)
+    step = make_train_step(build_model(cfg, device="meta"), tc)
+    batch = {k: torch.empty((B, S), dtype=torch.int64, device="meta")
+             for k in ("tokens", "labels")}
+    count = PlaceCount(1)
+    with blocks_saved() if saved else contextlib.nullcontext(), count:
+        step(state, batch)
+    return {"growth_bytes": count.one_peak, "flops": count.flops[0],
+            "seconds": time.perf_counter() - t0}
+
+
+def train_long_grads(cfg, tc, B: int, S: int) -> dict:
+    """One step's loss and gradients of ``cfg`` cut to TRAIN_LONG_GRAD_LAYERS
+    layers on the card, on one B x S batch from one set of parameters,
+    twice: as the port computes them (no block's products kept) and under
+    ``blocks_saved``.  The backward of the first recomputes the blocks on
+    autograd's device thread; both do the same arithmetic, so the loss,
+    the grad norm and the norm of the gradients' difference must agree
+    within TRAIN_LONG_GRAD_TOL (relative).  Each one's growth of the card's
+    memory over the parameters, beside it; ``ok`` if they agree."""
+    import dataclasses
+    import gc
+    from repro_torch import tree
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import params_tree
+    from repro_torch.training import make_train_step
+
+    small = dataclasses.replace(cfg, n_layers=TRAIN_LONG_GRAD_LAYERS)
+    model = build_model(small, device="cuda")
+    params = params_tree(model.init_params(tc.seed))
+    batch = train_batches(small.vocab, B, S, 1, tc.seed, "cuda")[0]
+    grads_of = make_train_step(model, tc).compute_grads
+    out = {}
+    for name, plan in (("unsaved", contextlib.nullcontext()), ("saved", blocks_saved())):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with plan:
+            loss, _, grads = grads_of(params, batch)
+        torch.cuda.synchronize()
+        out[name] = (float(loss), [g.float() for g in tree.leaves(grads)],
+                     torch.cuda.max_memory_allocated() - base)
+        del grads
+    (l_u, g_u, m_u), (l_s, g_s, m_s) = out["unsaved"], out["saved"]
+    norm = lambda gs: float(torch.stack([g.norm() for g in gs]).norm())
+    n_u, n_s = norm(g_u), norm(g_s)
+    diff = norm([a - b for a, b in zip(g_u, g_s)])
+    rec = {"layers": small.n_layers, "loss": [l_u, l_s], "grad_norm": [n_u, n_s],
+           "loss_rel_err": abs(l_u - l_s) / abs(l_s),
+           "grad_norm_rel_err": abs(n_u - n_s) / n_s, "grad_diff_rel": diff / n_s,
+           "max_abs_grad_err": max(float((a - b).abs().max()) for a, b in zip(g_u, g_s)),
+           "growth_bytes": {"unsaved": m_u, "saved": m_s}, "drop_bytes": m_s - m_u,
+           "tol": TRAIN_LONG_GRAD_TOL}
+    rec["ok"] = max(rec["loss_rel_err"], rec["grad_norm_rel_err"],
+                    rec["grad_diff_rel"]) <= TRAIN_LONG_GRAD_TOL
+    del out, g_u, g_s, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_long(log) -> None:
+    """gemma2-2b at full width and depth trained on one row of 4096 tokens
+    (TRAIN_LONG), train_main's posture (float32 parameters from seed 0,
+    bf16 compute, AdamW, warmup 1) under remat "dots": the attention's
+    blockwise route, which keeps no block's products for the backward.
+    Launch counts zeroed just before and read just after (none).  Seconds a
+    step (median of steps 2-3), tokens/s, peak memory; each step's growth
+    of the card's allocated memory against the meta count of the same step
+    (within TRAIN_LONG_META_TOL), and against the meta count with the
+    blocks' products saved (``blocks_saved``, the parent's plan), whose peak
+    (the card's before the step plus that growth) must lie at least
+    TRAIN_LONG_MIN_DROP above the card's.  Losses finite, blockwise
+    attention called twice a layer a step (forward and recompute).  Then
+    ``train_long_grads``: at TRAIN_LONG_GRAD_LAYERS layers, one step's loss
+    and gradients equal to those of the plan that keeps the blocks'
+    products."""
+    import gc
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.training import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("gemma2-2b")
+    B, S, n = TRAIN_LONG
+    if S < attn.BLOCKWISE_THRESHOLD:
+        raise RuntimeError("train_long: the batch does not take the blockwise route")
+    tc = TrainConfig(warmup_steps=1, remat="dots")
+    model = build_model(cfg, device="cuda")
+    step = make_train_step(model, tc)
+    batches = train_batches(cfg.vocab, B, S, n, tc.seed, "cuda")
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = init_train_state(model, tc, tc.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = torch.cuda.memory_allocated() - before
+    calls = []
+    real = attn.blockwise_attention
+    attn.blockwise_attention = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+    times, growth, peaks, mets = [], [], [], []
+    try:
+        reset_launch_counts()
+        for b in batches:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, met = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            growth.append(torch.cuda.max_memory_allocated() - base)
+            peaks.append(torch.cuda.max_memory_allocated())
+            mets.append({k: float(v) for k, v in met.items()})
+        launches = launch_counts()
+    finally:
+        attn.blockwise_attention = real
+    del state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads = train_long_grads(cfg, tc, B, S)
+    meta = train_long_meta(cfg, tc, B, S)
+    saved = train_long_meta(cfg, tc, B, S, saved=True)
+    card_growth = max(growth[1:])
+    peak = max(peaks)
+    saved_peak = peak - card_growth + saved["growth_bytes"]
+    step_s = float(np.median(times[1:]))
+    losses = [m["loss"] for m in mets]
+    rec = {"phase": "train_long", "arch": cfg.name, "params": cfg.param_count(),
+           "batch": B, "seq": S, "steps": n, "remat": tc.remat,
+           "optimizer": tc.optimizer, "compute_dtype": tc.compute_dtype,
+           "init_s": init_s, "state_bytes": state_bytes, "step_s": times,
+           "step_s_median_2_3": step_s, "tokens_per_s": B * S / step_s,
+           "flops_per_step_6nt": 6 * cfg.param_count() * B * S,
+           "peak_mem_gib": peak / 2 ** 30, "peak_bytes": peak,
+           "step_growth_bytes": growth, "losses": losses,
+           "grad_norms": [m["grad_norm"] for m in mets],
+           "blockwise_calls": len(calls), "launches": launches,
+           "meta": {**meta, "ratio": meta["growth_bytes"] / card_growth},
+           "blocks_saved": {**saved, "peak_bytes": saved_peak,
+                            "peak_gib": saved_peak / 2 ** 30,
+                            "fits_card": saved_peak <= torch.cuda.get_device_properties(0)
+                            .total_memory,
+                            "drop_bytes": saved_peak - peak},
+           "grads_saved_vs_unsaved": grads}
+    emit(rec, log)
+    if abs(rec["meta"]["ratio"] - 1) > TRAIN_LONG_META_TOL:
+        raise RuntimeError(f"train_long: meta growth {meta['growth_bytes']} against the "
+                           f"card's {card_growth}")
+    if not saved_peak - peak >= TRAIN_LONG_MIN_DROP:
+        raise RuntimeError(f"train_long: {saved_peak - peak} B below the saved blocks' plan")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"train_long: non-finite losses {losses}")
+    if len(calls) != 2 * cfg.n_layers * n:
+        raise RuntimeError(f"train_long: blockwise attention called {len(calls)} times")
+    if any(launches.values()):
+        raise RuntimeError(f"train_long: the training path launched kernels {launches}")
+    if not grads["ok"]:
+        raise RuntimeError(f"train_long: gradients with and without the blocks' "
+                           f"products saved differ: {grads}")
+
+
 def ensemble_designs(dev, x_sub, args, batches) -> dict:
     """kitnet_ae's two designs (csrc/kitnet_ae.cu), each forced, on the same
     inputs: their results equal bit for bit, and each one's device time a
@@ -4050,8 +4492,14 @@ def main() -> int:
     del part
     phase_eval(data, net, log)
 
+    # ---- 6d. the four examples, each a script in a subprocess ----
+    torch.cuda.empty_cache()
+    examples = phase_examples()
+    emit(examples, log)
+
     # ---- 7. LM serving of gemma2-2b at full width, traced, against plain ----
     flash["launches"], long_prompt_s = phase_lm_main(log)
+    flash["launches"] += examples["launches"]["serve_lm"]["flash_attention"]
     phase_lm_trace(long_prompt_s, log)
     phase_lm_reference(log)
 
@@ -4068,6 +4516,9 @@ def main() -> int:
     phase_train_families(log)
     phase_train_families_reference(log)
 
+    # ---- 8c. gemma2-2b on 4096 tokens: the blockwise route's memory plan ----
+    phase_train_long(log)
+
     # ---- 9. the LM stack placed over a mesh, the dry run on the meta device ----
     flash["launches"] += phase_lm_mesh(log)
     phase_dryrun(log)
@@ -4081,9 +4532,13 @@ def main() -> int:
                          "three_single_ms": engine["fc_tenants"]["three_single"]["three_ms"],
                          "engine_launches": engine["run"]["launches"]["fc_full"]}
     single["launches"] = single_launches
+    for kern in (fc, ens, score, flash):
+        kern["examples_launches"] = sum(r.get(kern["name"], 0)
+                                        for r in examples["launches"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("bf16", "chain_floor_ms", "computes", "tenant_axis", "family_shapes")
+    extra = ("bf16", "chain_floor_ms", "computes", "tenant_axis", "family_shapes",
+             "examples_launches")
     table = {"kernels": [{**{key: kern[key] for key in keys},
                           **{key: kern[key] for key in extra if key in kern}}
                          for kern in (fc, ens, score, sk, single, flash)]}

@@ -8,7 +8,9 @@ a keyword through the forward's signature.  A port of the JAX package's
 outputs (JAX's ``checkpoint_dots``), "none" saves everything.
 ``recomputing()`` is true while the backward recomputes a layer, so
 telemetry taken in the forward (``models/moe.count_drops``) counts a call
-once.
+once.  ``no_residuals`` runs a function whose products its backward
+recomputes under every policy (JAX's ``jax.checkpoint`` around a function
+inside a layer): blockwise attention's per-block scores.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ class _State(threading.local):
     def __init__(self):
         self.policy = "none"
         self.recomputing = False
+        self.in_layer = False       # in a remat'ed layer's forward or recompute
+        self.unsaved = False        # in ``no_residuals`` inside such a layer
 
 
 _STATE = _State()
@@ -71,14 +75,18 @@ def recomputing() -> bool:
 
 
 @contextlib.contextmanager
-def _recompute(inner=None):
-    prev = _STATE.recomputing
-    _STATE.recomputing = True
+def _layer(inner=None, recompute: bool = False):
+    """The state of a remat'ed layer's forward, or of its recompute in the
+    backward (``recompute``), around ``inner`` (the selective checkpoint's
+    context under "dots")."""
+    prev = _STATE.in_layer, _STATE.recomputing
+    _STATE.in_layer = True
+    _STATE.recomputing = recompute or prev[1]
     try:
         with inner if inner is not None else contextlib.nullcontext():
             yield
     finally:
-        _STATE.recomputing = prev
+        _STATE.in_layer, _STATE.recomputing = prev
 
 
 def _dot_ops():
@@ -88,7 +96,7 @@ def _dot_ops():
 
 
 def _save_dots(dots, ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in dots
+    return (CheckpointPolicy.MUST_SAVE if op in dots and not _STATE.unsaved
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
@@ -102,9 +110,30 @@ def maybe_remat(fn):
 
         def context_fn():
             fwd, rec = create_selective_checkpoint_contexts(policy_fn)
-            return fwd, _recompute(rec)
+            return _layer(fwd), _layer(rec, recompute=True)
     else:                                                           # "full"
         def context_fn():
-            return contextlib.nullcontext(), _recompute()
+            return _layer(), _layer(recompute=True)
     return functools.partial(checkpoint, fn, use_reentrant=False,
                              context_fn=context_fn)
+
+
+def no_residuals(fn, *args):
+    """``fn(*args)``, whose backward recomputes every tensor ``fn`` makes:
+    the forward leaves it only ``args``.  Inside a remat'ed layer, whose
+    checkpoint recomputes ``fn`` already, this only keeps "dots" from
+    saving ``fn``'s matrix products (a checkpoint nested in the layer's
+    would not: selective checkpointing caches the inner products all the
+    same, and ``fn`` would run once more).  Elsewhere ``fn`` runs under a
+    checkpoint of its own where a gradient flows to ``args``."""
+    if _STATE.in_layer:
+        prev = _STATE.unsaved
+        _STATE.unsaved = True
+        try:
+            return fn(*args)
+        finally:
+            _STATE.unsaved = prev
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        _ready_checkpoint()
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

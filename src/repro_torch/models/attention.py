@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import tensor_parallel
+from repro_torch.distributed import rematctx, tensor_parallel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, softcap
 
@@ -107,38 +107,45 @@ def blockwise_attention(q, k, v, cfg: ArchConfig, q_pos, k_pos,
                         window: Optional[int] = None,
                         kv_block: int = KV_BLOCK):
     """Streaming softmax over KV blocks (O(Sq * kv_block) memory); the same
-    float32 softmax as ``dense_attention``."""
+    float32 softmax as ``dense_attention``.  As JAX's ``jax.checkpoint`` of
+    its loop, the forward leaves the backward only q, k, v and the
+    positions, under every remat policy: the backward recomputes each
+    block's scores, probabilities and ``p @ v`` (``rematctx.no_residuals``)."""
     causal = cfg.causal if causal is None else causal
     window = cfg.window if window is None else window
-    B, Sq, H, hd = q.shape
-    Sk, K = k.shape[1], k.shape[2]
-    G = H // K
-    nb = -(-Sk // kv_block)
-    pad = nb * kv_block - Sk
-    if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=2 ** 30)
-    qg = _grouped(q, K)                                   # (B,Sq,K,G,d)
-    scale = 1.0 / math.sqrt(hd)
-    m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, K, G, Sq, hd), dtype=torch.float32, device=q.device)
-    for i in range(nb):
-        blk = slice(i * kv_block, (i + 1) * kv_block)
-        kblk, vblk, pblk = k[:, blk], v[:, blk], k_pos[:, blk]
-        s = torch.einsum("bskgd,btkd->bkgst", qg.float(), kblk.float()) * scale
-        s = softcap(s, cfg.attn_softcap)
-        s = s + _mask_bias(q_pos, pblk, causal, window)[:, None, None, :, :]
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bkgst,btkd->bkgsd", p.to(v.dtype).float(), vblk.float())
-        m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+    def run(q, k, v, k_pos):
+        B, Sq, H, hd = q.shape
+        Sk, K = k.shape[1], k.shape[2]
+        G = H // K
+        nb = -(-Sk // kv_block)
+        pad = nb * kv_block - Sk
+        if pad:
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+            k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=2 ** 30)
+        qg = _grouped(q, K)                               # (B,Sq,K,G,d)
+        scale = 1.0 / math.sqrt(hd)
+        m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, K, G, Sq, hd), dtype=torch.float32, device=q.device)
+        for i in range(nb):
+            blk = slice(i * kv_block, (i + 1) * kv_block)
+            kblk, vblk, pblk = k[:, blk], v[:, blk], k_pos[:, blk]
+            s = torch.einsum("bskgd,btkd->bkgst", qg.float(), kblk.float()) * scale
+            s = softcap(s, cfg.attn_softcap)
+            s = s + _mask_bias(q_pos, pblk, causal, window)[:, None, None, :, :]
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", p.to(v.dtype).float(), vblk.float())
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+    return rematctx.no_residuals(run, q, k, v, k_pos)
 
 
 def is_prefill_positions(q_pos: torch.Tensor, k_pos: torch.Tensor) -> bool:
