@@ -302,12 +302,29 @@ back-to-back call, which includes the wrapper's host overhead.
                within 1e-6; the same for a run with the weights cut over
                the data places too (FSDP, assembled a layer at a time); the
                meta dry run's peak of each step against the card's growth.
-  dryrun     — five production cells of the dry run on the meta device
-               (launch/dryrun.py), one replica run a cell: gemma2-2b
+               The hybrid: zamba2-2.7b at full width cut to
+               LM_MESH_HYBRID_LAYERS of 54 layers (the shared block applied
+               twice), the same posture on 2x2, batch 8 x 256 (two SSD
+               chunks a row), the SSD's channels split over the model
+               places: step 1's loss and gradients and every loss against
+               the one-device step at microbatches=2 (train_resume's
+               envelope); each place's growth over a step (counted on the
+               card by dryrun.PlaceCount) against its meta count (10%),
+               home's at most 1.25 x any other place's; its placed prefill
+               (4 x 512) and 16 decode steps against one device (1e-4), the
+               Mamba2 states updated where they are held (no cache_sync),
+               the flash kernel's 8 launches (2 applications x 2 replicas x
+               2 model places) each held against its plain version.
+  dryrun     — six production cells of the dry run on the meta device
+               (launch/dryrun.py; three worker processes, started after
+               the examples, beside the LM phases), one replica run a cell: gemma2-2b
                train_4k, qwen2-vl-72b prefill_32k and train_4k, zamba2-2.7b
-               long_500k, kimi-k2 decode_32k (2x16x16), within 120 s;
-               kimi-k2's largest place within a card, qwen2-vl-72b
-               train_4k's place 0 within 10% of its largest other place.
+               long_500k and train_4k, kimi-k2 decode_32k (2x16x16), within
+               180 s; kimi-k2's largest place within a card, qwen2-vl-72b
+               train_4k's place 0 within 10% of its largest other place,
+               zamba2 train_4k's within 25% (and its FLOPs within 2x the
+               others' mean), zamba2 long_500k moving no state and at most
+               0.70 GB a step.
 Then the kernel table line, the card line, and the result line last.  The
 phases' records also go to chiprun_out/chip_smoke.json.
 
@@ -3081,6 +3098,15 @@ LM_MESH_PROMPT = (4, 512)  # the placed prefill's batch and tokens
 LM_MESH_DECODE = 16        # teacher-forced decode steps after it
 LM_MESH_LOGIT_TOL = 1e-4   # placed prefill and decode against one device
 META_PEAK_TOL = 0.10       # the dry run's meta peak against the card's growth
+# the hybrid's placed step: zamba2-2.7b at full width, 12 of 54 layers (the
+# shared block applied twice, after layers 6 and 12; 0.73 B float32
+# parameters, the Mamba2 weights replicated on all four places), rows of
+# two SSD chunks (128 each); step 1 held against one device, step 2 counted
+# a place (dryrun.PlaceCount on the card), steps 3-4 timed
+LM_MESH_HYBRID_LAYERS = 12
+LM_MESH_HYBRID_SEQ = 256
+LM_MESH_HYBRID_STEPS = 4
+HOME_GROWTH_TOL = 1.25     # a replica's home's step growth against any other place's
 # (arch, shape, multi-pod); launch/dryrun.lower_cell runs a cell of alike
 # stacked layers at three depths and continues it to its own
 # (``extrapolation_depths``), any other at its full depth
@@ -3088,10 +3114,15 @@ DRYRUN_CELLS = (("gemma2-2b", "train_4k", False),
                 ("qwen2-vl-72b", "prefill_32k", False),
                 ("zamba2-2.7b", "long_500k", False),
                 ("kimi-k2-1t-a32b", "decode_32k", True),
-                ("qwen2-vl-72b", "train_4k", False))
+                ("qwen2-vl-72b", "train_4k", False),
+                ("zamba2-2.7b", "train_4k", False))
 CARD_BYTES = 80 * 2 ** 30  # an H100's memory: kimi-k2 decode_32k's place must fit it
 PLACE0_TOL = 0.10          # an FSDP train cell's place 0 against its largest other place
-DRYRUN_BUDGET_S = 120
+HYBRID_PLACE0_TOL = 0.25   # zamba2 train_4k's place 0 against its largest other place
+HYBRID_FLOPS_TOL = 2.0     # ... its FLOPs against the other places' mean
+LONG_DECODE_BYTES = 0.70e9  # zamba2 long_500k's bytes between places a step
+DRYRUN_BUDGET_S = 180
+DRYRUN_WORKERS = 3         # the zamba2 train_4k cell takes about as long as the other five
 RESUME_TOL = dict(rtol=1e-5, atol=1e-6)     # phase train_resume's envelope
 HOLD_NORM_TOL = 1e-6       # the placed clip norm's partial sums against one sum
 MOE_FWD_TOL, MOE_GRAD_TOL = 1e-4, 1e-3     # tests/test_moe_dispatch.py
@@ -3265,16 +3296,17 @@ def lm_mesh_hold(cfg, tc, devices, batches, fsdp: int = 0) -> Tuple[dict, list]:
     return rec, grads1
 
 
-def lm_mesh_meta_peak(cfg, tc, fsdp: int = 0) -> dict:
-    """The dry run's count of the same placed step (2x2, batch 8 x 128,
+def lm_mesh_meta_peak(cfg, tc, fsdp: int = 0, S: int = 128) -> dict:
+    """The dry run's count of the same placed step (2x2, batch 8 x ``S``,
     ``fsdp`` as ``mesh_train_setup`` takes it) on the meta device: the state
     placed from the host first, then one step under
     ``launch/dryrun.PlaceCount``; its peak as one card holding every place
-    would hold it, and each place's."""
+    would hold it, each place's, the bytes between places by kind."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.distributed.mesh_rules import make_rules
     from repro_torch.distributed.params import batch_specs, opt_specs, param_specs
-    from repro_torch.distributed.sharding import AxisRules, P, use_rules
+    from repro_torch.distributed.sharding import (AxisRules, P, reset_transfer_counts,
+                                                  transfer_counts, use_rules)
     from repro_torch.launch.dryrun import PlaceCount, from_host
     from repro_torch.launch.mesh import make_host_mesh, mesh_shape_dict
     from repro_torch.launch.specs import abstract_state
@@ -3283,7 +3315,7 @@ def lm_mesh_meta_peak(cfg, tc, fsdp: int = 0) -> dict:
 
     t0 = time.perf_counter()
     mesh = make_host_mesh(2, 2, devices=["meta"] * 4)
-    shp = ShapeConfig("cli", 128, 8, "train")
+    shp = ShapeConfig("cli", S, 8, "train")
     rules_d = make_rules(cfg, shp, model_size=2, dp_size=2)
     rules = AxisRules(rules_d)
     state = abstract_state(cfg, tc)
@@ -3292,30 +3324,59 @@ def lm_mesh_meta_peak(cfg, tc, fsdp: int = 0) -> dict:
                                             mesh_shape_dict(mesh), tc.zero1), "step": P()}
     step = make_placed_train_step(build_model(cfg, device="meta"), tc, mesh, specs,
                                   batch_specs(cfg, shp, rules))
-    batch = {k: torch.empty((8, 128), dtype=torch.int64, device="meta")
+    batch = {k: torch.empty((8, S), dtype=torch.int64, device="meta")
              for k in ("tokens", "labels")}
     with use_rules(rules_d):
         state = step.place_state(from_host(state, specs, mesh))
         count = PlaceCount(mesh.size)
+        reset_transfer_counts()
         with count:
             step(state, batch)
     return {"peak_bytes_one_device": count.one_peak, "peak_bytes_per_place": count.peak,
-            "flops_per_place": count.flops, "seconds": time.perf_counter() - t0}
+            "flops_per_place": count.flops, "bytes_by_kind": transfer_counts()["bytes"],
+            "seconds": time.perf_counter() - t0}
+
+
+def held_flash(calls: list):
+    """A context in which every flash launch of the model's attention is
+    held against ``flash_attention_ref`` on the same inputs (its max abs
+    error appended to ``calls``); the holds launch nothing."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import attention
+
+    real = attention.flash_attention
+
+    def checked(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        calls.append(max_abs(out, flash_attention_ref(q, k, v, **kw)))
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        attention.flash_attention = checked
+        try:
+            yield
+        finally:
+            attention.flash_attention = real
+    return ctx()
 
 
 def lm_mesh_prefill_decode(cfg, devices) -> dict:
     """The placed prefill (LM_MESH_PROMPT, cache placed by cache_specs) and
     LM_MESH_DECODE teacher-forced decode steps of ``cfg`` at full width on
-    (2, 2) places over ``devices``, against the one-device run (logits within
-    LM_MESH_LOGIT_TOL); the flash kernel per place against its plain version
-    at a place's shapes.  Flash launches of the placed prefill counted from
-    0: 16 layers x 2 replicas x 2 model places."""
+    (2, 2) places over ``devices``, against the one-device run (logits
+    within LM_MESH_LOGIT_TOL; the attention cache, and a hybrid's Mamba2
+    states after the prefill, too); no ``cache_sync`` (the replicated
+    states updated where they are held).  Flash launches of the placed
+    prefill counted from 0: an attention application x 2 replicas x 2 model
+    places; a second prefill holds each launch against its plain version
+    (``held_flash``), and the kernel at a place's shapes once more."""
     import gc
     from repro_torch.configs import ShapeConfig
     from repro_torch.distributed.mesh_rules import make_rules
     from repro_torch.distributed.params import batch_specs, cache_specs, param_specs
     from repro_torch import tree
-    from repro_torch.distributed.sharding import (AxisRules, NamedSharding, place,
+    from repro_torch.distributed.sharding import (AxisRules, NamedSharding, gather, place,
                                                   reset_transfer_counts, transfer_counts,
                                                   use_rules)
     from repro_torch.distributed.tensor_parallel import (make_placed_decode,
@@ -3329,6 +3390,8 @@ def lm_mesh_prefill_decode(cfg, devices) -> dict:
     B, S = LM_MESH_PROMPT
     n_dec, dev = LM_MESH_DECODE, torch.device(devices[0])
     Smax = S + n_dec                    # the cache: the prompt and every decoded token
+    kv_key = "attn_k" if cfg.family == "hybrid" else "k"
+    states = ("ssm", "conv") if cfg.family == "hybrid" else ()
     model = build_model(cfg, device=dev)
     params = params_tree(model.init_params(0))
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -3337,11 +3400,12 @@ def lm_mesh_prefill_decode(cfg, devices) -> dict:
         lg, _, cache = model.forward(params, {"tokens": toks[:, :S]}, build_cache=True,
                                      max_seq=Smax)
         want = [lg[:, -1].clone()]
+        ref_states = {k: cache[k].clone() for k in states}
         del lg
         for t in range(S, Smax):
             lg, cache = model.decode_step(params, toks[:, t:t + 1], cache)
             want.append(lg[:, 0])
-    ref_cache_k = cache["k"].clone()
+    ref_cache_k = cache[kv_key].clone()
     del cache
     gc.collect()
     mesh = make_host_mesh(2, 2, devices=devices)
@@ -3349,7 +3413,7 @@ def lm_mesh_prefill_decode(cfg, devices) -> dict:
     rules = AxisRules(rules_d)
     ps = param_specs(params, cfg, rules, 2)
     cs = cache_specs(model.init_cache(1, 1, torch.float32), cfg, rules)
-    got, times = [], {}
+    got, times, holds = [], {}, []
     placed = tree.tree_map(lambda t, s: place(t, NamedSharding(mesh, s)), params, ps)
     del params
     gc.collect()
@@ -3367,6 +3431,7 @@ def lm_mesh_prefill_decode(cfg, devices) -> dict:
         launches = launch_counts()
         moved_prefill = transfer_counts()
         got.append(lg[:, 0])
+        state_err = {k: max_abs(gather(pcache[k], dev), ref_states[k]) for k in states}
         reset_transfer_counts()
         t0 = time.perf_counter()
         for t in range(S, Smax):
@@ -3375,8 +3440,9 @@ def lm_mesh_prefill_decode(cfg, devices) -> dict:
         torch.cuda.synchronize()
         times["decode_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / n_dec
         moved_decode = transfer_counts()
-    from repro_torch.distributed.sharding import gather
-    cache_err = max_abs(gather(pcache["k"], dev), ref_cache_k)
+        with held_flash(holds):             # each launch against its plain version
+            prefill(placed, {"tokens": toks[:, :S]})
+    cache_err = max_abs(gather(pcache[kv_key], dev), ref_cache_k)
     errs = [max_abs(a, b) for a, b in zip(got, want)]
     # the kernel at a place's shapes: B/2 rows, H/2 q heads, K/2 kv heads
     H, K, D = cfg.n_heads // 2, cfg.n_kv_heads // 2, cfg.hd
@@ -3384,28 +3450,164 @@ def lm_mesh_prefill_decode(cfg, devices) -> dict:
     kv = [torch.randn((B // 2, K, S, D), generator=gen, device=dev) for _ in range(2)]
     kw = dict(causal=True, window=cfg.window, softcap=cfg.attn_softcap)
     flash_err = max_abs(flash_attention(q, *kv, **kw), flash_attention_ref(q, *kv, **kw))
-    rec = {"batch": B, "prompt": S, "decode_steps": n_dec, "tol": LM_MESH_LOGIT_TOL,
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "prompt": S,
+           "decode_steps": n_dec, "tol": LM_MESH_LOGIT_TOL,
            "logits_max_abs_err": max(errs), "prefill_logits_err": errs[0],
-           "cache_k_err": cache_err, "flash_launches_prefill": launches["flash_attention"],
-           "launches_prefill": launches,
+           "cache_k_err": cache_err, "state_err_prefill": state_err,
+           "flash_launches_prefill": launches["flash_attention"],
+           "flash_launch_holds": holds, "launches_prefill": launches,
            "bytes_between_places_prefill": moved_prefill["between_places"],
            "bytes_by_kind_prefill": moved_prefill["bytes"],
            "bytes_between_places_decode_per_step": moved_decode["between_places"] / n_dec,
+           "bytes_by_kind_decode": moved_decode["bytes"],
            "flash_per_place": {"shape": {"B": B // 2, "H": H, "K": K, "S": S, "D": D, **kw},
                                "max_abs_err": flash_err}, **times}
-    want_launches = cfg.n_layers * 2 * 2
+    want_launches = flash_per_prefill(cfg) * 2 * 2
     if (max(errs) > LM_MESH_LOGIT_TOL or cache_err > LM_MESH_LOGIT_TOL
+            or any(e > LM_MESH_LOGIT_TOL for e in state_err.values())
             or not all(bool(torch.isfinite(t).all()) for t in got)):
-        raise RuntimeError(f"lm_mesh: placed prefill/decode against one device: {errs}, "
-                           f"cache {cache_err}")
-    if launches["flash_attention"] != want_launches:
-        raise RuntimeError(f"lm_mesh: the placed prefill launched flash "
-                           f"{launches['flash_attention']} times, not {want_launches}")
-    if not flash_err <= LM_REF_TOL:
-        raise RuntimeError(f"lm_mesh: flash at a place's shapes against plain: {flash_err}")
+        raise RuntimeError(f"lm_mesh {cfg.name}: placed prefill/decode against one device: "
+                           f"{errs}, cache {cache_err}, states {state_err}")
+    if launches["flash_attention"] != want_launches or len(holds) != want_launches:
+        raise RuntimeError(f"lm_mesh {cfg.name}: the placed prefill launched flash "
+                           f"{launches['flash_attention']} times ({len(holds)} held), not "
+                           f"{want_launches}")
+    if not max(holds + [flash_err]) <= LM_REF_TOL:
+        raise RuntimeError(f"lm_mesh {cfg.name}: flash against plain: {holds}, {flash_err}")
+    if "cache_sync" in moved_decode["bytes"]:
+        raise RuntimeError(f"lm_mesh {cfg.name}: decode moved state {moved_decode['bytes']}")
     del placed, pcache, model
     gc.collect()
     torch.cuda.empty_cache()
+    return rec
+
+
+def lm_mesh_hybrid(devices) -> dict:
+    """The hybrid's placed train step: zamba2-2.7b at full width,
+    LM_MESH_HYBRID_LAYERS layers, float32 compute, AdamW, ZeRO-1, on (2, 2)
+    places over ``devices``, batch 8 x LM_MESH_HYBRID_SEQ from
+    lm_batches(seed=0): the SSD's d_inner channels cut over the model places
+    (each its 40 of the 80 heads).  Step 1 in its two halves: its loss and
+    gradients (each place's reduced block, gathered) against the one-device
+    step's at microbatches 2 within RESUME_TOL at the clip's scale; every
+    step's loss against the one-device run's.  Step 2 under
+    ``dryrun.PlaceCount`` on the card, the places apart (a hand-over copies,
+    as between cards: ``sharding.places_apart``): each place's growth (the
+    tensors its share of the step made, the copies handed to it among them)
+    against the meta count of the same step (``lm_mesh_meta_peak``) within
+    META_PEAK_TOL, and home's at most HOME_GROWTH_TOL x any other place's;
+    the card's growth over steps 3-4 against the meta count as one card
+    holds it.  Steps 3-4 timed; bytes between places by kind."""
+    import dataclasses
+    import gc
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.distributed.sharding import (gather, places_apart,
+                                                  reset_transfer_counts, transfer_counts,
+                                                  use_rules)
+    from repro_torch.launch.dryrun import PlaceCount
+    from repro_torch.models import build_model
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.train_step import global_norm
+
+    cfg = dataclasses.replace(get_arch("zamba2-2.7b"), n_layers=LM_MESH_HYBRID_LAYERS)
+    tc = TrainConfig(zero1=True, warmup_steps=1, compute_dtype="float32")
+    S, dev = LM_MESH_HYBRID_SEQ, torch.device(devices[0])
+    batches = train_batches(cfg.vocab, 8, S, LM_MESH_HYBRID_STEPS, tc.seed, "cuda")
+    t0 = time.perf_counter()
+    _, step, state, rules_d = mesh_train_setup(cfg, tc, 2, 2, devices, 8, S)
+    torch.cuda.synchronize()
+    rec = {"arch": cfg.name, "layers": cfg.n_layers,
+           "layers_full": get_arch("zamba2-2.7b").n_layers, "params": cfg.param_count(),
+           "batch": 8, "seq": S, "mesh": "2x2", "devices": [str(d) for d in devices],
+           "optimizer": tc.optimizer, "zero1": tc.zero1, "compute_dtype": tc.compute_dtype,
+           "setup_s": time.perf_counter() - t0,
+           "param_bytes_per_place": block_bytes(state["params"])}
+    losses, times, growth, moved, peaks = [], [], [], [], []
+    with use_rules(rules_d):
+        loss, met, grads = step.compute_grads(state["params"], batches[0])
+        grads1 = [gather(g, dev) for g in grads]
+        state, met = step.apply_grads(state, loss, met, grads)
+        del grads
+        losses.append(float(loss))
+        for i, b in enumerate(batches[1:], 1):
+            reset_transfer_counts()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            count = PlaceCount(4) if i == 1 else contextlib.nullcontext()
+            t1 = time.perf_counter()
+            with count, places_apart() if i == 1 else contextlib.nullcontext():
+                state, met = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            growth.append(torch.cuda.max_memory_allocated() - base)
+            peaks.append(torch.cuda.max_memory_allocated())
+            moved.append(transfer_counts())
+            losses.append(float(met["loss"]))
+            if i == 1:
+                card_places, card_flops = list(count.peak), list(count.flops)
+    rec["peak_mem_gib"] = max(peaks) / 2 ** 30
+    del state, step, count
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the one-device step at microbatches = 2 from the same seed and batches
+    ref_tc = dataclasses.replace(tc, microbatches=2)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    state = init_train_state(model, ref_tc, ref_tc.seed)
+    ref = make_train_step(model, ref_tc)
+    _, _, want1 = ref.compute_grads(state["params"], batches[0])
+    want1 = tree.leaves(want1)
+    scale = min(1.0, ref_tc.grad_clip / float(global_norm(want1)))   # the clip's
+    for g, w in zip(grads1, want1):
+        assert_close(g * scale, w * scale, "lm_mesh hybrid: placed vs one-device step-1 "
+                     "gradients", **RESUME_TOL)
+    grad_err = max(max_abs(g, w) * scale for g, w in zip(grads1, want1))
+    del grads1, want1
+    gc.collect()
+    ref_losses = []
+    for b in batches:
+        state, met = ref(state, b)
+        ref_losses.append(float(met["loss"]))
+    rec["one_device_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, ref, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(abs(a - b) > RESUME_TOL["rtol"] * abs(b) for a, b in zip(losses, ref_losses)):
+        raise RuntimeError(f"lm_mesh hybrid: losses {losses} against one-device {ref_losses}")
+
+    meta = lm_mesh_meta_peak(cfg, tc, S=S)
+    metas = meta["peak_bytes_per_place"]
+    rec.update({
+        "losses": losses, "one_device_losses": ref_losses,
+        "grads1_max_abs_err_at_clip_scale": grad_err, "step_s": times,
+        "step_s_median_untraced": float(np.median(times[1:])),
+        "tokens_per_s": 8 * S / float(np.median(times[1:])),
+        "step_growth_bytes": growth,
+        "place_growth_bytes_card": card_places, "place_growth_bytes_meta": metas,
+        "place_growth_ratio": [c / m for c, m in zip(card_places, metas)],
+        "home_over_least_other": card_places[0] / min(card_places[1:]),
+        "flops_per_place_card": card_flops, "flops_per_place_meta": meta["flops_per_place"],
+        "meta_peak_bytes_one_device": meta["peak_bytes_one_device"],
+        "meta_peak_ratio": meta["peak_bytes_one_device"] / max(growth[1:]),
+        "card_growth_places_apart": growth[0],
+        "meta_seconds": meta["seconds"],
+        "bytes_between_places_per_step": [c["between_places"] for c in moved],
+        "bytes_by_kind_last_step": moved[-1]["bytes"],
+        "hand_overs_by_kind_last_step": moved[-1]["count"]})
+    if any(abs(r - 1) > META_PEAK_TOL for r in rec["place_growth_ratio"]):
+        raise RuntimeError(f"lm_mesh hybrid: a place's growth {card_places} against its meta "
+                           f"count {metas}")
+    if abs(rec["meta_peak_ratio"] - 1) > META_PEAK_TOL:
+        raise RuntimeError(f"lm_mesh hybrid: the card's growth {growth} against the meta "
+                           f"count {meta['peak_bytes_one_device']}")
+    if rec["home_over_least_other"] > HOME_GROWTH_TOL:
+        raise RuntimeError(f"lm_mesh hybrid: home's growth {card_places[0]} against the other "
+                           f"places' {card_places[1:]}")
+    if "cache_sync" in moved[-1]["bytes"] or not moved[-1]["bytes"].get("tp_sum"):
+        raise RuntimeError(f"lm_mesh hybrid: bytes by kind {moved[-1]['bytes']}")
     return rec
 
 
@@ -3580,9 +3782,10 @@ def phase_lm_mesh(log) -> int:
     the placed prefill and LM_MESH_DECODE decode steps against one device,
     flash per place; moe_ffn_local at phi3.5-moe's width; sequence-parallel
     decode at gemma2-2b's decode shape over 4 places; a re-meshed
-    checkpoint; the launcher's --mesh 2x2.  The five kernels' counts stay 0
-    over the training paths; the placed prefill's flash launches are counted
-    apart.  Returns those launches."""
+    checkpoint; the launcher's --mesh 2x2; the hybrid (``lm_mesh_hybrid``,
+    and its placed prefill and decode).  The five kernels' counts stay 0
+    over the training paths; the placed prefills' flash launches are
+    counted apart.  Returns those launches."""
     import dataclasses
     import gc
     import io
@@ -3719,6 +3922,29 @@ def phase_lm_mesh(log) -> int:
     rec["prefill_decode"] = lm_mesh_prefill_decode(cfg, runs["one_card"])
     lap("prefill_decode")
     reset_launch_counts()
+    rec["hybrid"] = lm_mesh_hybrid(runs["one_card"])
+    hybrid_launches = launch_counts()
+    lap("hybrid_train")
+    hybrid_cfg = dataclasses.replace(get_arch("zamba2-2.7b"), n_layers=LM_MESH_HYBRID_LAYERS)
+    rec["hybrid"]["prefill_decode"] = lm_mesh_prefill_decode(hybrid_cfg, runs["one_card"])
+    lap("hybrid_prefill_decode")
+    hy, hpd = rec["hybrid"], rec["hybrid"]["prefill_decode"]
+    for line in ({"peak_gib_placed": hy["peak_mem_gib"],
+                  "peak_gib_one_device": hy["one_device_peak_mem_gib"]},
+                 {"place_growth_card": hy["place_growth_bytes_card"],
+                  "place_growth_meta": hy["place_growth_bytes_meta"],
+                  "ratio": hy["place_growth_ratio"], "home_over_least_other":
+                      hy["home_over_least_other"]},
+                 {"bytes_by_kind_a_step": hy["bytes_by_kind_last_step"],
+                  "decode_bytes_by_kind": hpd["bytes_by_kind_decode"]},
+                 {"s_a_step": hy["step_s_median_untraced"], "step_s": hy["step_s"]},
+                 {"logits_max_abs_err": hpd["logits_max_abs_err"],
+                  "state_err_prefill": hpd["state_err_prefill"],
+                  "grads1_err": hy["grads1_max_abs_err_at_clip_scale"]},
+                 {"flash_launches_prefill": hpd["flash_launches_prefill"],
+                  "flash_holds_max_abs_err": max(hpd["flash_launch_holds"])}):
+        print(json.dumps({"lm_mesh_hybrid": line}), flush=True)
+    reset_launch_counts()
     lm_mesh_moe(rec)
     lap("moe")
     rec["seq_parallel"] = {"one_card": lm_mesh_seq_parallel(["cuda:0"] * 4)}
@@ -3742,7 +3968,8 @@ def phase_lm_mesh(log) -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     lap("launcher")
-    rec["launches"] = {k: train_launches[k] + v for k, v in launch_counts().items()}
+    rec["launches"] = {k: train_launches[k] + hybrid_launches[k] + v
+                       for k, v in launch_counts().items()}
     rec["seconds"] = time.perf_counter() - t_phase
     rec["seconds_by_part"] = part_s
     one_card = rec["placed"]["one_card"]
@@ -3764,7 +3991,14 @@ def phase_lm_mesh(log) -> int:
                  "meta_peak_bytes_per_place": meta_fsdp["peak_bytes_per_place"],
                  "meta_peak_ratio": rec["fsdp"]["meta_dry_run"]["ratio"],
                  "update_held_bitwise": rec["fsdp"]["hold"]["update_bitwise"],
-                 "grad_norm_rel_err": rec["fsdp"]["hold"]["grad_norm_rel_err"]}}
+                 "grad_norm_rel_err": rec["fsdp"]["hold"]["grad_norm_rel_err"]},
+        "hybrid": {"s_a_step": hy["step_s_median_untraced"],
+                   "bytes_between_places_a_step": hy["bytes_between_places_per_step"][-1],
+                   "peak_gib": hy["peak_mem_gib"],
+                   "place_growth_ratio": hy["place_growth_ratio"],
+                   "home_over_least_other": hy["home_over_least_other"],
+                   "logits_max_abs_err": hpd["logits_max_abs_err"],
+                   "flash_launches_prefill": hpd["flash_launches_prefill"]}}
     emit(rec, log)
     if not line.startswith("steps=4 restarts=0 ") or "loss=nan" in line:
         raise RuntimeError(f"lm_mesh: launcher line {line!r}")
@@ -3772,36 +4006,71 @@ def phase_lm_mesh(log) -> int:
         raise RuntimeError(f"lm_mesh: kernels launched on the training paths {rec['launches']}")
     gc.collect()
     torch.cuda.empty_cache()
-    return rec["prefill_decode"]["flash_launches_prefill"]
+    return (rec["prefill_decode"]["flash_launches_prefill"]
+            + rec["hybrid"]["prefill_decode"]["flash_launches_prefill"])
 
 
-def phase_dryrun(log) -> None:
-    """The dry run (``launch/dryrun.py``) of five production cells on the
+def dryrun_cell(cell) -> dict:
+    """``launch/dryrun.lower_cell``'s record of one (arch, shape, multi-pod)
+    cell, in a worker process of ``phase_dryrun``."""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.dryrun import lower_cell
+    return lower_cell(*cell, check_flops=False)
+
+
+def start_dryrun():
+    """The dry run's cells started in DRYRUN_WORKERS spawned worker
+    processes, the longest first (each cell is one Python thread of meta
+    ops; a host of the card has 8 cores): (the pool, each cell's future,
+    the start, the times the cells finished)."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        DRYRUN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    t0, done_at = time.perf_counter(), []
+    runs = {}
+    for cell in reversed(DRYRUN_CELLS):
+        runs[cell] = pool.submit(dryrun_cell, cell)
+        runs[cell].add_done_callback(lambda _: done_at.append(time.perf_counter()))
+    return pool, runs, t0, done_at
+
+
+def phase_dryrun(log, started=None) -> None:
+    """The dry run (``launch/dryrun.py``) of six production cells on the
     meta device, one replica of each run and the rest counted from it:
     gemma2-2b train_4k, qwen2-vl-72b prefill_32k, zamba2-2.7b long_500k and
-    qwen2-vl-72b train_4k (AdamW, bf16, ZeRO-1 and FSDP) on 16x16, kimi-k2
-    decode_32k on 2x16x16; all but zamba2 run at three depths and continued
-    to their own (``dryrun.extrapolation_depths``, exact where each count is
-    linear in depth, which it checks).  Each cell's record and seconds printed (its
-    lists a place only in the log, not printed); within DRYRUN_BUDGET_S;
-    kimi-k2 decode_32k's largest place within a card (CARD_BYTES: the FSDP
-    experts assembled a layer at a time), and the FSDP train cell's place 0
-    within PLACE0_TOL of its largest other place (no whole gradient at
-    place 0)."""
-    from repro_torch.launch.dryrun import lower_cell
-
-    t0 = time.perf_counter()
+    train_4k, qwen2-vl-72b train_4k (AdamW, bf16, ZeRO-1 and FSDP) on 16x16,
+    kimi-k2 decode_32k on 2x16x16; all but zamba2 run at three depths and
+    continued to their own (``dryrun.extrapolation_depths``, exact where
+    each count is linear in depth, which it checks); a decode's places that
+    hold the replicated states counted from one (``holders=1``); the cells
+    in DRYRUN_WORKERS processes at once, from ``started`` (``start_dryrun``:
+    the full run starts them before the LM phases, which wait on the card)
+    or from now.  Each cell's record and seconds printed (its lists a place
+    only in the log, not printed); the phase, from its start to its last
+    cell, within DRYRUN_BUDGET_S; kimi-k2 decode_32k's largest place
+    within a card (CARD_BYTES: the FSDP experts assembled a layer at a
+    time), the FSDP train cell's place 0 within PLACE0_TOL of its largest
+    other place (no whole gradient at place 0); zamba2 train_4k's place 0
+    within HYBRID_PLACE0_TOL of its largest other place and its FLOPs
+    within HYBRID_FLOPS_TOL of the others' mean (the SSD split over the
+    model places); zamba2 long_500k moving no state (no ``cache_sync``) and
+    at most LONG_DECODE_BYTES a step."""
+    pool, runs, t0, done_at = started or start_dryrun()
     cells = {}
-    for arch, shape, mp in DRYRUN_CELLS:
-        rec = lower_cell(arch, shape, mp, check_flops=False)
-        cells[f"{arch}__{shape}__{'multipod' if mp else 'singlepod'}"] = rec
+    with pool:
+        for cell in DRYRUN_CELLS:
+            arch, shape, mp = cell
+            rec = runs[cell].result()
+            cells[f"{arch}__{shape}__{'multipod' if mp else 'singlepod'}"] = rec
         brief = {k: v for k, v in rec.items() if k not in ("memory", "flops")}
         brief["memory"] = {k: v for k, v in rec["memory"].items() if "per_place" not in k}
         brief["flops"] = {k: v for k, v in rec["flops"].items() if k != "per_place"}
         print(json.dumps({"dryrun_cell": brief}), flush=True)
         if not (rec["flops"]["total"] > 0 and rec["memory"]["peak_bytes_largest_place"] > 0):
             raise RuntimeError(f"dryrun: {arch} {shape} counted nothing: {brief}")
-    seconds = time.perf_counter() - t0
+    seconds = max(done_at) - t0
     emit({"phase": "dryrun", "cells": list(cells), "seconds": seconds,
           "cell_seconds": {k: r["seconds"] for k, r in cells.items()}}, log)
     log.append({"phase": "dryrun_records", "records": cells})
@@ -3815,6 +4084,16 @@ def phase_dryrun(log) -> None:
     if train[0] > (1 + PLACE0_TOL) * max(train[1:]):
         raise RuntimeError(f"dryrun: qwen2-vl-72b train_4k holds {train[0]} B at place 0, "
                            f"against {max(train[1:])} at the largest other place")
+    hybrid = cells["zamba2-2.7b__train_4k__singlepod"]
+    peak, flops = hybrid["memory"]["peak_bytes_per_place"], hybrid["flops"]["per_place"]
+    if peak[0] > (1 + HYBRID_PLACE0_TOL) * max(peak[1:]) or \
+            flops[0] > HYBRID_FLOPS_TOL * float(np.mean(flops[1:])):
+        raise RuntimeError(f"dryrun: zamba2 train_4k's place 0 holds {peak[0]} B against "
+                           f"{max(peak[1:])}, runs {flops[0]} FLOPs against a mean of "
+                           f"{np.mean(flops[1:])}: the SSD not split over the model places")
+    long_moved = cells["zamba2-2.7b__long_500k__singlepod"]["transfer_bytes"]
+    if "cache_sync" in long_moved or long_moved["total"] > LONG_DECODE_BYTES:
+        raise RuntimeError(f"dryrun: zamba2 long_500k moves {long_moved} a step")
 
 
 # ---------------------------------------------------------------------------
@@ -4496,6 +4775,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     examples = phase_examples()
     emit(examples, log)
+    dryrun = start_dryrun()         # on the host's cores, beside the LM phases
 
     # ---- 7. LM serving of gemma2-2b at full width, traced, against plain ----
     flash["launches"], long_prompt_s = phase_lm_main(log)
@@ -4521,7 +4801,7 @@ def main() -> int:
 
     # ---- 9. the LM stack placed over a mesh, the dry run on the meta device ----
     flash["launches"] += phase_lm_mesh(log)
-    phase_dryrun(log)
+    phase_dryrun(log, dryrun)
 
     # ---- report ----
     fc["launches"] = launches["fc_full"]

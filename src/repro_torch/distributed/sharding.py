@@ -284,6 +284,8 @@ class _Place(threading.local):
         self.forced = False                   # a copy landing on ``place``
         self.alias = False                    # ... that one card would not make
         self.scope: Optional[str] = None      # the step's part running now
+        self.mirror: Tuple = (None, ())       # (a place, places whose alike work it stands for)
+        self.apart = False                    # hand-overs on one card copy, as between cards
 
 
 _PLACE = _Place()
@@ -323,6 +325,37 @@ def at_place(place: Optional[int], forced: bool = False, alias: bool = False):
         _PLACE.place, _PLACE.forced, _PLACE.alias = prev
 
 
+@contextlib.contextmanager
+def mirrored(place: Optional[int], others: Sequence[int]):
+    """Inside, the work that runs on ``place`` stands for the same work on
+    each of ``others`` too, which do not run it: the dry run's count charges
+    it to them as well (``launch/dryrun.py``).  Nothing else reads it."""
+    prev = _PLACE.mirror
+    _PLACE.mirror = (place, tuple(others)) if others else (None, ())
+    try:
+        yield
+    finally:
+        _PLACE.mirror = prev
+
+
+def current_mirror() -> Tuple[Optional[int], Tuple[int, ...]]:
+    return _PLACE.mirror
+
+
+@contextlib.contextmanager
+def places_apart():
+    """Inside, a hand-over between two places on one device copies, as
+    between two cards, so that each place holds its own tensors: a count
+    of each place's memory on one card (``launch/dryrun.PlaceCount``) then
+    reads what the meta count reads a place."""
+    prev = _PLACE.apart
+    _PLACE.apart = True
+    try:
+        yield
+    finally:
+        _PLACE.apart = prev
+
+
 def current_place() -> Tuple[Optional[int], bool, bool]:
     """(the place set by :func:`at_place`, whether forced, whether an
     alias)."""
@@ -356,9 +389,10 @@ class _Hand(torch.autograd.Function):
 def _moved(t, src, dst, device) -> torch.Tensor:
     """``t`` on ``device`` as it lands on place ``dst``.  On the meta device
     (the dry run), a hand-over between two places is a new tensor, as it
-    would be between two cards; on one card it is the same memory."""
+    would be between two cards; on one card it is the same memory (but
+    inside :func:`places_apart`)."""
     device = torch.device(device)
-    copy = device.type == "meta" and src != dst
+    copy = src != dst and (device.type == "meta" or _PLACE.apart)
     with at_place(dst, forced=True, alias=copy):
         return _to(t, device, copy=copy)
 

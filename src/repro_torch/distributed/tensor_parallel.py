@@ -29,8 +29,23 @@ hooks that the model's one body calls:
     cross-entropy (:func:`cross_entropy`: max and sum of exponentials
     combined over the places; no place holds the whole (B, S, V) logits);
   * the experts as ``moe_ffn_local`` places them (``models/moe.py``), each
-    place its E/M experts; SSM, xLSTM, norms and the router stay replicated,
-    run once at the replica's home;
+    place its E/M experts;
+  * the Mamba2 mixer's d_inner channels cut over the model places, as JAX's
+    ``lshard(x, "batch", "seq", "ssm_inner")`` cuts them where ``make_rules``
+    binds ``ssm_inner`` (d_inner divisible by M): each place reads its
+    pieces of its own copy of the replicated weights (:class:`Pieces`),
+    computes its channels' z, x and dt, the conv and the SSD on its heads
+    (or its part of a head) with B and C (computed once at home, handed to
+    each), its channels' sums of squares for the gated norm (combined at
+    home, as :func:`cross_entropy` combines) and a row-parallel partial of
+    ``w_out`` (:func:`channel_split`).  A prefill's
+    states come out in head and channel blocks (:class:`Parts`), put
+    together once on every place that holds the replicated cache;
+  * decode's replicated states (``ssm``, ``conv``, the xLSTM's) updated on
+    every place that holds a copy, with its own weight copy, from the
+    layer's input handed from home (:func:`held`, ``state_in``): GSPMD's
+    replicated compute.  The xLSTM, norms and the router stay replicated in
+    the train step and the prefill, run once at the replica's home;
   * a decode cache whose positions are cut over places (:class:`SeqCache`:
     ``cache_specs``' sequence axis over "model" where ``kv_heads`` is unbound,
     or the data axes' slices of long context) attends by
@@ -45,8 +60,10 @@ A hand-over is counted by ``sharding.hand`` under its kind: ``tp_in`` (an
 activation to a place), ``tp_sum`` (a partial home), ``tp_gather`` (a
 column block's output home), ``fsdp_gather`` (an FSDP block to a replica's
 place), ``grad_reduce`` (a gradient's part to its owner, an FSDP piece's in
-the layer's backward), ``seq_q``/``seq_partial``, ``moe``; ``_grad`` after a
-kind marks the gradient handed back.  Nothing here reads a knob: the split
+the layer's backward), ``seq_q``/``seq_partial``, ``moe``, ``state_in`` (a
+layer's input to a place that holds a copy of decode's state),
+``cache_place`` (a prefill's cache to the places that hold it); ``_grad``
+after a kind marks the gradient handed back.  Nothing here reads a knob: the split
 follows the specs and the mesh, and at model size 1 nothing is split.
 """
 from __future__ import annotations
@@ -64,7 +81,8 @@ from repro_torch import tree
 from repro_torch.distributed.seq_parallel import _local_partial, lse_combine
 from repro_torch.distributed.sharding import (Mesh, NamedSharding, P, Placed, _moved,
                                               _spec_axes, at_place, block_slices,
-                                              count_transfer, hand, place, work_scope)
+                                              count_transfer, hand, mirrored, place,
+                                              work_scope)
 
 MODEL = "model"
 HOOKED = ("attn", "mlp", "shared")   # dicts whose bodies run per place
@@ -133,6 +151,14 @@ class Blocks:
 
     def __getitem__(self, i: int) -> "Blocks":
         return self.with_tensors([t[i] for t in self.tensors], self.dim_after_index(0))
+
+    def __setitem__(self, i: int, value: "Blocks") -> None:
+        """Each place's ``[i]`` written from its piece of ``value`` (None: a
+        place left as it is), on the place."""
+        for p, t, v in zip(self.places, self.tensors, value.tensors):
+            if v is not None:
+                with at_place(p, forced=True):
+                    t[i] = v
 
     @property
     def T(self) -> "Blocks":
@@ -497,12 +523,12 @@ def _tiling(shape, where) -> Optional[int]:
         and ends[-1] == shape[d] else None
 
 
-def _fill(dst: int, device, shape, where, pieces) -> torch.Tensor:
+def _fill(dst: int, device, shape, where, pieces, kind: str = "fsdp_gather") -> torch.Tensor:
     """A tensor of ``shape`` on place ``dst`` filled from ``pieces`` (each
-    read from its place in ``where``), counted as ``fsdp_gather``: one
-    ``cat`` where the pieces tile one dimension (FSDP's cut)."""
+    read from its place in ``where``), counted as ``kind``: one ``cat``
+    where the pieces tile one dimension (FSDP's cut)."""
     for (src, _), t in zip(where, pieces):
-        count_transfer(t, src, dst, "fsdp_gather")
+        count_transfer(t, src, dst, kind)
     d = _tiling(shape, where)
     with at_place(dst, forced=True):
         if d is not None:
@@ -635,6 +661,221 @@ def assembled(t):
     return t
 
 
+# ===========================================================================
+# the Mamba2 mixer's channels cut over the model places
+# ===========================================================================
+class Pieces:
+    """A replicated weight as the model places of one replica read it where
+    the SSD's channels are cut over them (:func:`channel_split`):
+    ``parts[m]`` is model place m's pieces, each ``(region, tensor)``, the
+    tensor a view of the place's own copy at ``region`` (slices of the
+    leaf): the columns, rows or entries its channels and heads read.  Each
+    piece is an autograd leaf of a step, so a place's gradient covers what
+    it read and no more (:func:`grad_sources`)."""
+
+    __slots__ = ("parts", "places", "devices")
+
+    def __init__(self, parts, places, devices):
+        self.parts = [list(p) for p in parts]
+        self.places, self.devices = tuple(places), tuple(devices)
+
+    @property
+    def n(self) -> int:
+        return len(self.parts)
+
+    @property
+    def tensors(self) -> List[torch.Tensor]:
+        return [t for part in self.parts for _, t in part]
+
+    @property
+    def dtype(self):
+        return self.parts[0][0][1].dtype
+
+    def at(self, m: int) -> List[torch.Tensor]:
+        return [t for _, t in self.parts[m]]
+
+    def with_tensors(self, tensors) -> "Pieces":
+        it = iter(tensors)
+        return Pieces([[(r, next(it)) for r, _ in part] for part in self.parts],
+                      self.places, self.devices)
+
+    def to(self, *args, **kw) -> "Pieces":
+        return self.with_tensors([t.to(*args, **kw) for t in self.tensors])
+
+    def unbind(self, d: int = 0) -> List["Pieces"]:
+        if d != 0:
+            raise ValueError(f"a stacked leaf unbinds along its layers, not dimension {d}")
+        cols = [[(r[1:], t.unbind(0)) for r, t in part] for part in self.parts]
+        return [Pieces([[(r, ts[i]) for r, ts in part] for part in cols], self.places,
+                       self.devices) for i in range(len(cols[0][0][1]))]
+
+    def __repr__(self):
+        return f"Pieces({[len(p) for p in self.parts]}, places={self.places})"
+
+
+class Parts:
+    """A tensor of ``shape`` held in pieces on several places: ``parts`` is
+    ``[(place, region, tensor)]``, the regions tiling it (a prefill's Mamba2
+    states from :func:`channel_split`, by heads and by channels)."""
+
+    __slots__ = ("shape", "parts")
+
+    def __init__(self, shape, parts):
+        self.shape, self.parts = list(shape), list(parts)
+
+
+def stack(ts: Sequence) -> "torch.Tensor | Parts":
+    """``torch.stack(ts)``; for :class:`Parts` each piece stacked, on a new
+    leading axis of its region."""
+    if not isinstance(ts[0], Parts):
+        return torch.stack(ts)
+    n = len(ts)
+    return Parts([n, *ts[0].shape], [
+        (src, (slice(0, n), *reg), torch.stack([t.parts[j][2] for t in ts]))
+        for j, (src, reg, _) in enumerate(ts[0].parts)])
+
+
+def channel_split(first, body, finish, p: Dict[str, Pieces], x: torch.Tensor):
+    """The Mamba2 mixer with its d_inner channels cut over the model places
+    of ``p`` (its weights as :class:`Pieces`).  Home runs ``first(w, x) ->
+    (shared, states)`` on its pieces (``w[name]``: the list of its tensors
+    of that weight): what every place reads whole, computed once.  Each
+    place m then runs ``body(w, x, shared, m, M) -> (g, ss, states)`` on its
+    pieces with ``x`` and ``shared`` handed from home: ``ss``, its channels'
+    sums of squares, goes home, the places' summed in place order, and the
+    total back to each; each place then runs ``finish(w, g, total) -> out``,
+    its partial output, summed at home in place order (:func:`row_parallel`'s).
+    Returns (the sum, :class:`Parts` of the states: each of ``states``,
+    ``[(shape, [(region, tensor)])]`` a kind of state, on its place)."""
+    b = next(iter(p.values()))
+    home, hdev = b.places[0], b.devices[0]
+    with _on(b, 0):
+        shared, first_states = first({k: v.at(0) for k, v in p.items()}, x)
+    shapes = [s for s, _ in first_states]
+    parts = [[] for _ in shapes]
+    gs, total = [], None
+    for m in range(b.n):
+        w = {k: v.at(m) for k, v in p.items()}
+        xm, sm = _arg_at(x, b, m), _arg_at(shared, b, m)
+        with _on(b, m):
+            g, ss, states = body(w, xm, sm, m, b.n)
+        gs.append(g)
+        for key, (_, pieces) in enumerate(states):
+            parts[key].extend((b.places[m], r, t) for r, t in pieces)
+        ss = hand(ss, b.places[m], home, hdev, "tp_sum")
+        total = ss if total is None else total + ss
+    for key, (_, pieces) in enumerate(first_states):
+        parts[key].extend((home, r, t) for r, t in pieces)
+    out = None
+    for m in range(b.n):
+        w = {k: v.at(m) for k, v in p.items()}
+        tm = _arg_at(total, b, m)
+        with _on(b, m):
+            part = finish(w, gs[m], tm)
+        gs[m] = None
+        part = hand(part, b.places[m], home, hdev, "tp_sum")
+        out = part if out is None else out + part
+    return out, [Parts(s, pl) for s, pl in zip(shapes, parts)]
+
+
+# ===========================================================================
+# decode's replicated states, updated where they are held
+# ===========================================================================
+class _Holders(threading.local):
+    def __init__(self):
+        self.run: Optional[int] = None
+        self.owners = False
+
+
+_HOLDERS = _Holders()
+
+
+@contextlib.contextmanager
+def run_holders(n: Optional[int]):
+    """Inside, :func:`held` runs each update at home and at ``n`` more of
+    the places that hold the state, and counts every further place as the
+    last one run (its ``state_in``, and on the dry run's count its memory
+    and FLOPs, ``sharding.mirrored``): the holders are alike.  None runs
+    every holder."""
+    prev = _HOLDERS.run
+    _HOLDERS.run = n
+    try:
+        yield
+    finally:
+        _HOLDERS.run = prev
+
+
+def home_copy(p):
+    """``p`` with each holder's copies (:class:`Blocks` of no cut) read at
+    home."""
+    return tree.tree_map(lambda w: w.tensors[0] if isinstance(w, Blocks) and w.dim is None
+                         else w, p)
+
+
+@contextlib.contextmanager
+def alike_owners(on: bool = True):
+    """Inside (``on``), :func:`reduce_grads` hands each replica's gradients
+    to one of the owners that own the same block and hold none of them, and
+    counts every other such owner alike (its ``grad_reduce``, and on the dry
+    run's count its memory, ``sharding.mirrored``): the dry run's, whose
+    values are shapes alone."""
+    prev = _HOLDERS.owners
+    _HOLDERS.owners = on
+    try:
+        yield
+    finally:
+        _HOLDERS.owners = prev
+
+
+def held(body, p, x, cfg, state):
+    """``body(p, x, cfg, state) -> (out, new state)``, a step of a
+    replicated state.  Where ``state`` holds :class:`Blocks` (its copies on
+    every place that holds one, home first; ``p``'s weights likewise each
+    holder's own copies, or one tensor all read), every holder runs
+    ``body`` on its own copies with ``x`` handed from home (``state_in``),
+    as GSPMD runs a replicated computation on every device that holds its
+    operands: home's ``out``, and the new state as Blocks over the holders
+    (None for a holder :func:`run_holders` counts without running).  ``x``
+    is a tensor or a tuple of them; a weight the model axis cuts is read
+    by the body at home only (the mLSTM's projections run before)."""
+    b = _first_blocks(state)
+    if b is None:
+        return body(p, x, cfg, state)
+    home = b.places[0]
+    run = b.n if _HOLDERS.run is None else min(b.n, 1 + _HOLDERS.run)
+    out, news, xs = None, [], x if isinstance(x, tuple) else (x,)
+    for k in range(run):
+        rest = b.places[run:] if k and k == run - 1 else ()
+        for j in rest:
+            for t in xs:
+                count_transfer(t, home, j, "state_in")
+        pk = tree.tree_map(lambda w: w.tensors[k] if isinstance(w, Blocks) else w, p)
+        sk = tree.tree_map(lambda w: w.tensors[k] if isinstance(w, Blocks) else w, state)
+        with mirrored(b.places[k], rest):
+            xk = [hand(t, home, b.places[k], b.devices[k], "state_in") for t in xs]
+            xk = tuple(xk) if isinstance(x, tuple) else xk[0]
+            with at_place(b.places[k]):
+                o, new = body(pk, xk, cfg, sk)
+        out = o if k == 0 else out
+        news.append(tree.leaves(new))
+    return out, tree.unflatten(state, [
+        w.with_tensors([n[j] for n in news] + [None] * (b.n - run))
+        for j, w in enumerate(tree.leaves(state))])
+
+
+def write_back(cache, view) -> None:
+    """Each holder's new state in ``view`` (:func:`held`'s Blocks) written
+    into its block of the placed ``cache`` leaf, on its place, where the
+    update did not write it there already."""
+    for pp, new in zip(tree.leaves(cache), tree.leaves(view)):
+        if not (isinstance(pp, Placed) and isinstance(new, Blocks)):
+            continue
+        for j, t in zip(new.places, new.tensors):
+            if t is not None and t is not pp.blocks[j]:
+                with at_place(j, forced=True):
+                    pp.blocks[j].copy_(t)
+
+
 def _cut_dim(pp: Placed, axis: str) -> Optional[int]:
     for d, e in enumerate(pp.sharding.spec):
         if axis in _spec_axes(e):
@@ -642,18 +883,27 @@ def _cut_dim(pp: Placed, axis: str) -> Optional[int]:
     return None
 
 
-def replica_view(params, mesh: Mesh, home: int, axis: str = MODEL):
+def replica_view(params, mesh: Mesh, home: int, axis: str = MODEL,
+                 holders: Optional[Sequence[int]] = None):
     """The parameters (a tree of ``Placed``) as the replica at place
     ``home`` computes with them: a leaf cut along ``axis`` as
     :class:`Blocks` of its model places' blocks, a replicated leaf as the
     block at ``home`` (each place's own copy, as ``Blocks``, inside an
-    attention or MLP whose weights are cut).  FSDP cuts are assembled on
-    each place (``model_block``): a stacked leaf's (under ``layers``) a
-    layer at a time, as :class:`Gathered`; any other once.  At model size 1
-    every leaf is the block at ``home``."""
+    attention or MLP whose weights are cut).  The Mamba2 weights (``mamba``)
+    as :class:`Pieces` of each model place's copy where the SSD's channels
+    divide over the model places (``ssm_inner`` bound: d_inner % M == 0);
+    with ``holders`` (decode: the places that hold the replica's copies of
+    the replicated states, home first) the Mamba2 and xLSTM weights
+    (``mamba``, ``cell``) as Blocks of each holder's copy instead.  FSDP
+    cuts are assembled on each place (``model_block``): a stacked leaf's
+    (under ``layers``) a layer at a time, as :class:`Gathered`; any other
+    once.  At model size 1 (and one holder) every leaf is the block at
+    ``home``."""
+    from repro_torch.models import ssm
     places = model_places(mesh, home, axis)
     devs = [mesh.devices[i] for i in places]
     split = len(places) > 1
+    holders = list(holders or [home])
 
     def leaf(pp, stacked, copies=False):
         d = _cut_dim(pp, axis) if split else None
@@ -670,8 +920,25 @@ def replica_view(params, mesh: Mesh, home: int, axis: str = MODEL):
         tensors = [model_block(pp, i, axis) for i in at]
         return tensors[0] if kind == "home" else Blocks(tensors, places, devs, d)
 
+    def pieces(t):
+        dims = ssm.split_dims({k: v.shape for k, v in t.items()})
+        if not split or dims[0] % len(places):
+            return None
+        return {k: Pieces([[(r, model_block(v, i, axis)[r])
+                            for r in ssm.split_regions(k, v.shape, dims, m, len(places))]
+                           for m, i in enumerate(places)], places, devs)
+                for k, v in t.items()}
+
     def walk(t, parent=None, stacked=False):
         if isinstance(t, dict):
+            if parent in ("mamba", "cell") and len(holders) > 1:
+                return {k: leaf(v, stacked) if split and _cut_dim(v, axis) is not None
+                        else Blocks([model_block(v, j, axis) for j in holders], holders,
+                                    [mesh.devices[j] for j in holders], None)
+                        for k, v in t.items()}
+            cut = pieces(t) if parent == "mamba" and holders == [home] else None
+            if cut is not None:
+                return cut
             copies = split and parent in HOOKED and any(
                 isinstance(v, Placed) and _cut_dim(v, axis) is not None for v in t.values())
             return {k: leaf(v, stacked, copies) if isinstance(v, Placed)
@@ -683,12 +950,15 @@ def replica_view(params, mesh: Mesh, home: int, axis: str = MODEL):
     return walk(params)
 
 
+HELD = (Blocks, Gathered, Pieces)      # a view's leaves that hold several tensors
+
+
 def view_leaves(view) -> List[torch.Tensor]:
     """Every tensor of a replica view, a Blocks' pieces in place order (a
     Gathered's in its parts' order): the autograd leaves of a step."""
     out = []
     for leaf in tree.leaves(view):
-        out.extend(leaf.tensors if isinstance(leaf, (Blocks, Gathered)) else [leaf])
+        out.extend(leaf.tensors if isinstance(leaf, HELD) else [leaf])
     return out
 
 
@@ -696,7 +966,7 @@ def with_leaves(view, new: Sequence[torch.Tensor]):
     """``view`` holding ``new`` (in :func:`view_leaves` order)."""
     it = iter(new)
     return tree.tree_map(lambda x: x.with_tensors([next(it) for _ in x.tensors])
-                         if isinstance(x, (Blocks, Gathered)) else next(it), view)
+                         if isinstance(x, HELD) else next(it), view)
 
 
 def grad_sources(params, view, home: int, axis: str = MODEL):
@@ -705,10 +975,13 @@ def grad_sources(params, view, home: int, axis: str = MODEL):
     (``view_leaves`` order) lies: (its place, the slices of the leaf it
     covers).  A model block's at its place; a Gathered piece's back on the
     place it was read from (``_Assemble``'s backward); a replicated leaf's
-    at ``home``, or one partial a model place where each held a copy."""
+    at ``home``, one partial a model place where each held a copy, or each
+    place's pieces (:class:`Pieces`) where it read them."""
     out = []
     for pp, v in zip(tree.leaves(params), tree.leaves(view)):
-        if isinstance(v, Gathered):
+        if isinstance(v, Pieces):
+            out.append([(i, r) for i, part in zip(v.places, v.parts) for r, _ in part])
+        elif isinstance(v, Gathered):
             out.append([(src, _slices_of(pp)[src]) for part in v.parts for src, _, _ in part])
         elif isinstance(v, Blocks):
             out.append([(i, model_region(pp, i, axis)) for i in v.places])
@@ -717,15 +990,12 @@ def grad_sources(params, view, home: int, axis: str = MODEL):
     return out
 
 
-def _inside(region, outer):
-    """``region`` as slices of the block ``outer`` that holds it, or None
-    where the two do not meet; raises where they overlap in part."""
-    if any(r.stop <= o.start or r.start >= o.stop for r, o in zip(region, outer)):
-        return None
-    if any(r.start < o.start or r.stop > o.stop for r, o in zip(region, outer)):
-        raise ValueError(f"block {region} overlaps the gradient of {outer} in part: the "
-                         f"optimizer specs must refine the parameter specs")
-    return _rel(region, outer)
+def _meet(region, outer):
+    """Where ``region`` and ``outer`` (slices of one leaf) meet, as slices of
+    the leaf, or None where they do not."""
+    out = tuple(slice(max(r.start, o.start), min(r.stop, o.stop))
+                for r, o in zip(region, outer))
+    return None if any(s.start >= s.stop for s in out) else out
 
 
 def owner_blocks(params, owners) -> List[Placed]:
@@ -754,36 +1024,76 @@ def reduce_grads(params, sources, grads: List, owners, acc: Optional[List[Placed
     microbatch, ``acc += g.float() / mb``, in the order of ``grads``;
     without, the place's block is the part itself (one replica, one
     microbatch: the sum of the parts where model places held copies), and
-    the blocks are returned as ``Placed`` leaves."""
+    the blocks are returned as ``Placed`` leaves.  A gradient that covers
+    part of a block (a place's :class:`Pieces`) is added at its region.
+    Under :func:`alike_owners` one owner stands for the others of its
+    block."""
     out, at = [], 0
     for n, (pp, srcs, sh) in enumerate(zip(tree.leaves(params), sources, owners)):
         gs = grads[at:at + len(srcs)]
         grads[at:at + len(srcs)] = [None] * len(srcs)
         at += len(srcs)
-        blocks = []
+        regions = [block_slices(sh, pp.shape, i) for i in range(sh.mesh.size)]
+        stand = (_stand_ins(regions, {src for src, _ in srcs}) if _HOLDERS.owners
+                 else {i: () for i in range(sh.mesh.size)})
+        blocks = {}
         for i, dev in enumerate(sh.mesh.devices):
-            region = block_slices(sh, pp.shape, i)
-            total = None
+            if i not in stand:
+                continue
+            region, others = regions[i], stand[i]
+            total, covered = None, 0
             for (src, reg), g in zip(srcs, gs):
-                rel = _inside(region, reg)
-                if rel is None:
+                inter = _meet(region, reg)
+                if inter is None:
                     continue
-                part = hand(g if region == reg else g[rel], src, i, dev, "grad_reduce")
-                with at_place(i, forced=True):
+                with mirrored(i, others) if others else _ALONE:
+                    part = hand(g if inter == reg else g[_rel(inter, reg)], src, i, dev,
+                                "grad_reduce")
+                for j in others:
+                    count_transfer(part, src, j, "grad_reduce")
+                dst = None if inter == region else _rel(inter, region)
+                covered += part.numel()
+                with at_place(i, forced=True), mirrored(i, others) if others else _ALONE:
                     if acc is not None:
-                        acc[n].blocks[i].add_(part.float() / mb)
+                        blk = acc[n].blocks[i]
+                        (blk if dst is None else blk[dst]).add_(part.float() / mb)
+                    elif dst is not None:
+                        if total is None:
+                            total = torch.zeros([s.stop - s.start for s in region],
+                                                dtype=part.dtype, device=dev)
+                        total[dst] += part
                     elif total is None:
                         total = part if part.shape == g.shape else part.clone()
                     else:
                         total = total + part
             if acc is None:
-                if total is None:
+                if total is None or covered < total.numel():
                     raise ValueError(f"no gradient covers block {region} of {pp!r}")
-                blocks.append(total)
+                blocks.update({j: total for j in (i, *others)})
         del gs
         if acc is None:
-            out.append(Placed(blocks, pp.shape, sh))
+            out.append(Placed([blocks[i] for i in range(sh.mesh.size)], pp.shape, sh))
     return None if acc is not None else out
+
+
+_ALONE = contextlib.nullcontext()
+
+
+def _stand_ins(regions, sources) -> Dict[int, Tuple[int, ...]]:
+    """Each place that runs its share of a reduce, and the places it stands
+    for (:func:`alike_owners`): the first of the places owning one block and
+    holding none of the gradients stands for the rest; every other place
+    for itself alone."""
+    first: Dict[tuple, int] = {}
+    out: Dict[int, list] = {}
+    for i, r in enumerate(regions):
+        if i not in sources and r in first:
+            out[first[r]].append(i)
+            continue
+        if i not in sources:
+            first[r] = i
+        out[i] = []
+    return {i: tuple(o) for i, o in out.items()}
 
 
 # ===========================================================================
@@ -835,6 +1145,8 @@ def place_batch(batch: Dict, batch_specs: Dict, mesh: Mesh, skip=()):
 
 
 def _view_shape(piece) -> List[int]:
+    if isinstance(piece, Parts):
+        return list(piece.shape)
     if isinstance(piece, SeqCache):
         s = list(piece.blocks[0].shape)
         s[piece.seq_dim] = piece.size
@@ -844,9 +1156,11 @@ def _view_shape(piece) -> List[int]:
 
 def _to_placed(pieces: Dict[int, object], spec, reps: Replicas, axis: str = MODEL):
     """A cache leaf from each replica's value (at its home, or each model
-    place's: ``Blocks``/``SeqCache``) as a ``Placed`` by ``spec``: each
-    place's block, a replica's home value cut and handed to the places that
-    hold its parts (``cache_place``)."""
+    place's: ``Blocks``/``SeqCache``; or in pieces on its places:
+    :class:`Parts`) as a ``Placed`` by ``spec``: each place's block, a
+    replica's home value cut and handed to the places that hold its parts,
+    Parts put together on every place that holds the whole
+    (``cache_place``)."""
     mesh = reps.mesh
     any_piece = pieces[reps.homes[0]]
     shape = _view_shape(any_piece)
@@ -867,6 +1181,13 @@ def _to_placed(pieces: Dict[int, object], spec, reps: Replicas, axis: str = MODE
         sl = list(block_slices(sh, shape, i))
         if bd is not None:
             sl[bd] = slice(None)          # the replica's piece holds its rows
+        if isinstance(piece, Parts):
+            if any(s != slice(0, n) for s, n in zip(sl, piece.shape) if s != slice(None)):
+                raise ValueError(f"a cache leaf in parts cut by {spec}")
+            where = [(src, reg) for src, reg, _ in piece.parts]
+            blocks.append(_fill(i, mesh.devices[i], piece.shape, where,
+                                [t for _, _, t in piece.parts], "cache_place"))
+            continue
         part = piece[tuple(sl)]
         if i == h and part.shape == piece.shape:
             blocks.append(piece)
@@ -904,16 +1225,21 @@ def _seq_cut(pp: Placed, p: int, axes) -> SeqCache:
                     [mesh.devices[g] for g in group], (p, mesh.devices[p]), 2)
 
 
-def _cache_view(cache: Dict, h: int, kv_seq):
+def _cache_view(cache: Dict, h: int, kv_seq, holders: Sequence[int]):
     """The replica at place ``h``'s view of a cache placed by
     ``cache_specs``: kv leaves cut by heads as ``Blocks`` of its model
     places' blocks, cut along the positions as a :class:`SeqCache`; with
     ``kv_seq`` (long context) each place's positions split over the places
-    along those axes; every other leaf the block at ``h``."""
+    along those axes; every other leaf (the replicated states) as Blocks of
+    the copies at ``holders`` (home first), or the block at ``h``."""
     out = {}
     for key, val in cache.items():
         if key not in KV_LEAVES or not isinstance(val, Placed):
-            out[key] = tree.tree_map(lambda t: t.blocks[h] if isinstance(t, Placed) else t, val)
+            out[key] = tree.tree_map(
+                lambda t: (t if not isinstance(t, Placed) else t.blocks[h] if len(holders) < 2
+                           else Blocks([t.blocks[j] for j in holders], holders,
+                                       [t.sharding.mesh.devices[j] for j in holders], None)),
+                val)
             continue
         mesh = val.sharding.mesh
         places = model_places(mesh, h)
@@ -932,23 +1258,6 @@ def _cache_view(cache: Dict, h: int, kv_seq):
         else:
             out[key] = _seq_cut(val, h, kv_seq) if kv_seq else val.blocks[h]
     return out
-
-
-def _sync_state(cache: Dict, view: Dict, reps: Replicas, h: int) -> None:
-    """After a decode step, every place of replica ``h`` holding a copy of a
-    state leaf (not keys or values) gets the replica's new value
-    (``cache_sync``)."""
-    mesh = reps.mesh
-    for key in cache:
-        if key in KV_LEAVES or key == "pos":
-            continue
-        for pp, new in zip(tree.leaves(cache[key]), tree.leaves(view[key])):
-            if not isinstance(pp, Placed):
-                continue
-            for i in range(mesh.size):
-                if reps.of(i) != h or pp.blocks[i] is new:
-                    continue
-                pp.blocks[i].copy_(hand(new, h, i, mesh.devices[i], "cache_sync"))
 
 
 def _place_params(params, mesh: Mesh, specs):
@@ -1008,7 +1317,8 @@ def make_placed_prefill(cfg, mesh: Mesh, param_specs, batch_specs: Dict,
 
 
 def make_placed_decode(cfg, mesh: Mesh, param_specs, token_spec: P,
-                       kv_seq=None, replicas: Optional[int] = None):
+                       kv_seq=None, replicas: Optional[int] = None,
+                       holders: Optional[int] = None):
     """``decode(params, tokens (B, 1), cache) -> (logits (B, 1, V) at place
     0, cache)``: the counterpart of the JAX dry run's ``serve_step`` under
     ``in_shardings``.  The cache is placed by ``cache_specs`` and updated in
@@ -1019,10 +1329,12 @@ def make_placed_decode(cfg, mesh: Mesh, param_specs, token_spec: P,
     partial-softmax combine over the model places; with ``kv_seq`` (the
     mesh axes ``make_rules`` binds it to at long context) each place's
     positions split again over the places along them
-    (``seq_parallel``'s combine).  The replicated state (SSM, conv, xLSTM)
-    runs at the replica's home and is copied to the places that hold it.
-    ``replicas`` as in :func:`make_placed_prefill` (``pos`` is advanced
-    all the same)."""
+    (``seq_parallel``'s combine).  The replicated states (SSM, conv, xLSTM)
+    are updated on every place that holds the replica's copy, each from its
+    own copies of the state and the weights and the layer's input handed
+    from home (:func:`held`): no state moves between places.  ``replicas``
+    as in :func:`make_placed_prefill` (``pos`` is advanced all the same);
+    ``holders`` as :func:`run_holders` takes it."""
     from repro_torch.models import transformer as tf
     kv_seq = (kv_seq,) if isinstance(kv_seq, str) else tuple(kv_seq or ())
 
@@ -1033,11 +1345,13 @@ def make_placed_decode(cfg, mesh: Mesh, param_specs, token_spec: P,
         home = mesh.devices[0]
         logits = []
         for h in reps.homes[len(reps.homes) - (replicas or len(reps.homes)):]:
-            with work_scope("replica"), at_place(h), torch.no_grad():
-                view = replica_view(params, mesh, h)
-                cv = _cache_view(cache, h, kv_seq)
+            held_at = [h] + [i for i in range(mesh.size) if reps.of(i) == h and i != h]
+            with work_scope("replica"), at_place(h), torch.no_grad(), run_holders(holders):
+                view = replica_view(params, mesh, h, holders=held_at)
+                cv = _cache_view(cache, h, kv_seq, held_at)
                 lg, cv = tf.decode_step(view, cfg, tok.blocks[h], cv)
-                _sync_state(cache, cv, reps, h)
+                write_back({k: v for k, v in cache.items() if k not in KV_LEAVES},
+                           {k: v for k, v in cv.items() if k not in KV_LEAVES})
                 del view
             with work_scope("sink"):
                 logits.append(hand(lg, h, 0, home, "logits"))

@@ -69,7 +69,8 @@ from repro_torch.distributed.params import (batch_specs, cache_specs, opt_specs,
                                             param_specs)
 from repro_torch.distributed.sharding import (AxisRules, Mesh, NamedSharding, P, Placed,
                                               _spec_axes, at_place, block_slices,
-                                              count_transfer, current_place, current_scope,
+                                              count_transfer, current_mirror, current_place,
+                                              current_scope,
                                               place, reset_transfer_counts, set_mesh,
                                               transfer_counts, use_rules)
 from repro_torch.launch.mesh import make_production_mesh, mesh_shape_dict
@@ -83,20 +84,21 @@ INT32_SCALAR = 4      # JAX's cache "pos" is an int32 scalar; the port's an int
 # ---------------------------------------------------------------------------
 # memory and FLOPs a place
 # ---------------------------------------------------------------------------
-def _tensors(x, out=None) -> List[torch.Tensor]:
+def _tensors(x) -> List[torch.Tensor]:
     """The tensors in an op's arguments or results (nested lists, tuples
     and dicts)."""
-    out = [] if out is None else out
     if isinstance(x, torch.Tensor):
-        out.append(x)
-    elif isinstance(x, (list, tuple)):
-        for v in x:
-            if isinstance(v, torch.Tensor):
-                out.append(v)
-            elif isinstance(v, (list, tuple, dict)):
-                _tensors(v, out)
-    elif isinstance(x, dict):
-        _tensors(list(x.values()), out)
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    elif not isinstance(x, (list, tuple)):
+        return []
+    out = []
+    for v in x:
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, (list, tuple, dict)):
+            out.extend(_tensors(v))
     return out
 
 
@@ -114,35 +116,90 @@ _POINTWISE = {op.overloadpacket for op in (
     _aten.clamp_max.default, _aten.where.self, _aten.addcmul.default, _aten.reciprocal.default,
     _aten.tanh.default, _aten.log.default, _aten.add_.Tensor, _aten.sub_.Tensor,
     _aten.mul_.Tensor, _aten.div_.Tensor, _aten.addcmul_.default, _aten.sqrt_.default,
-    _aten.exp_.default, _aten.clamp_min_.default)}
+    _aten.exp_.default, _aten.clamp_min_.default, _aten.silu.default,
+    _aten.silu_backward.default, _aten.softplus.default, _aten.softplus_backward.default,
+    _aten.masked_fill.Scalar)}
+# Ops whose result is a contiguous tensor of their (contiguous) first
+# argument's shape and dtype, and reductions over listed dimensions.
+_SHAPED = {op.overloadpacket for op in (
+    _aten.cumsum.default, _aten.tril.default, _aten.triu.default, _aten.flip.default)}
+_REDUCE = {_aten.sum.dim_IntList, _aten.mean.dim}
+
+
+def _broadcast(shapes) -> Optional[torch.Size]:
+    """The shape ``shapes`` broadcast to, or None where they do not."""
+    first = shapes[0]
+    if all(s == first for s in shapes):
+        return first
+    out = [1] * max(len(s) for s in shapes)
+    for s in shapes:
+        for i, n in enumerate(s, len(out) - len(s)):
+            if n != 1:
+                if out[i] not in (1, n):
+                    return None
+                out[i] = n
+    return torch.Size(out)
+
+
+def _row_major(t: torch.Tensor) -> bool:
+    """Whether ``t``'s dimensions of more than one element lie in memory in
+    their order (strides falling): a broadcast of it leaves an elementwise
+    result's layout to the other operands."""
+    st = [s for s, n in zip(t.stride(), t.shape) if n > 1]
+    return all(a >= b for a, b in zip(st, st[1:]))
 
 
 def _plain_result(func, args, kwargs):
     """The result of a ``_POINTWISE`` op on meta tensors, made without its
-    decomposition, or None where its inputs are not plain: every tensor of
-    one shape (or 0-dim) and contiguous, of one floating dtype (besides a
-    boolean mask), the other arguments Python numbers."""
+    decomposition, or None where its inputs are not plain: tensors whose
+    shapes broadcast, each with its dimensions in memory order (the
+    kernel's result is then contiguous; an in-place op's is its first
+    argument, of the result's shape, whatever its layout), of one floating
+    dtype (besides a boolean mask), the other arguments Python numbers."""
+    if func.overloadpacket in _SHAPED or func in _REDUCE:
+        return _plain_shaped(func, args, kwargs)
     if func.overloadpacket not in _POINTWISE or "out" in kwargs:
         return None
-    shape, dtypes = None, set()
+    tensors, dtypes = [], set()
     for a in (*args, *kwargs.values()):
         if isinstance(a, torch.Tensor):
-            if not a.is_meta or not a.is_contiguous():
+            if not a.is_meta:
                 return None
             if a.dtype != torch.bool:
                 dtypes.add(a.dtype)
-            if a.dim():
-                if shape is not None and a.shape != shape:
-                    return None
-                shape = a.shape
+            tensors.append(a)
         elif not isinstance(a, (int, float)):
             return None
     if len(dtypes) != 1 or not next(iter(dtypes)).is_floating_point:
         return None
-    shape = () if shape is None else shape
+    shape = _broadcast([t.shape for t in tensors])
+    if shape is None:
+        return None
     if func._schema.name.endswith("_"):
         return args[0] if args[0].shape == shape else None
+    if not all(_row_major(t) for t in tensors):
+        return None
     return torch.empty(shape, dtype=dtypes.pop(), device="meta")
+
+
+def _plain_shaped(func, args, kwargs):
+    """The result of a ``_SHAPED`` op or a ``_REDUCE`` reduction (over a
+    list of dimensions, no dtype given) of a contiguous meta tensor, made
+    without its decomposition: contiguous, its input's dtype; else None."""
+    x = args[0]
+    if kwargs.get("dtype") is not None or not (x.is_meta and x.is_contiguous()):
+        return None
+    if func not in _REDUCE:
+        if func.overloadpacket is _aten.cumsum and not x.dtype.is_floating_point:
+            return None
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    dims = args[1] if len(args) > 1 else kwargs.get("dim")
+    keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+    if not dims or len(args) > 3 or not x.dtype.is_floating_point:
+        return None
+    dims = {d % x.dim() for d in dims}
+    shape = [1 if i in dims else n for i, n in enumerate(x.shape) if keep or i not in dims]
+    return torch.empty(shape, dtype=x.dtype, device="meta")
 
 
 def _plain_cat(func, args, kwargs):
@@ -167,7 +224,9 @@ class PlaceCount(TorchDispatchMode):
     module's docstring for the rules), each also by the step's part
     (``sharding.work_scope``): ``rep_peak`` is the peak a place holds of
     what a replica's own work made (``base`` what it held when the first
-    replica began), ``flops_by[scope]`` the FLOPs of each part.  Plain
+    replica began), ``flops_by[scope]`` the FLOPs of each part.  Work that
+    stands for alike work elsewhere (``sharding.mirrored``) is charged
+    there too.  Plain
     pointwise ops and ``cat`` on meta tensors make their results directly
     (``_plain_result``, ``_plain_cat``), with the metadata the kernels
     give."""
@@ -175,13 +234,14 @@ class PlaceCount(TorchDispatchMode):
     def __init__(self, n_places: int):
         super().__init__()
         self.n = n_places
-        self.where: Dict[int, tuple] = {}     # storage -> (bytes, place, copy, rep)
+        self.where: Dict[int, tuple] = {}     # storage -> (bytes, places, copy, rep)
         self.live = [0] * n_places
         self.peak = [0] * n_places
         self.rep_live = [0] * n_places
         self.rep_peak = [0] * n_places
         self.base: Optional[List[int]] = None
         self.one = self.one_peak = 0
+        self.mirrored_flops = 0               # charged to places that stood by
         self.flops_by = {None: [0] * n_places, "replica": [0] * n_places,
                          "sink": [0] * n_places}
 
@@ -190,10 +250,11 @@ class PlaceCount(TorchDispatchMode):
         return [sum(v[i] for v in self.flops_by.values()) for i in range(self.n)]
 
     def _release(self, key: int) -> None:
-        nbytes, place, copy, rep = self.where.pop(key)
-        self.live[place] -= nbytes
-        if rep:
-            self.rep_live[place] -= nbytes
+        nbytes, places, copy, rep = self.where.pop(key)
+        for place in places:
+            self.live[place] -= nbytes
+            if rep:
+                self.rep_live[place] -= nbytes
         if not copy:
             self.one -= nbytes
 
@@ -201,7 +262,7 @@ class PlaceCount(TorchDispatchMode):
         place, forced, _ = current_place()
         if forced:
             return place
-        held = [self.where[k][1] for k in keys if k in self.where]
+        held = [self.where[k][1][0] for k in keys if k in self.where]
         if not held or place in held:
             return 0 if place is None else place
         return held[0]
@@ -213,15 +274,22 @@ class PlaceCount(TorchDispatchMode):
             out = _plain_cat(func, args, kwargs)
         if out is None:
             out = func(*args, **kwargs)
-        keys = {t.untyped_storage()._cdata for t in _tensors((args, kwargs))}
+        keys = {t.untyped_storage()._cdata for t in _tensors(args)}
+        if kwargs:
+            keys.update(t.untyped_storage()._cdata for t in _tensors(kwargs))
         place = self._place_of(keys)
         scope = current_scope()
         rep = scope == "replica"
         if rep and self.base is None:
             self.base = list(self.live)
+        mirror, others = current_mirror()
+        places = (place, *others) if place == mirror else (place,)
         fn = flop_registry.get(func._overloadpacket)
         if fn is not None:
-            self.flops_by[scope][place] += int(fn(*args, **kwargs, out_val=out))
+            f = int(fn(*args, **kwargs, out_val=out))
+            for p in places:
+                self.flops_by[scope][p] += f
+            self.mirrored_flops += f * (len(places) - 1)
         _, _, alias = current_place()
         for t in _tensors(out):
             st = t.untyped_storage()
@@ -229,12 +297,13 @@ class PlaceCount(TorchDispatchMode):
             if key in self.where or key in keys:    # a view or an in-place result
                 continue
             nbytes = st.nbytes()
-            self.where[key] = (nbytes, place, alias, rep)
-            self.live[place] += nbytes
-            self.peak[place] = max(self.peak[place], self.live[place])
-            if rep:
-                self.rep_live[place] += nbytes
-                self.rep_peak[place] = max(self.rep_peak[place], self.rep_live[place])
+            self.where[key] = (nbytes, places, alias, rep)
+            for p in places:
+                self.live[p] += nbytes
+                self.peak[p] = max(self.peak[p], self.live[p])
+                if rep:
+                    self.rep_live[p] += nbytes
+                    self.rep_peak[p] = max(self.rep_peak[p], self.rep_live[p])
             if not alias:
                 self.one += nbytes
                 self.one_peak = max(self.one_peak, self.one)
@@ -285,11 +354,13 @@ def _fsdp_size(cfg, rules: AxisRules, md: Dict[str, int]) -> int:
 
 def reduced_cell(arch: str, shape_name: str, multi_pod: bool):
     """(cfg, shape, mesh) of a cell cut to test size: ``configs.reduced``,
-    8 rows of at most 32 tokens, and a (4, 2) mesh, (2, 2, 2) multi-pod, of
-    meta places (the reduced configs' 4 heads and 2 kv heads divide over
-    the 2 model places)."""
+    at most 8 rows of at most 32 tokens (long_500k keeps its one row, so
+    that batch unbinds and ``kv_seq`` binds, as at full size), and a (4, 2)
+    mesh, (2, 2, 2) multi-pod, of meta places (the reduced configs' 4 heads
+    and 2 kv heads divide over the 2 model places)."""
     shape = SHAPES[shape_name]
-    shape = dataclasses.replace(shape, seq_len=min(shape.seq_len, 32), global_batch=8)
+    shape = dataclasses.replace(shape, seq_len=min(shape.seq_len, 32),
+                                global_batch=min(shape.global_batch, 8))
     axes, dims = (("pod", "data", "model"), (2, 2, 2)) if multi_pod else \
         (("data", "model"), (4, 2))
     mesh = Mesh(["meta"] * int(np.prod(dims)), axes, dims)
@@ -398,11 +469,16 @@ def moe_dispatch(shape, in_sh) -> Optional[str]:
 
 
 def _run_step(mesh, rules_d, shape, cfg, tc, args, in_sh,
-              replicas: Optional[int] = None, prefill_cache=None):
+              replicas: Optional[int] = None, prefill_cache=None,
+              holders: Optional[int] = None, owners: Optional[int] = None):
     """The cell's placed step, once, on its meta inputs placed from the
-    host (its last ``replicas`` data replicas; all where None)."""
+    host (its last ``replicas`` data replicas; all where None; a decode's
+    replicated states updated at home and ``holders`` more of the places
+    that hold them, the rest counted alike: ``tensor_parallel.run_holders``;
+    with ``owners`` 1 a gradient's alike owners counted from one:
+    ``tensor_parallel.alike_owners``)."""
     from repro_torch.models import build_model
-    with use_rules(rules_d), set_mesh(mesh):
+    with use_rules(rules_d), set_mesh(mesh), tp.alike_owners(owners == 1):
         if shape.kind == "train":
             state, batch = args
             sspecs, bspecs = in_sh
@@ -418,7 +494,8 @@ def _run_step(mesh, rules_d, shape, cfg, tc, args, in_sh,
             params, tokens, cache = args
             pspecs, tspec, cspecs = in_sh
             kv_seq = rules_d.get("kv_seq") if shape.name == "long_500k" else None
-            tp.make_placed_decode(cfg, mesh, pspecs, tspec, kv_seq, replicas=replicas)(
+            tp.make_placed_decode(cfg, mesh, pspecs, tspec, kv_seq, replicas=replicas,
+                                  holders=holders)(
                 from_host(params, pspecs, mesh), tokens, from_host(cache, cspecs, mesh))
 
 
@@ -451,7 +528,8 @@ def extrapolation_depths(cfg) -> Optional[tuple]:
 
 
 def _counts(mesh, rules_d, shape, cfg, tc, args, in_sh, check_flops: bool,
-            replicas: Optional[int]) -> Dict:
+            replicas: Optional[int], holders: Optional[int] = None,
+            owners: Optional[int] = None) -> Dict:
     """One run of the cell's placed step under ``PlaceCount`` (its last
     ``replicas`` data replicas, the rest counted from them): FLOPs and the
     peak a place, the bytes and hand-overs by kind."""
@@ -462,11 +540,11 @@ def _counts(mesh, rules_d, shape, cfg, tc, args, in_sh, check_flops: bool,
     reset_transfer_counts()
     fc = FlopCounterMode(display=False) if check_flops else contextlib.nullcontext()
     with fc, count:
-        _run_step(mesh, rules_d, shape, cfg, tc, args, in_sh, run, pcs)
+        _run_step(mesh, rules_d, shape, cfg, tc, args, in_sh, run, pcs, holders, owners)
     moved = transfer_counts()
     flops, peak = count.flops, list(count.peak)
     counted = int(fc.get_total_flops()) if check_flops else None
-    if check_flops and sum(flops) != counted:
+    if check_flops and sum(flops) - count.mirrored_flops != counted:
         raise RuntimeError(f"FLOPs a place sum to {sum(flops)}, the counter read {counted}")
     extra = (len(homes) - run) / run
     nbytes, ntimes = dict(moved["bytes"]), dict(moved["count"])
@@ -520,7 +598,8 @@ def _extrapolated(runs: List[Dict], depths, L: int) -> Dict:
 def lower_cell(arch: str, shape_name: str, multi_pod: bool, moe_local: bool = False,
                serve_opt: bool = False, fsdp_experts_only: bool = False,
                replicas: Optional[int] = 1, check_flops: bool = True,
-               reduce: bool = False) -> Dict:
+               reduce: bool = False, holders: Optional[int] = 1,
+               owners: Optional[int] = 1) -> Dict:
     """One cell's record (JAX's keys where they have a counterpart).
 
     ``moe_local``, ``serve_opt`` and ``fsdp_experts_only`` are JAX's
@@ -542,7 +621,14 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, moe_local: bool = Fa
     train step's gradient accumulators at each owner among it), and the
     replicas' hand-overs, to place 0 and of their gradients to each owner's
     block (``tensor_parallel.reduce_grads``), count once a replica.
-    ``replicas=None`` runs every replica.
+    ``replicas=None`` runs every replica.  Likewise the places that hold
+    copies of a decode's replicated states, each updating its own, are
+    alike: home and ``holders`` more run, and each further holder is
+    charged the last one's work (``sharding.mirrored``: its FLOPs, its
+    memory as it runs, its ``state_in``); ``holders=None`` runs every one.
+    So are the places that own one block of a gradient and hold none of
+    it: one takes each replica's parts and stands for the rest
+    (``owners=1``; None runs every one).
     ``check_flops`` runs a ``FlopCounterMode`` around the step too, whose
     total must equal the sum of the places' counts (a third more time).
     ``reduce`` runs the cell cut to test size (``reduced_cell``).
@@ -576,12 +662,12 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, moe_local: bool = Fa
     }
     L, depths = cfg.n_layers, extrapolation_depths(cfg)
     if depths is None:
-        c = _counts(*spec[:7], check_flops, replicas)
+        c = _counts(*spec[:7], check_flops, replicas, holders, owners)
         lowering = "meta_full_depth"
     else:
         del spec, args
         runs = [_counts(*cell_specs(arch, shape_name, multi_pod, **flags, layers=d)[:7],
-                        check_flops, replicas) for d in depths]
+                        check_flops, replicas, holders, owners) for d in depths]
         c = _extrapolated(runs, depths, L)
         lowering = f"meta_extrapolated(depths={list(depths)},L={L})"
     peak, flops = c["peak"], c["flops"]

@@ -451,20 +451,23 @@ def _hybrid_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
             conv_st.append(st["conv"])
     cache = None
     if build_cache:
-        cache = {"attn_k": kv_all[0], "attn_v": kv_all[1], "ssm": torch.stack(ssm_st),
-                 "conv": torch.stack(conv_st), "pos": S}
+        cache = {"attn_k": kv_all[0], "attn_v": kv_all[1],
+                 "ssm": tensor_parallel.stack(ssm_st),
+                 "conv": tensor_parallel.stack(conv_st), "pos": S}
     return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
 
 
 def _hybrid_decode(p: Transformer, cfg: ArchConfig, x: torch.Tensor, cache: Dict):
-    """One token per sequence; every state and cache updated in place."""
+    """One token per sequence; every state and cache updated in place (a
+    placed state on every place that holds a copy: ``tensor_parallel.held``)."""
     pos = cache["pos"]
     positions = _decode_positions(cfg, pos, x.shape[0], x.device)
     for i, lp in enumerate(p.layers):
         lp = tensor_parallel.assembled(lp)
         h = rmsnorm(x, lp.ln, cfg.norm_eps)
-        m_out, st = ssm_mod.mamba2_decode(
-            lp.mamba, h, cfg, {"ssm": cache["ssm"][i], "conv": cache["conv"][i]})
+        m_out, st = tensor_parallel.held(
+            ssm_mod.mamba2_decode, lp.mamba, h, cfg,
+            {"ssm": cache["ssm"][i], "conv": cache["conv"][i]})
         x = x + m_out
         cache["ssm"][i] = st["ssm"]
         cache["conv"][i] = st["conv"]
@@ -491,17 +494,15 @@ def init_hybrid_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
 # ===========================================================================
 # xLSTM stack (a list of blocks whose structure differs by kind)
 # ===========================================================================
-def _xlstm_cell(cfg: ArchConfig, i: int, decode: bool):
-    if i in cfg.slstm_at:
-        return xlstm_mod.slstm_decode if decode else xlstm_mod.slstm_fwd
-    return xlstm_mod.mlstm_decode if decode else xlstm_mod.mlstm_fwd
+def _xlstm_cell(cfg: ArchConfig, i: int):
+    return xlstm_mod.slstm_fwd if i in cfg.slstm_at else xlstm_mod.mlstm_fwd
 
 
 def _xlstm_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
                 build_cache: bool):
     states = []
     for i, blk in enumerate(p.layers):
-        out, st = _xlstm_cell(cfg, i, False)(
+        out, st = _xlstm_cell(cfg, i)(
             blk.cell, rmsnorm(x, blk.ln, cfg.norm_eps), cfg, None)
         x = x + out
         states.append(st)
@@ -511,8 +512,16 @@ def _xlstm_full(p: Transformer, cfg: ArchConfig, x: torch.Tensor,
 
 def _xlstm_decode(p: Transformer, cfg: ArchConfig, x: torch.Tensor, cache: Dict):
     for i, blk in enumerate(p.layers):
-        out, cache["states"][i] = _xlstm_cell(cfg, i, True)(
-            blk.cell, rmsnorm(x, blk.ln, cfg.norm_eps), cfg, cache["states"][i])
+        h = rmsnorm(x, blk.ln, cfg.norm_eps)
+        if i in cfg.slstm_at:
+            out, cache["states"][i] = tensor_parallel.held(
+                xlstm_mod.slstm_decode, blk.cell, h, cfg, cache["states"][i])
+        else:       # the projections once (wq, wk, wv cut by heads), the update where held
+            cell = tensor_parallel.home_copy(blk.cell)
+            ins, z = xlstm_mod.mlstm_decode_in(cell, h, cfg)
+            h, cache["states"][i] = tensor_parallel.held(
+                xlstm_mod.mlstm_decode_state, None, ins, cfg, cache["states"][i])
+            out = xlstm_mod.mlstm_decode_out(cell, h, z, x.dtype, cfg)
         x = x + out
     cache["pos"] += 1
     return x, cache

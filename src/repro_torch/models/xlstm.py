@@ -172,17 +172,34 @@ def mlstm_fwd(p, x: torch.Tensor, cfg: ArchConfig,
 
 def mlstm_decode(p, x: torch.Tensor, cfg: ArchConfig,
                  state: Dict) -> Tuple[torch.Tensor, Dict]:
-    """Single-step recurrent mLSTM. x: (B, 1, d)."""
-    B = x.shape[0]
+    """Single-step recurrent mLSTM. x: (B, 1, d).  Its three parts: the
+    projections (``mlstm_decode_in``), the state's update from them
+    (``mlstm_decode_state``, which reads no weight: a placed decode runs it
+    on every place that holds the state) and the output
+    (``mlstm_decode_out``)."""
+    ins, z = mlstm_decode_in(p, x, cfg)
+    h, new_state = mlstm_decode_state(None, ins, cfg, state)
+    return mlstm_decode_out(p, h, z, x.dtype, cfg), new_state
+
+
+def mlstm_decode_in(p, x: torch.Tensor, cfg: ArchConfig):
+    """(q, k, v (B, H, dh) in float32, log_i, log_f (B, H)), z."""
     H = cfg.n_heads
-    d_inner, dh = mlstm_dims(cfg)
-    scale = 1.0 / math.sqrt(dh)
     u, z = (x @ p["w_up"]).chunk(2, dim=-1)
     q = _heads(u @ p["wq"], H)[:, :, 0].float()
     k = _heads(u @ p["wk"], H)[:, :, 0].float()
     v = _heads(u @ p["wv"], H)[:, :, 0].float()
     log_i, log_f = _mlstm_gates(p, u)
-    li, lf = log_i[:, 0], log_f[:, 0]                             # (B,H)
+    return (q, k, v, log_i[:, 0], log_f[:, 0]), z
+
+
+def mlstm_decode_state(p, ins, cfg: ArchConfig, state: Dict) -> Tuple[torch.Tensor, Dict]:
+    """(h (B, 1, d_inner), the new state) from ``mlstm_decode_in``'s
+    projections; ``p`` is not read."""
+    q, k, v, li, lf = ins
+    B = q.shape[0]
+    d_inner, dh = mlstm_dims(cfg)
+    scale = 1.0 / math.sqrt(dh)
     C, n, m = state["C"], state["n"], state["m"]
     m_new = torch.maximum(lf + m, li)
     fw = torch.exp(lf + m - m_new)[..., None]
@@ -193,8 +210,12 @@ def mlstm_decode(p, x: torch.Tensor, cfg: ArchConfig,
     den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n).abs() * scale,
                         torch.exp(-m_new))
     h = (num / den[..., None]).reshape(B, 1, d_inner)
+    return h, {"C": C, "n": n, "m": m_new}
+
+
+def mlstm_decode_out(p, h: torch.Tensor, z: torch.Tensor, dtype, cfg: ArchConfig):
     h = _rms(h, p["norm_g"], cfg.norm_eps) * F.silu(z.float())
-    return h.to(x.dtype) @ p["w_down"], {"C": C, "n": n, "m": m_new}
+    return h.to(dtype) @ p["w_down"]
 
 
 # ---------------------------------------------------------------------------

@@ -48,10 +48,10 @@ from repro_torch.training.rematctx import use_remat
 
 
 def cast_tree(t, dtype):
-    """Every floating leaf of ``t`` (a ``tensor_parallel.Blocks``' or
-    ``Gathered``'s pieces too) cast to ``dtype``."""
+    """Every floating leaf of ``t`` (a ``tensor_parallel.Blocks``',
+    ``Gathered``'s or ``Pieces``' tensors too) cast to ``dtype``."""
     def one(x):
-        lead = x.tensors[0] if isinstance(x, (tp.Blocks, tp.Gathered)) else x
+        lead = x.tensors[0] if isinstance(x, tp.HELD) else x
         return x.to(dtype) if torch.is_floating_point(lead) else x
     return tree.tree_map(one, t)
 

@@ -17,6 +17,12 @@
   * memory: a reduced cell's peaks a place are positive, the largest at
     least the place's share of the arguments; the replicas counted from one
     equal the replicas all run (FLOPs, bytes moved, peaks);
+  * decode's replicated states updated where they are held: a reduced
+    cell with one holder run and the rest charged from it equals the run of
+    every holder (zamba2 long_500k and decode_32k, xlstm-125m long_500k);
+    the hybrid's train cell saves each model place its channels of the SSD
+    (place 0's peak and FLOPs near place 1's, against the mixer at home); a
+    gradient's alike owners counted from one equal every owner run;
   * ``run_cells`` on a reduced cell writes its JSON, and on a skipped cell
     ``__skip.json`` with ``skip_reason``'s text;
   * JAX's variants: ``serve_opt`` and ``fsdp_experts_only`` give
@@ -221,6 +227,66 @@ def test_one_replica_counts_as_all(arch, shape):
             assert one["transfer_bytes"][k] == v, k
 
 
+@pytest.mark.parametrize("arch,shape", [("zamba2-2.7b", "long_500k"),
+                                        ("zamba2-2.7b", "decode_32k"),
+                                        ("xlstm-125m", "long_500k")])
+def test_one_holder_counts_as_all(arch, shape):
+    """Decode's replicated states are updated on every place that holds a
+    copy (``tensor_parallel.held``); the dry run runs home and one more
+    holder and charges the rest the last one's work (``holders=1``).  A
+    reduced cell counted so equals its run with every holder run: FLOPs,
+    the peak and bytes moved a place, by kind.  No state moves between
+    places (no ``cache_sync``); each holder gets the layer's input."""
+    one = dryrun.lower_cell(arch, shape, False, reduce=True)
+    every = dryrun.lower_cell(arch, shape, False, reduce=True, holders=None)
+    assert one["flops"]["per_place"] == every["flops"]["per_place"]
+    assert one["memory"]["peak_bytes_per_place"] == every["memory"]["peak_bytes_per_place"]
+    assert one["transfer_bytes"] == every["transfer_bytes"]
+    assert one["transfers"] == every["transfers"]
+    assert "cache_sync" not in one["transfer_bytes"] and one["transfer_bytes"]["state_in"] > 0
+    if shape == "long_500k":        # 8 holders: home and one run, six charged
+        assert one["flops"]["counted_run"] < every["flops"]["counted_run"]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "zamba2-2.7b"])
+def test_one_owner_counts_as_all(arch):
+    """The places that own one block of a gradient and hold none of it are
+    alike: the dry run reduces each replica's parts to one of them and
+    charges the others alike (``owners=1``, ``tensor_parallel.alike_owners``).
+    A reduced train cell (AdamW: every place owns each replicated leaf
+    whole) counted so equals its run with every owner run: FLOPs, the peak
+    and bytes moved a place, by kind, and the hand-overs' count."""
+    one = dryrun.lower_cell(arch, "train_4k", False, reduce=True)
+    every = dryrun.lower_cell(arch, "train_4k", False, reduce=True, owners=None)
+    for key in ("flops", "memory", "transfer_bytes", "transfers"):
+        assert one[key] == every[key], key
+    assert one["transfer_bytes"]["grad_reduce"] > 0
+
+
+def test_hybrid_train_cell_saves_each_place_its_channels(monkeypatch):
+    """Reduced zamba2 train_4k on (4, 2) meta places, remat "dots" (every
+    matrix product of the SSD saved for the backward): with the SSD's
+    channels split over the model places each place holds its half of
+    them, so place 0's peak falls and place 1's rises, to within a tenth of
+    each other; with the split off (``ssm_inner`` unbound: the mixer at
+    home) place 0 holds them all.  The FLOPs of the two places come within
+    a fifth of each other, the total within 5% of the unsplit run's."""
+    from repro_torch.models import ssm
+    split = dryrun.lower_cell("zamba2-2.7b", "train_4k", False, reduce=True)
+    real = ssm.split_dims
+    monkeypatch.setattr(ssm, "split_dims", lambda shapes: (real(shapes)[0] + 1,
+                                                          *real(shapes)[1:]))
+    home = dryrun.lower_cell("zamba2-2.7b", "train_4k", False, reduce=True)
+    assert split["train_posture"]["remat"] == "dots"
+    sp, hp = split["memory"]["peak_bytes_per_place"], home["memory"]["peak_bytes_per_place"]
+    assert sp[0] < hp[0] and sp[1] > hp[1]
+    assert abs(sp[0] - sp[1]) < 0.1 * sp[1] < hp[0] - hp[1]
+    sf, hf = split["flops"]["per_place"], home["flops"]["per_place"]
+    assert abs(sf[0] - sf[1]) < 0.2 * sf[1] and hf[0] > 1.5 * hf[1]
+    assert abs(split["flops"]["total"] / home["flops"]["total"] - 1) < 0.05
+    assert split["transfer_bytes"]["grad_reduce"] <= home["transfer_bytes"]["grad_reduce"]
+
+
 def test_run_cells_writes_records(tmp_path):
     out = dryrun.run_cells(["gemma2-2b", "hubert-xlarge"], ["decode_32k"], [False], tmp_path,
                            reduce=True)
@@ -307,12 +373,14 @@ def test_extrapolation_depths_of_the_production_archs():
 
 @pytest.mark.parametrize("arch,shape", [("qwen2-vl-72b", "train_4k"),
                                         ("kimi-k2-1t-a32b", "train_4k"),
-                                        ("zamba2-2.7b", "decode_32k")])
+                                        ("zamba2-2.7b", "decode_32k"),
+                                        ("zamba2-2.7b", "train_4k")])
 def test_plain_pointwise_results_match_the_kernels(monkeypatch, arch, shape):
     """``PlaceCount`` makes plain pointwise and ``cat`` results directly
-    (``_plain_result``, ``_plain_cat``): the record is the one the meta
-    kernels' own results give, memory, FLOPs and bytes alike, and the ops
-    it made that way are many."""
+    (``_plain_result``, ``_plain_cat``; a broadcast operand too, as the
+    SSD's decays): the record is the one the meta kernels' own results
+    give, memory, FLOPs and bytes alike, and the ops it made that way are
+    many."""
     made = []
     real = dryrun._plain_result
 

@@ -23,7 +23,12 @@
     positions over the model places (gemma2, 1x4), the hybrid, the MoE;
   * long-context decode: a batch of one, the cache's positions split over
     the data places as ``make_rules`` binds ``kv_seq`` (zamba2, 4x2), against
-    the one-device decode.
+    the one-device decode;
+  * the hybrid's Mamba2 states: the placed prefill's ``ssm``/``conv`` cache
+    against the one-device prefill's (DECODE_TOL) and JAX's (LOGIT_TOL);
+    decode with no ``cache_sync``, every place updating its own copy of the
+    states from the layer's input (``state_in``), bit for bit home's after
+    every step (2x2, and at long context on 4x2).
 """
 import functools
 
@@ -214,9 +219,26 @@ def _jax_pair(arch):
     return jm, jp, params_tree(lm_params_from_arrays(cfg, arrays, device="cpu"))
 
 
-def _prefill_decode(arch, D, M, steps=7, Bp=4, Sp=16):
+def _copies_equal_home(cache) -> bool:
+    """Every place's copy of every replicated state leaf (not keys or
+    values) bit for bit the copy at the first place holding its rows."""
+    same = True
+    for key, val in cache.items():
+        if key in tp.KV_LEAVES or key == "pos":
+            continue
+        for pp in tree.leaves(val):
+            first = {}
+            for i, blk in enumerate(pp.blocks):
+                same &= torch.equal(blk, first.setdefault(pp.slices(i), blk))
+    return same
+
+
+def _prefill_decode(arch, D, M, steps=7, Bp=4, Sp=16, seen=None):
     """Placed prefill of Sp tokens then ``steps`` decode steps, teacher
-    forced: (logits a position (B, V) each, tokens, the port's params)."""
+    forced: (logits a position (B, V) each, tokens, the port's params).
+    ``seen`` (a dict) gets the prefill's ``ssm`` and ``conv`` gathered, and
+    after each decode step whether every place's state copies equal
+    home's."""
     cfg = reduced(get_arch(arch))
     _, _, params = _jax_pair(arch)
     Smax = 32                      # divides over the places of a positions cut
@@ -233,10 +255,16 @@ def _prefill_decode(arch, D, M, steps=7, Bp=4, Sp=16):
             cfg, ShapeConfig("p", Sp, Bp, "prefill"), rules), cs, max_seq=Smax)
         lg, cache = prefill(params, {"tokens": toks[:, :Sp]})
         out.append(lg[:, 0])
+        if seen is not None:
+            seen["prefill"] = {k: gather(cache[k], "cpu") for k in ("ssm", "conv")
+                               if k in cache}
+            seen["copies_equal"] = []
         decode = tp.make_placed_decode(cfg, mesh, ps, rules.spec(("batch", None)))
         for t in range(Sp, Sp + steps):
             lg, cache = decode(params, toks[:, t:t + 1], cache)
             out.append(lg[:, 0])
+            if seen is not None:
+                seen["copies_equal"].append(_copies_equal_home(cache))
     assert cache["pos"] == Sp + steps
     return torch.stack(out, 1), toks, params
 
@@ -246,22 +274,41 @@ def _prefill_decode(arch, D, M, steps=7, Bp=4, Sp=16):
                                        ("phi3.5-moe-42b-a6.6b", (2, 2))],
                          ids=["heads_cut", "kv_unbound", "hybrid", "moe"])
 def test_placed_prefill_decode_match_one_device_and_jax(arch, mesh):
+    """The hybrid's Mamba2 mixer too: its SSD split over the model places in
+    the prefill, whose ``ssm`` and ``conv`` cache, put together on every
+    place, holds against the one-device and JAX prefills' caches; decode
+    updates every place's copy of the states where it is held (no
+    ``cache_sync``), each bit for bit home's after every step."""
     reset_transfer_counts()
-    got, toks, params = _prefill_decode(arch, *mesh)
+    seen = {}
+    got, toks, params = _prefill_decode(arch, *mesh, seen=seen)
     moved = transfer_counts()["bytes"]
-    assert moved.get("tp_sum", 0) > 0
+    assert moved.get("tp_sum", 0) > 0 and "cache_sync" not in moved
+    assert all(seen["copies_equal"])
     if mesh == (1, 4):
         assert moved.get("seq_partial", 0) > 0       # the positions cut over 4 places
     n = got.shape[1]                 # the prefill's last position, then each decode's
     Sp = toks.shape[1] - n + 1
     cfg = reduced(get_arch(arch))
-    full, _, _ = build_model(cfg, device="cpu").forward(params, {"tokens": toks})
+    model = build_model(cfg, device="cpu")
+    full, _, _ = model.forward(params, {"tokens": toks})
     want = full[:, Sp - 1:Sp - 1 + n]
     torch.testing.assert_close(got, want, rtol=0, atol=DECODE_TOL)
     jm, jp, _ = _jax_pair(arch)
     jl, _, _ = jm.forward(jp, {"tokens": jnp.asarray(toks.numpy(), jnp.int32)})
     jwant = np.asarray(jl)[:, Sp - 1:Sp - 1 + n]
     assert float(np.abs(got.numpy() - jwant).max()) <= LOGIT_TOL
+    if cfg.family == "hybrid":
+        assert moved.get("state_in", 0) > 0 and moved.get("cache_place", 0) > 0
+        _, _, one = model.forward(params, {"tokens": toks[:, :Sp]}, build_cache=True,
+                                  max_seq=32)
+        _, _, jcache = jm.forward(jp, {"tokens": jnp.asarray(toks[:, :Sp].numpy(), jnp.int32)},
+                                  build_cache=True, max_seq=32)
+        for key in ("ssm", "conv"):
+            torch.testing.assert_close(seen["prefill"][key], one[key], rtol=0,
+                                       atol=DECODE_TOL, msg=key)
+            assert float(np.abs(seen["prefill"][key].numpy()
+                                - np.asarray(jcache[key])).max()) <= LOGIT_TOL, key
 
 
 def test_long_context_decode_splits_positions_over_data_places():
@@ -293,7 +340,12 @@ def test_long_context_decode_splits_positions_over_data_places():
             lg, placed = decode(params, toks[:, t:t + 1], placed)
             want, cache1 = m.decode_step(params, toks[:, t:t + 1], cache1)
             errs.append(float((lg - want).abs().max()))
+            assert _copies_equal_home(placed)         # each place updated its own copy
     assert transfer_counts()["count"].get("seq_partial", 0) >= 4 * 2 * 3 * n
+    moved = transfer_counts()["bytes"]
+    assert "cache_sync" not in moved
+    # every place but home gets each layer's input row (1, 1, d) in float32
+    assert moved["state_in"] == n * cfg.n_layers * 7 * cfg.d_model * 4
     assert max(errs) <= DECODE_TOL, errs
     for key in ("attn_k", "ssm"):
         torch.testing.assert_close(gather(placed[key], "cpu"), cache1[key], rtol=0,

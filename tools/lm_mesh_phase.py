@@ -12,8 +12,12 @@ prefill and decode against one device, ``moe_ffn_local`` at phi3.5-moe's
 width, sequence-parallel decode at gemma2-2b's decode shape, a re-meshed
 checkpoint and the launcher's ``--mesh 2x2``; with four cards also a card a
 place; then the same step with the weights cut over the data places too
-(FSDP), held the same way.  Then ``chip_smoke.phase_dryrun``: five production
-cells on the meta device.  TF32 off, as in the full run.  The card's name and power limit
+(FSDP), held the same way; then the hybrid (zamba2-2.7b at full width,
+``chip_smoke.LM_MESH_HYBRID_LAYERS`` layers, its SSD split over the model
+places): its placed step against one device and each place's growth against
+the meta count, its placed prefill (flash per place, each launch held
+against its plain version) and decode.  Then ``chip_smoke.phase_dryrun``: six
+production cells on the meta device.  TF32 off, as in the full run.  The card's name and power limit
 (nvidia-smi) come first; the records also go to ``lm_mesh_phase.json`` in
 the output directory.  A failed check ends the run with a non-zero exit.
 """
