@@ -302,6 +302,11 @@ back-to-back call, which includes the wrapper's host overhead.
                within 1e-6; the same for a run with the weights cut over
                the data places too (FSDP, assembled a layer at a time); the
                meta dry run's peak of each step against the card's growth.
+               Each gradient is reduced once, a chunk an owner, and its
+               chunks gathered to every owner (grad_reduce, grad_gather,
+               both printed); step 1 counted a place on the card
+               (dryrun.PlaceCount, the places apart): its FLOPs a place
+               equal to the meta count's, for gemma2-2b and the hybrid.
                The hybrid: zamba2-2.7b at full width cut to
                LM_MESH_HYBRID_LAYERS of 54 layers (the shared block applied
                twice), the same posture on 2x2, batch 8 x 256 (two SSD
@@ -323,8 +328,10 @@ back-to-back call, which includes the wrapper's host overhead.
                180 s; kimi-k2's largest place within a card, qwen2-vl-72b
                train_4k's place 0 within 10% of its largest other place,
                zamba2 train_4k's within 25% (and its FLOPs within 2x the
-               others' mean), zamba2 long_500k moving no state and at most
-               0.70 GB a step.
+               others' mean), its gradients' grad_reduce and grad_gather
+               under 2.5 TB a step and its place 0 under 115,259,298,557 B
+               (each owner accumulating a whole leaf), zamba2 long_500k
+               moving no state and at most 0.70 GB a step.
 Then the kernel table line, the card line, and the result line last.  The
 phases' records also go to chiprun_out/chip_smoke.json.
 
@@ -3121,6 +3128,9 @@ PLACE0_TOL = 0.10          # an FSDP train cell's place 0 against its largest ot
 HYBRID_PLACE0_TOL = 0.25   # zamba2 train_4k's place 0 against its largest other place
 HYBRID_FLOPS_TOL = 2.0     # ... its FLOPs against the other places' mean
 LONG_DECODE_BYTES = 0.70e9  # zamba2 long_500k's bytes between places a step
+HYBRID_GRAD_BYTES = 2.5e12  # zamba2 train_4k's grad_reduce + grad_gather a step
+# zamba2 train_4k's place 0 where every owner accumulated a whole leaf's gradient
+HYBRID_WHOLE_ACC_PLACE0 = 115_259_298_557
 DRYRUN_BUDGET_S = 180
 DRYRUN_WORKERS = 3         # the zamba2 train_4k cell takes about as long as the other five
 RESUME_TOL = dict(rtol=1e-5, atol=1e-6)     # phase train_resume's envelope
@@ -3165,22 +3175,26 @@ def mesh_train_setup(cfg, tc, D: int, M: int, devices, B: int, S: int, fsdp: int
 
 
 def lm_mesh_placed(cfg, tc, devices, batches, fsdp: int = 0,
-                   trace: bool = True) -> Tuple[dict, list]:
+                   trace: bool = True, counted: bool = False) -> Tuple[dict, list]:
     """One placed step a batch on (2, 2) over ``devices`` (``fsdp`` as
     ``mesh_train_setup`` takes it), the last under torch.profiler where
-    ``trace``.  The record (bytes between places a step by kind, the growth
-    of the card's allocated memory over one step) and the final parameters
-    gathered to ``devices[0]`` (None without the trace)."""
+    ``trace``; with ``counted`` the first (untimed) under
+    ``dryrun.PlaceCount``, the places apart, for its FLOPs a place.  The
+    record (bytes between places a step by kind, the growth of the card's
+    allocated memory over one step) and the final parameters gathered to
+    ``devices[0]`` (None without the trace)."""
     import gc
     from repro_torch import tree
-    from repro_torch.distributed.sharding import (gather, reset_transfer_counts,
-                                                  transfer_counts, use_rules)
+    from repro_torch.distributed.sharding import (gather, places_apart,
+                                                  reset_transfer_counts, transfer_counts,
+                                                  use_rules)
+    from repro_torch.launch.dryrun import PlaceCount
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, step, state, rules_d = mesh_train_setup(cfg, tc, 2, 2, devices, 8, 128, fsdp)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    times, mets, moved, growth = [], [], [], []
+    times, mets, moved, growth, flops = [], [], [], [], []
 
     def one(b):
         nonlocal state
@@ -3188,9 +3202,16 @@ def lm_mesh_placed(cfg, tc, devices, batches, fsdp: int = 0,
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        count = PlaceCount(4, held=state) if counted and not times else None
         t0 = time.perf_counter()
-        state, met = step(state, b)
+        with contextlib.ExitStack() as counting:
+            if count is not None:
+                counting.enter_context(count)
+                counting.enter_context(places_apart())
+            state, met = step(state, b)
         torch.cuda.synchronize()
+        if count is not None:
+            flops.append(list(count.flops))
         times.append(time.perf_counter() - t0)
         growth.append(torch.cuda.max_memory_allocated() - base)
         moved.append(transfer_counts())
@@ -3212,7 +3233,8 @@ def lm_mesh_placed(cfg, tc, devices, batches, fsdp: int = 0,
            "v_bytes_per_place": block_bytes(state["opt"]["v"]),
            "bytes_between_places_per_step": [c["between_places"] for c in moved],
            "bytes_by_kind_last_step": moved[-2]["bytes"],
-           "hand_overs_by_kind_last_step": moved[-2]["count"]}
+           "hand_overs_by_kind_last_step": moved[-2]["count"],
+           "flops_per_place_card": flops[0] if flops else None}
     if trace:
         rec.update({"device_launches_traced_step": traced["device_events"],
                     "busy_share_traced_step": traced["busy_share_traced"],
@@ -3328,7 +3350,7 @@ def lm_mesh_meta_peak(cfg, tc, fsdp: int = 0, S: int = 128) -> dict:
              for k in ("tokens", "labels")}
     with use_rules(rules_d):
         state = step.place_state(from_host(state, specs, mesh))
-        count = PlaceCount(mesh.size)
+        count = PlaceCount(mesh.size, held=state)
         reset_transfer_counts()
         with count:
             step(state, batch)
@@ -3535,7 +3557,7 @@ def lm_mesh_hybrid(devices) -> dict:
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            count = PlaceCount(4) if i == 1 else contextlib.nullcontext()
+            count = PlaceCount(4, held=state) if i == 1 else contextlib.nullcontext()
             t1 = time.perf_counter()
             with count, places_apart() if i == 1 else contextlib.nullcontext():
                 state, met = step(state, b)
@@ -3606,8 +3628,12 @@ def lm_mesh_hybrid(devices) -> dict:
     if rec["home_over_least_other"] > HOME_GROWTH_TOL:
         raise RuntimeError(f"lm_mesh hybrid: home's growth {card_places[0]} against the other "
                            f"places' {card_places[1:]}")
-    if "cache_sync" in moved[-1]["bytes"] or not moved[-1]["bytes"].get("tp_sum"):
+    if "cache_sync" in moved[-1]["bytes"] or not moved[-1]["bytes"].get("tp_sum") or \
+            not moved[-1]["bytes"].get("grad_gather"):
         raise RuntimeError(f"lm_mesh hybrid: bytes by kind {moved[-1]['bytes']}")
+    if card_flops != meta["flops_per_place"]:
+        raise RuntimeError(f"lm_mesh hybrid: FLOPs a place on the card {card_flops} against "
+                           f"the meta count's {meta['flops_per_place']}")
     return rec
 
 
@@ -3826,7 +3852,8 @@ def phase_lm_mesh(log) -> int:
     for name, devices in runs.items():     # the hold first: it holds ~65 GiB on one card
         rec["hold"][name], grads1[name] = lm_mesh_hold(cfg, tc, devices, batches)
         lap(f"hold_{name}")
-        rec["placed"][name], finals[name] = lm_mesh_placed(cfg, tc, devices, batches)
+        rec["placed"][name], finals[name] = lm_mesh_placed(cfg, tc, devices, batches,
+                                                           counted=name == "one_card")
         lap(f"placed_{name}")
     # the weights cut over the data places too (FSDP): held the same way
     fsdp_batches = batches[:LM_MESH_FSDP_STEPS]
@@ -3904,7 +3931,12 @@ def phase_lm_mesh(log) -> int:
                            "card_step_growth_bytes": card_growth,
                            "ratio": meta["peak_bytes_one_device"] / card_growth,
                            "peak_bytes_per_place": meta["peak_bytes_per_place"],
+                           "flops_per_place": meta["flops_per_place"],
                            "seconds": meta["seconds"]}
+    card_flops = rec["placed"]["one_card"]["flops_per_place_card"]
+    if card_flops != meta["flops_per_place"]:
+        raise RuntimeError(f"lm_mesh: FLOPs a place on the card {card_flops} against the meta "
+                           f"count's {meta['flops_per_place']}")
     meta_fsdp = lm_mesh_meta_peak(cfg, tc, fsdp=2)
     fsdp_growth = max(rec["fsdp"]["placed"]["step_growth_bytes"][1:])
     rec["fsdp"]["meta_dry_run"] = {"peak_bytes_one_device": meta_fsdp["peak_bytes_one_device"],
@@ -3937,6 +3969,8 @@ def phase_lm_mesh(log) -> int:
                       hy["home_over_least_other"]},
                  {"bytes_by_kind_a_step": hy["bytes_by_kind_last_step"],
                   "decode_bytes_by_kind": hpd["bytes_by_kind_decode"]},
+                 {"flops_per_place_card": hy["flops_per_place_card"],
+                  "flops_per_place_meta": hy["flops_per_place_meta"]},
                  {"s_a_step": hy["step_s_median_untraced"], "step_s": hy["step_s"]},
                  {"logits_max_abs_err": hpd["logits_max_abs_err"],
                   "state_err_prefill": hpd["state_err_prefill"],
@@ -3979,6 +4013,10 @@ def phase_lm_mesh(log) -> int:
         "device_launches_traced_step": one_card["device_launches_traced_step"],
         "bytes_between_places_a_step": one_card["bytes_between_places_per_step"][-2],
         "bytes_by_kind": one_card["bytes_by_kind_last_step"],
+        "grad_bytes": {k: one_card["bytes_by_kind_last_step"].get(k, 0)
+                       for k in ("grad_reduce", "grad_gather")},
+        "flops_per_place_card": one_card["flops_per_place_card"],
+        "flops_per_place_meta": rec["meta_dry_run"]["flops_per_place"],
         "peak_gib": one_card["peak_mem_gib"],
         "meta_peak_ratio": rec["meta_dry_run"]["ratio"],
         "update_held_bitwise": rec["hold"]["one_card"]["update_bitwise"],
@@ -4000,6 +4038,13 @@ def phase_lm_mesh(log) -> int:
                    "logits_max_abs_err": hpd["logits_max_abs_err"],
                    "flash_launches_prefill": hpd["flash_launches_prefill"]}}
     emit(rec, log)
+    print(json.dumps({"lm_mesh_grads": {
+        "gemma2-2b": rec["summary"]["grad_bytes"],
+        "hybrid": {k: hy["bytes_by_kind_last_step"].get(k, 0)
+                   for k in ("grad_reduce", "grad_gather")}}}), flush=True)
+    if not rec["summary"]["grad_bytes"]["grad_gather"]:
+        raise RuntimeError(f"lm_mesh: no gradient gathered to its owners "
+                           f"{rec['summary']['grad_bytes']}")
     if not line.startswith("steps=4 restarts=0 ") or "loss=nan" in line:
         raise RuntimeError(f"lm_mesh: launcher line {line!r}")
     if any(rec["launches"].values()):
@@ -4055,8 +4100,10 @@ def phase_dryrun(log, started=None) -> None:
     other place (no whole gradient at place 0); zamba2 train_4k's place 0
     within HYBRID_PLACE0_TOL of its largest other place and its FLOPs
     within HYBRID_FLOPS_TOL of the others' mean (the SSD split over the
-    model places); zamba2 long_500k moving no state (no ``cache_sync``) and
-    at most LONG_DECODE_BYTES a step."""
+    model places), its gradients reduced once and gathered (``grad_reduce``
+    and ``grad_gather`` within HYBRID_GRAD_BYTES) and its place 0 below
+    HYBRID_WHOLE_ACC_PLACE0; zamba2 long_500k moving no state (no
+    ``cache_sync``) and at most LONG_DECODE_BYTES a step."""
     pool, runs, t0, done_at = started or start_dryrun()
     cells = {}
     with pool:
@@ -4091,6 +4138,12 @@ def phase_dryrun(log, started=None) -> None:
         raise RuntimeError(f"dryrun: zamba2 train_4k's place 0 holds {peak[0]} B against "
                            f"{max(peak[1:])}, runs {flops[0]} FLOPs against a mean of "
                            f"{np.mean(flops[1:])}: the SSD not split over the model places")
+    moved = hybrid["transfer_bytes"]
+    if moved.get("grad_reduce", 0) + moved.get("grad_gather", 0) > HYBRID_GRAD_BYTES or \
+            peak[0] >= HYBRID_WHOLE_ACC_PLACE0:
+        raise RuntimeError(f"dryrun: zamba2 train_4k reduces {moved.get('grad_reduce')} B and "
+                           f"gathers {moved.get('grad_gather')} B of gradients, holds {peak[0]} "
+                           f"B at place 0")
     long_moved = cells["zamba2-2.7b__long_500k__singlepod"]["transfer_bytes"]
     if "cache_sync" in long_moved or long_moved["total"] > LONG_DECODE_BYTES:
         raise RuntimeError(f"dryrun: zamba2 long_500k moves {long_moved} a step")

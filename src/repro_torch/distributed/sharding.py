@@ -261,21 +261,28 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def count_transfer(t: torch.Tensor, src: Optional[int], dst: int,
+def count_transfer(t: Union[torch.Tensor, int], src: Optional[int], dst: int,
                    kind: str = "other") -> None:
-    """Count ``t``'s bytes as handed from place ``src`` (``None``: the host)
-    to place ``dst``, under ``kind``; nothing when they are one place."""
+    """Count ``t``'s bytes (a tensor's, or a number of them) as handed from
+    place ``src`` (``None``: the host) to place ``dst``, under ``kind``;
+    nothing when they are one place."""
+    n = t if isinstance(t, int) else _nbytes(t)
     if src is None:
-        _TRANSFERS["host_to_place"] += _nbytes(t)
+        _TRANSFERS["host_to_place"] += n
     elif src != dst:
-        n = _nbytes(t)
-        _TRANSFERS["between_places"] += n
-        _KIND_BYTES[kind] = _KIND_BYTES.get(kind, 0) + n
-        _KIND_COUNT[kind] = _KIND_COUNT.get(kind, 0) + 1
-        if _PLACE.scope is not None:
-            sc = _SCOPED.setdefault(_PLACE.scope, {"bytes": {}, "count": {}})
-            sc["bytes"][kind] = sc["bytes"].get(kind, 0) + n
-            sc["count"][kind] = sc["count"].get(kind, 0) + 1
+        count_moved(n, kind)
+
+
+def count_moved(nbytes: int, kind: str, times: int = 1) -> None:
+    """Count ``times`` hand-overs between places, ``nbytes`` in all, under
+    ``kind``."""
+    _TRANSFERS["between_places"] += nbytes
+    _KIND_BYTES[kind] = _KIND_BYTES.get(kind, 0) + nbytes
+    _KIND_COUNT[kind] = _KIND_COUNT.get(kind, 0) + times
+    if _PLACE.scope is not None:
+        sc = _SCOPED.setdefault(_PLACE.scope, {"bytes": {}, "count": {}})
+        sc["bytes"][kind] = sc["bytes"].get(kind, 0) + nbytes
+        sc["count"][kind] = sc["count"].get(kind, 0) + times
 
 
 class _Place(threading.local):
@@ -285,10 +292,10 @@ class _Place(threading.local):
         self.alias = False                    # ... that one card would not make
         self.scope: Optional[str] = None      # the step's part running now
         self.mirror: Tuple = (None, ())       # (a place, places whose alike work it stands for)
-        self.apart = False                    # hand-overs on one card copy, as between cards
 
 
 _PLACE = _Place()
+_APART = False        # hand-overs on one card copy, as between cards (every thread's)
 
 
 @contextlib.contextmanager
@@ -347,13 +354,15 @@ def places_apart():
     """Inside, a hand-over between two places on one device copies, as
     between two cards, so that each place holds its own tensors: a count
     of each place's memory on one card (``launch/dryrun.PlaceCount``) then
-    reads what the meta count reads a place."""
-    prev = _PLACE.apart
-    _PLACE.apart = True
+    reads what the meta count reads a place.  It holds for every thread,
+    the card's backward thread among them: a gradient handed back there
+    copies too."""
+    global _APART
+    prev, _APART = _APART, True
     try:
         yield
     finally:
-        _PLACE.apart = prev
+        _APART = prev
 
 
 def current_place() -> Tuple[Optional[int], bool, bool]:
@@ -392,7 +401,7 @@ def _moved(t, src, dst, device) -> torch.Tensor:
     would be between two cards; on one card it is the same memory (but
     inside :func:`places_apart`)."""
     device = torch.device(device)
-    copy = src != dst and (device.type == "meta" or _PLACE.apart)
+    copy = src != dst and (device.type == "meta" or _APART)
     with at_place(dst, forced=True, alias=copy):
         return _to(t, device, copy=copy)
 

@@ -54,13 +54,17 @@ hooks that the model's one body calls:
 A weight that the data axes cut too (FSDP) is assembled on each place
 that computes with it: once a step, or, for a stacked leaf, one layer at a
 time (:class:`Gathered`).  A replica's gradients are reduced to the places
-that own each block (:func:`reduce_grads`), never formed whole.
+that own each block, never formed whole: each owner collects its chunk of
+the block (:func:`reduce_grads`), and after the last replica every owner
+puts its block together from the chunks (:func:`gather_chunks`), as JAX's
+all-reduce runs.
 
 A hand-over is counted by ``sharding.hand`` under its kind: ``tp_in`` (an
 activation to a place), ``tp_sum`` (a partial home), ``tp_gather`` (a
 column block's output home), ``fsdp_gather`` (an FSDP block to a replica's
-place), ``grad_reduce`` (a gradient's part to its owner, an FSDP piece's in
-the layer's backward), ``seq_q``/``seq_partial``, ``moe``, ``state_in`` (a
+place), ``grad_reduce`` (a gradient's part to the owner of its chunk, an
+FSDP piece's in the layer's backward), ``grad_gather`` (a reduced chunk to
+the other owners of its block), ``seq_q``/``seq_partial``, ``moe``, ``state_in`` (a
 layer's input to a place that holds a copy of decode's state),
 ``cache_place`` (a prefill's cache to the places that hold it); ``_grad``
 after a kind marks the gradient handed back.  Nothing here reads a knob: the split
@@ -69,6 +73,7 @@ follows the specs and the mesh, and at model size 1 nothing is split.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from types import SimpleNamespace
@@ -80,9 +85,9 @@ import torch.nn.functional as F
 from repro_torch import tree
 from repro_torch.distributed.seq_parallel import _local_partial, lse_combine
 from repro_torch.distributed.sharding import (Mesh, NamedSharding, P, Placed, _moved,
-                                              _spec_axes, at_place, block_slices,
-                                              count_transfer, hand, mirrored, place,
-                                              work_scope)
+                                              _nbytes, _spec_axes, at_place, block_slices,
+                                              count_moved, count_transfer, hand, mirrored,
+                                              place, work_scope)
 
 MODEL = "model"
 HOOKED = ("attn", "mlp", "shared")   # dicts whose bodies run per place
@@ -814,11 +819,12 @@ def home_copy(p):
 
 @contextlib.contextmanager
 def alike_owners(on: bool = True):
-    """Inside (``on``), :func:`reduce_grads` hands each replica's gradients
-    to one of the owners that own the same block and hold none of them, and
-    counts every other such owner alike (its ``grad_reduce``, and on the dry
-    run's count its memory, ``sharding.mirrored``): the dry run's, whose
-    values are shapes alone."""
+    """Inside (``on``), :func:`gather_chunks` puts a block together at the
+    first of its owners and counts every other owner alike (the chunks
+    handed to it, ``grad_gather``, and on the dry run's count its memory,
+    ``sharding.mirrored``): the dry run's, whose values are shapes alone.
+    The reduce to the chunks' owners runs every owner: each collects its
+    own chunk."""
     prev = _HOLDERS.owners
     _HOLDERS.owners = on
     try:
@@ -998,102 +1004,222 @@ def _meet(region, outer):
     return None if any(s.start >= s.stop for s in out) else out
 
 
-def owner_blocks(params, owners) -> List[Placed]:
-    """float32 zeros for each leaf of ``params``, placed by ``owners`` (a
-    ``NamedSharding`` a leaf): the accumulators of :func:`reduce_grads`."""
+class _Cut:
+    """How a gradient of ``shape`` is reduced to the owners of its blocks
+    by ``sharding`` (the optimizer's): ``regions[i]``, the block place i
+    owns; ``groups``, each distinct block's owners in place order;
+    ``span[i]`` = (lo, hi), place i's chunk of its block, a range of the
+    block's flattened elements (a block of n elements over its O owners:
+    the k-th owner's ``[k c, (k+1) c)`` of c = ceil(n / O), the last
+    ragged, any past n empty); ``boxes[i]``, the chunk as boxes of the leaf
+    (its slices, where it starts in the chunk)."""
+
+    def __init__(self, shape, sharding: NamedSharding):
+        size = sharding.mesh.size
+        self.regions = [block_slices(sharding, shape, i) for i in range(size)]
+        first: Dict[tuple, List[int]] = {}
+        for i, r in enumerate(self.regions):
+            first.setdefault(r, []).append(i)
+        self.groups = list(first.values())
+        self.span, self.boxes = [None] * size, [None] * size
+        for group in self.groups:
+            region = self.regions[group[0]]
+            dims = [r.stop - r.start for r in region]
+            n = math.prod(dims)
+            c = -(-n // len(group))
+            for k, i in enumerate(group):
+                lo, hi = min(k * c, n), min((k + 1) * c, n)
+                self.span[i] = (lo, hi)
+                self.boxes[i] = [(tuple(slice(r.start + a, r.start + b)
+                                        for r, (a, b) in zip(region, box)), off)
+                                 for box, off in _flat_boxes(dims, lo, hi)]
+
+
+@functools.lru_cache(maxsize=4096)
+def _cut(shape: Tuple[int, ...], sharding: NamedSharding) -> _Cut:
+    return _Cut(shape, sharding)
+
+
+def _flat_boxes(dims, lo: int, hi: int) -> List[Tuple[Tuple[Tuple[int, int], ...], int]]:
+    """The elements ``[lo, hi)`` of a row-major array of ``dims`` as boxes
+    (each dimension's (start, stop)), with where each starts counted from
+    ``lo``: at most 2 len(dims) - 1 of them."""
+    if lo >= hi:
+        return []
+    if not dims:
+        return [((), 0)]
+    inner = math.prod(dims[1:])
+    a, b = divmod(lo, inner)
+    c, d = divmod(hi, inner)
+    rest = [(0, n) for n in dims[1:]]
+    if a == c:
+        return [(((a, a + 1), *box), off) for box, off in _flat_boxes(dims[1:], b, d)]
     out = []
-    for pp, sh in zip(tree.leaves(params), owners):
-        blocks = []
-        for i, dev in enumerate(sh.mesh.devices):
-            with at_place(i, forced=True):
-                blocks.append(torch.zeros([s.stop - s.start for s in
-                                           block_slices(sh, pp.shape, i)],
-                                          dtype=torch.float32, device=dev))
-        out.append(Placed(blocks, pp.shape, sh))
+    if b:
+        out += [(((a, a + 1), *box), off) for box, off in _flat_boxes(dims[1:], b, inner)]
+        a += 1
+    if c > a:
+        out.append((((a, c), *rest), a * inner - lo))
+    if d:
+        out += [(((c, c + 1), *box), c * inner - lo + off)
+                for box, off in _flat_boxes(dims[1:], 0, d)]
     return out
 
 
-def reduce_grads(params, sources, grads: List, owners, acc: Optional[List[Placed]] = None,
+def _chunk_parts(g: torch.Tensor, reg, cut: _Cut):
+    """For each owner whose chunk ``g`` (a gradient of the leaf's slices
+    ``reg``) meets: (the owner, ``[(part, where)]``), ``where`` None for
+    the whole chunk (in order), else (the box's start in the chunk, the
+    box, the part's slices of the leaf)."""
+    for group in cut.groups:
+        region = cut.regions[group[0]]
+        sub = _meet(region, reg)
+        if sub is None:
+            continue
+        flat = None
+        if sub == region:
+            r = g if reg == region else g[_rel(region, reg)]
+            flat = r.reshape(-1) if r.is_contiguous() else None
+        for i in group:
+            lo, hi = cut.span[i]
+            if lo == hi:
+                continue
+            if flat is not None:
+                yield i, [(flat[lo:hi], None)]
+                continue
+            parts = [(g[_rel(e, reg)], (off, box, e)) for box, off in cut.boxes[i]
+                     for e in [_meet(box, reg)] if e is not None]
+            if parts:
+                yield i, parts
+
+
+def _in_chunk(chunk: torch.Tensor, where) -> torch.Tensor:
+    """The view of ``chunk`` (flat) that a part lands in (``_chunk_parts``'
+    ``where``)."""
+    if where is None:
+        return chunk
+    off, box, e = where
+    shape = [s.stop - s.start for s in box]
+    return chunk[off:off + math.prod(shape)].view(shape)[_rel(e, box)]
+
+
+def owner_chunks(params, owners) -> List[List[Optional[torch.Tensor]]]:
+    """float32 zeros of each place's chunk of each leaf of ``params`` (a
+    tree of ``Placed``) as ``owners`` (a ``NamedSharding`` a leaf) places
+    its blocks (None for a chunk of nothing): the accumulators of
+    :func:`reduce_grads`, a leaf's whole block on none of its owners."""
+    out = []
+    for pp, sh in zip(tree.leaves(params), owners):
+        cut, chunks = _cut(tuple(pp.shape), sh), []
+        for i, dev in enumerate(sh.mesh.devices):
+            lo, hi = cut.span[i]
+            with at_place(i, forced=True):
+                chunks.append(torch.zeros(hi - lo, dtype=torch.float32, device=dev)
+                              if hi > lo else None)
+        out.append(chunks)
+    return out
+
+
+def reduce_grads(params, sources, grads: List, owners,
+                 acc: Optional[List[List[Optional[torch.Tensor]]]] = None,
                  mb: int = 1) -> Optional[List[Placed]]:
     """A replica's gradients (``grads``, in ``view_leaves`` order, lying
-    where ``grad_sources`` says; consumed) reduced to their owners: each
-    place, for each leaf, gets the part of every gradient that covers its
-    block by ``owners`` (the optimizer block it updates), handed to it
-    (``grad_reduce``).  With ``acc`` (from :func:`owner_blocks`) each part
-    is added to the place's block as the one-device microbatch loop adds a
-    microbatch, ``acc += g.float() / mb``, in the order of ``grads``;
-    without, the place's block is the part itself (one replica, one
-    microbatch: the sum of the parts where model places held copies), and
-    the blocks are returned as ``Placed`` leaves.  A gradient that covers
-    part of a block (a place's :class:`Pieces`) is added at its region.
-    Under :func:`alike_owners` one owner stands for the others of its
-    block."""
-    out, at = [], 0
+    where ``grad_sources`` says; consumed) reduced to their owners by
+    ``owners`` (the optimizer blocks), as JAX's all-reduce of a gradient
+    runs: a reduce-scatter, then an all-gather.  Each block is cut into a
+    chunk an owner (``_Cut``); each gradient hands each chunk's owner the
+    part that falls in its chunk (``grad_reduce``; nothing where it lies
+    there already), which adds it to the chunk.  With ``acc`` (from
+    :func:`owner_chunks`) a part is added as the one-device microbatch loop
+    adds a microbatch, ``acc += g.float() / mb``, in the order of
+    ``grads``, and :func:`gather_chunks` completes the blocks once every
+    replica has been reduced; without, a chunk is the part itself (one
+    replica, one microbatch: the sum of the parts where model places held
+    copies), and the blocks are gathered and returned as ``Placed``
+    leaves.  So every element of a block is the sum the whole leaf's
+    accumulator would hold, in the same order."""
+    chunked, at = acc if acc is not None else [], 0
     for n, (pp, srcs, sh) in enumerate(zip(tree.leaves(params), sources, owners)):
         gs = grads[at:at + len(srcs)]
         grads[at:at + len(srcs)] = [None] * len(srcs)
         at += len(srcs)
-        regions = [block_slices(sh, pp.shape, i) for i in range(sh.mesh.size)]
-        stand = (_stand_ins(regions, {src for src, _ in srcs}) if _HOLDERS.owners
-                 else {i: () for i in range(sh.mesh.size)})
-        blocks = {}
-        for i, dev in enumerate(sh.mesh.devices):
-            if i not in stand:
-                continue
-            region, others = regions[i], stand[i]
-            total, covered = None, 0
-            for (src, reg), g in zip(srcs, gs):
-                inter = _meet(region, reg)
-                if inter is None:
-                    continue
-                with mirrored(i, others) if others else _ALONE:
-                    part = hand(g if inter == reg else g[_rel(inter, reg)], src, i, dev,
-                                "grad_reduce")
-                for j in others:
-                    count_transfer(part, src, j, "grad_reduce")
-                dst = None if inter == region else _rel(inter, region)
-                covered += part.numel()
-                with at_place(i, forced=True), mirrored(i, others) if others else _ALONE:
-                    if acc is not None:
-                        blk = acc[n].blocks[i]
-                        (blk if dst is None else blk[dst]).add_(part.float() / mb)
-                    elif dst is not None:
-                        if total is None:
-                            total = torch.zeros([s.stop - s.start for s in region],
-                                                dtype=part.dtype, device=dev)
-                        total[dst] += part
-                    elif total is None:
-                        total = part if part.shape == g.shape else part.clone()
-                    else:
-                        total = total + part
-            if acc is None:
-                if total is None or covered < total.numel():
-                    raise ValueError(f"no gradient covers block {region} of {pp!r}")
-                blocks.update({j: total for j in (i, *others)})
+        cut = _cut(tuple(pp.shape), sh)
+        chunks = acc[n] if acc is not None else [None] * sh.mesh.size
+        covered = [0] * sh.mesh.size
+        for k, (src, reg) in enumerate(srcs):
+            g, gs[k] = gs[k], None
+            for i, parts in _chunk_parts(g, reg, cut):
+                dev = sh.mesh.devices[i]
+                count_transfer(sum(t.numel() for t, _ in parts) * g.element_size(), src, i,
+                               "grad_reduce")
+                for part, where in parts:
+                    part = _moved(part, src, i, dev)
+                    covered[i] += part.numel()
+                    with at_place(i, forced=True):
+                        if acc is not None:
+                            _in_chunk(chunks[i], where).add_(part.float() / mb)
+                        elif where is None and chunks[i] is None:
+                            chunks[i] = (part.clone() if part.numel() < g.numel()
+                                         and part._is_view() else part)
+                        elif where is None:
+                            chunks[i] = chunks[i] + part
+                        else:
+                            if chunks[i] is None:
+                                lo, hi = cut.span[i]
+                                chunks[i] = torch.zeros(hi - lo, dtype=part.dtype, device=dev)
+                            _in_chunk(chunks[i], where).add_(part)
+            del g
+        for i, (lo, hi) in enumerate(cut.span):
+            if acc is None and covered[i] < hi - lo:
+                raise ValueError(f"no gradient covers chunk {(lo, hi)} of block "
+                                 f"{cut.regions[i]} of {pp!r}")
         del gs
         if acc is None:
-            out.append(Placed([blocks[i] for i in range(sh.mesh.size)], pp.shape, sh))
-    return None if acc is not None else out
+            chunked.append(chunks)
+    return None if acc is not None else gather_chunks(params, chunked, owners)
+
+
+def gather_chunks(params, chunks: List[List[Optional[torch.Tensor]]], owners) -> List[Placed]:
+    """Each owner's gradient block put together from its block's chunks
+    (:func:`reduce_grads`), each handed to it by its owner (``grad_gather``;
+    consumed): the ``Placed`` leaves of the step's gradients.  A block of
+    one owner is its chunk.  Under :func:`alike_owners` the first owner of
+    a block puts it together and stands for the others, which are alike."""
+    out = []
+    for pp, ch, sh in zip(tree.leaves(params), chunks, owners):
+        cut, blocks = _cut(tuple(pp.shape), sh), [None] * sh.mesh.size
+        for group in cut.groups:
+            shape = [r.stop - r.start for r in cut.regions[group[0]]]
+            if len(group) == 1:
+                blocks[group[0]] = ch[group[0]].view(shape)
+                continue
+            held = [k for k in group if ch[k] is not None]
+            alike = _HOLDERS.owners
+            for j in group[:1] if alike else group:
+                others = tuple(group[1:]) if alike else ()
+                dev = sh.mesh.devices[j]
+                with at_place(j, forced=True), mirrored(j, others) if others else _ALONE:
+                    blk = torch.empty(shape, dtype=ch[held[0]].dtype, device=dev)
+                flat = blk.view(-1)
+                for k in held:
+                    lo, hi = cut.span[k]
+                    count_transfer(ch[k], k, j, "grad_gather")
+                    with at_place(j, forced=True):
+                        flat[lo:hi].copy_(ch[k])
+                total = sum(_nbytes(ch[k]) for k in held) if others else 0
+                for r in others:
+                    own = ch[r] is not None
+                    count_moved(total - (_nbytes(ch[r]) if own else 0), "grad_gather",
+                                len(held) - own)
+                for r in (j, *others):
+                    blocks[r] = blk
+            for k in group:
+                ch[k] = None
+        out.append(Placed(blocks, pp.shape, sh))
+    return out
 
 
 _ALONE = contextlib.nullcontext()
-
-
-def _stand_ins(regions, sources) -> Dict[int, Tuple[int, ...]]:
-    """Each place that runs its share of a reduce, and the places it stands
-    for (:func:`alike_owners`): the first of the places owning one block and
-    holding none of the gradients stands for the rest; every other place
-    for itself alone."""
-    first: Dict[tuple, int] = {}
-    out: Dict[int, list] = {}
-    for i, r in enumerate(regions):
-        if i not in sources and r in first:
-            out[first[r]].append(i)
-            continue
-        if i not in sources:
-            first[r] = i
-        out[i] = []
-    return {i: tuple(o) for i, o in out.items()}
 
 
 # ===========================================================================

@@ -16,7 +16,9 @@ places, and counts:
     one meta device, where a hand-over between two places makes a copy, as
     between two cards.  ``peak_bytes_one_device`` is the peak of the storages
     that one card holding every place would hold (the hand-overs' copies left
-    out: on one card they are the same memory);
+    out: on one card they are the same memory).  The count reads operands,
+    not threads: on the card, whose autograd runs the backward on a thread
+    of its own, it gives each place what it gives on meta;
   * ``flops``: each place's, from ``torch.utils.flop_counter``'s formulas
     (the flash kernel's registered with its custom op), and the total from a
     ``FlopCounterMode`` around the step: the two must agree;
@@ -50,6 +52,7 @@ import dataclasses
 import gc
 import json
 import os
+import threading
 import time
 import traceback
 import weakref
@@ -229,12 +232,26 @@ class PlaceCount(TorchDispatchMode):
     there too.  Plain
     pointwise ops and ``cat`` on meta tensors make their results directly
     (``_plain_result``, ``_plain_cat``), with the metadata the kernels
-    give."""
+    give.
 
-    def __init__(self, n_places: int):
+    An op is charged to the place of its operands' storages, whichever
+    thread runs it (the card's autograd runs the backward on a thread of
+    its own, the meta device's on the caller's): a storage made inside is
+    where its op was charged, one of ``held`` (a tree of ``Placed``, placed
+    before the count began: the parameters and the optimizer state) on its
+    block's place.  ``sharding.at_place`` is read where it is set on the
+    thread that runs the op: forced (a copy landing on a place), or for an
+    op with no operand the count knows.  The step's part is the one
+    ``work_scope`` names on the thread that entered the count, and on any
+    other thread the one the op's operands were made in."""
+
+    def __init__(self, n_places: int, held=None):
         super().__init__()
         self.n = n_places
-        self.where: Dict[int, tuple] = {}     # storage -> (bytes, places, copy, rep)
+        self.where: Dict[int, tuple] = {}     # storage -> (bytes, places, copy, rep, scope)
+        self.held_at = {b.untyped_storage()._cdata: i for pp in tree.leaves(held or {})
+                        if isinstance(pp, Placed) for i, b in enumerate(pp.blocks)}
+        self.thread: Optional[int] = None     # the thread that entered the count
         self.live = [0] * n_places
         self.peak = [0] * n_places
         self.rep_live = [0] * n_places
@@ -249,8 +266,13 @@ class PlaceCount(TorchDispatchMode):
     def flops(self) -> List[int]:
         return [sum(v[i] for v in self.flops_by.values()) for i in range(self.n)]
 
+    def __enter__(self):
+        if self.thread is None:
+            self.thread = threading.get_ident()
+        return super().__enter__()
+
     def _release(self, key: int) -> None:
-        nbytes, places, copy, rep = self.where.pop(key)
+        nbytes, places, copy, rep, _ = self.where.pop(key)
         for place in places:
             self.live[place] -= nbytes
             if rep:
@@ -262,13 +284,22 @@ class PlaceCount(TorchDispatchMode):
         place, forced, _ = current_place()
         if forced:
             return place
-        held = [self.where[k][1][0] for k in keys if k in self.where]
+        held = [self.where[k][1][0] if k in self.where else self.held_at[k]
+                for k in keys if k in self.where or k in self.held_at]
         if not held or place in held:
             return 0 if place is None else place
         return held[0]
 
+    def _scope_of(self, keys) -> Optional[str]:
+        if threading.get_ident() == self.thread:
+            return current_scope()
+        return next((self.where[k][4] for k in keys
+                     if k in self.where and self.where[k][4] is not None), None)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.is_view:                # no storage of its own, no FLOPs
+            return func(*args, **kwargs)
         out = _plain_result(func, args, kwargs)
         if out is None:
             out = _plain_cat(func, args, kwargs)
@@ -278,7 +309,7 @@ class PlaceCount(TorchDispatchMode):
         if kwargs:
             keys.update(t.untyped_storage()._cdata for t in _tensors(kwargs))
         place = self._place_of(keys)
-        scope = current_scope()
+        scope = self._scope_of(keys)
         rep = scope == "replica"
         if rep and self.base is None:
             self.base = list(self.live)
@@ -297,7 +328,7 @@ class PlaceCount(TorchDispatchMode):
             if key in self.where or key in keys:    # a view or an in-place result
                 continue
             nbytes = st.nbytes()
-            self.where[key] = (nbytes, places, alias, rep)
+            self.where[key] = (nbytes, places, alias, rep, scope)
             for p in places:
                 self.live[p] += nbytes
                 self.peak[p] = max(self.peak[p], self.live[p])
@@ -475,8 +506,8 @@ def _run_step(mesh, rules_d, shape, cfg, tc, args, in_sh,
     host (its last ``replicas`` data replicas; all where None; a decode's
     replicated states updated at home and ``holders`` more of the places
     that hold them, the rest counted alike: ``tensor_parallel.run_holders``;
-    with ``owners`` 1 a gradient's alike owners counted from one:
-    ``tensor_parallel.alike_owners``)."""
+    with ``owners`` 1 the owners that a gradient's block is gathered to
+    counted from one: ``tensor_parallel.alike_owners``)."""
     from repro_torch.models import build_model
     with use_rules(rules_d), set_mesh(mesh), tp.alike_owners(owners == 1):
         if shape.kind == "train":
@@ -619,15 +650,16 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, moe_local: bool = Fa
     FLOPs and the peak of what the run replica's work made on its place of
     the same model index (over what it held before the replicas began: a
     train step's gradient accumulators at each owner among it), and the
-    replicas' hand-overs, to place 0 and of their gradients to each owner's
-    block (``tensor_parallel.reduce_grads``), count once a replica.
+    replicas' hand-overs, to place 0 and of their gradients to each chunk's
+    owner (``tensor_parallel.reduce_grads``), count once a replica; the
+    gather of each block from its chunks runs once a step.
     ``replicas=None`` runs every replica.  Likewise the places that hold
     copies of a decode's replicated states, each updating its own, are
     alike: home and ``holders`` more run, and each further holder is
     charged the last one's work (``sharding.mirrored``: its FLOPs, its
     memory as it runs, its ``state_in``); ``holders=None`` runs every one.
-    So are the places that own one block of a gradient and hold none of
-    it: one takes each replica's parts and stands for the rest
+    So are the owners of one block of a gradient as its chunks are gathered
+    to them: one puts its block together and stands for the rest
     (``owners=1``; None runs every one).
     ``check_flops`` runs a ``FlopCounterMode`` around the step too, whose
     total must equal the sum of the places' counts (a third more time).

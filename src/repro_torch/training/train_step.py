@@ -225,15 +225,18 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
     place computes with its own blocks of the weights the model axis cuts;
     no such block is gathered whole; FSDP's cuts over the data places are
     assembled per model block, a stacked leaf's one layer at a time).  Each
-    microbatch's gradients are reduced to their owners
-    (``tensor_parallel.reduce_grads``): every place gets, of every leaf,
-    the part that covers its optimizer block (``opt_specs``' m block for
-    AdamW, ZeRO-1's 1/D; else its parameter block) from each replica that
-    computed it, and adds it as the one-device loop adds a microbatch,
+    microbatch's gradients are reduced to their owners as JAX's all-reduce
+    runs (``tensor_parallel.reduce_grads``): every place owns a chunk of
+    its optimizer block (``opt_specs``' m block for AdamW, ZeRO-1's 1/D;
+    else its parameter block), gets the part of each replica's gradient
+    that covers it and adds it as the one-device loop adds a microbatch,
     ``acc += g.float() / mb`` with mb = replicas x ``tc.microbatches``, in
-    the loop's order (replica-major, then microbatch); an FSDP piece's part
-    comes back to it in the backward.  No place holds a whole gradient of a
-    leaf its specs cut.  The leaf-wide work runs on those blocks: int8
+    the loop's order (replica-major, then microbatch); after the last
+    replica each owner's block is put together from its chunks
+    (``tensor_parallel.gather_chunks``).  An FSDP piece's part comes back
+    to it in the backward.  No place holds a whole gradient of a leaf its
+    specs cut, nor, while the replicas run, more than its chunk of any
+    leaf.  The leaf-wide work runs on those blocks: int8
     error feedback's scale is the maximum of the blocks' maxima (exact), each
     place compressing its block against its own ``ef_err`` block; the clip
     norm sums each distinct block's sum of squares in leaf and place order
@@ -257,7 +260,7 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
     ``replicas`` runs only the last that many data replicas (their
     gradients divided as if all ran): the dry run on the meta device, whose
     replicas are alike, runs one (``launch/dryrun.py``); each replica's work
-    is marked ``work_scope("replica")``, its reduce to the owners
+    is marked ``work_scope("replica")``, its reduce to the chunks' owners
     ``work_scope("sink")``.  The step's two halves are its attributes:
     ``compute_grads(params, batch) -> (loss, metrics, grads)``, the
     gradients a list of ``Placed`` leaves (each place's reduced block), and
@@ -287,7 +290,7 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
         k = max(tc.microbatches, 1)
         mb = len(replicas) * k
         n_run = len(replicas) if n_replicas is None else n_replicas
-        acc = None if mb <= 1 else tp.owner_blocks(params, owners)
+        acc = None if mb <= 1 else tp.owner_chunks(params, owners)
         loss_acc = torch.zeros((), dtype=torch.float32, device=home)
         for q in replicas[len(replicas) - n_run:]:
             with work_scope("replica"):
@@ -309,7 +312,8 @@ def make_placed_train_step(model: Model, tc: TrainConfig, mesh: Mesh,
                                  for key, v in metrics.items()}, out)
                     loss_acc = loss_acc + hand(loss, q, 0, home, "metrics") / mb
             del view
-        return loss_acc, {"ce": loss_acc, "aux": torch.zeros_like(loss_acc)}, acc
+        return (loss_acc, {"ce": loss_acc, "aux": torch.zeros_like(loss_acc)},
+                tp.gather_chunks(params, acc, owners))
 
     def ef_blocks(g: Placed, err: Placed) -> None:
         """int8 error feedback on each place's block of one leaf: the

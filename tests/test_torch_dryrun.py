@@ -250,12 +250,13 @@ def test_one_holder_counts_as_all(arch, shape):
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "zamba2-2.7b"])
 def test_one_owner_counts_as_all(arch):
-    """The places that own one block of a gradient and hold none of it are
-    alike: the dry run reduces each replica's parts to one of them and
-    charges the others alike (``owners=1``, ``tensor_parallel.alike_owners``).
-    A reduced train cell (AdamW: every place owns each replicated leaf
-    whole) counted so equals its run with every owner run: FLOPs, the peak
-    and bytes moved a place, by kind, and the hand-overs' count."""
+    """The owners of one block of a gradient are alike as its reduced
+    chunks are gathered to them: the dry run puts the block together at one
+    of them and charges the others alike (``owners=1``,
+    ``tensor_parallel.alike_owners``).  A reduced train cell (AdamW: every
+    place owns each replicated leaf whole) counted so equals its run with
+    every owner run: FLOPs, the peak and bytes moved a place, by kind, and
+    the hand-overs' count."""
     one = dryrun.lower_cell(arch, "train_4k", False, reduce=True)
     every = dryrun.lower_cell(arch, "train_4k", False, reduce=True, owners=None)
     for key in ("flops", "memory", "transfer_bytes", "transfers"):
@@ -263,22 +264,40 @@ def test_one_owner_counts_as_all(arch):
     assert one["transfer_bytes"]["grad_reduce"] > 0
 
 
+def _replica_peaks(monkeypatch, counts: list):
+    """``dryrun.PlaceCount`` recording each count it makes in ``counts``."""
+    class Kept(dryrun.PlaceCount):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            counts.append(self)
+
+    monkeypatch.setattr(dryrun, "PlaceCount", Kept)
+
+
 def test_hybrid_train_cell_saves_each_place_its_channels(monkeypatch):
     """Reduced zamba2 train_4k on (4, 2) meta places, remat "dots" (every
     matrix product of the SSD saved for the backward): with the SSD's
     channels split over the model places each place holds its half of
-    them, so place 0's peak falls and place 1's rises, to within a tenth of
-    each other; with the split off (``ssm_inner`` unbound: the mixer at
-    home) place 0 holds them all.  The FLOPs of the two places come within
-    a fifth of each other, the total within 5% of the unsplit run's."""
+    them, so while the replica runs (what a place held before it, and the
+    peak of what its work made: ``PlaceCount.base`` + ``rep_peak`` at the
+    run replica's two places) place 0's peak falls and place 1's rises, to
+    within a tenth of each other; with the split off (``ssm_inner``
+    unbound: the mixer at home) place 0 holds them all, and its peak in the
+    record falls with the split too.  The FLOPs of the two places come
+    within a fifth of each other, the total within 5% of the unsplit
+    run's."""
     from repro_torch.models import ssm
+    counts = []
+    _replica_peaks(monkeypatch, counts)
     split = dryrun.lower_cell("zamba2-2.7b", "train_4k", False, reduce=True)
     real = ssm.split_dims
     monkeypatch.setattr(ssm, "split_dims", lambda shapes: (real(shapes)[0] + 1,
                                                           *real(shapes)[1:]))
     home = dryrun.lower_cell("zamba2-2.7b", "train_4k", False, reduce=True)
     assert split["train_posture"]["remat"] == "dots"
-    sp, hp = split["memory"]["peak_bytes_per_place"], home["memory"]["peak_bytes_per_place"]
+    assert split["memory"]["peak_bytes_per_place"][0] < home["memory"]["peak_bytes_per_place"][0]
+    run = [6, 7]                           # the last replica's places, the one run
+    sp, hp = ([c.base[i] + c.rep_peak[i] for i in run] for c in counts)
     assert sp[0] < hp[0] and sp[1] > hp[1]
     assert abs(sp[0] - sp[1]) < 0.1 * sp[1] < hp[0] - hp[1]
     sf, hf = split["flops"]["per_place"], home["flops"]["per_place"]
